@@ -1,0 +1,362 @@
+"""Plan/execute API: prepare a clustering problem once, fit it many times.
+
+    spec = ClusterSpec(k=64, seeder="rejection", seed=0)
+    plan = ClusterPlan(spec, ExecutionSpec(backend="device"))   # on cuda
+    res  = plan.fit(points)       # prepare (cached by fingerprint) + solve
+    res2 = plan.refit(seed=7)     # solve stage only: no re-prepare
+
+Three stages, as in the JAX package's `core/plan.py`:
+
+  * **plan** — `ClusterSpec` (algorithm parameters) and `ExecutionSpec`
+    (backend, device, dtype, tile) are frozen dataclasses; a `ClusterPlan`
+    binds them to one `BackendImpl` from the registry.
+  * **prepare** — the host work (Appendix-F quantisation, multi-tree codes,
+    LSH keys, device upload) runs once per data fingerprint and is cached.
+    The rng draws it consumes are snapshotted, and they are the JAX
+    package's draws in its order, so the artifacts are bit-identical.
+  * **execute** — `fit` / `refit` / `fit_prepared` run only the sampling
+    stage against the cached artifacts.
+
+The device is explicit: `ExecutionSpec.device` defaults to ``"cuda"`` and a
+plan raises when CUDA is absent, unless the caller asked for ``"cpu"`` —
+then every kernel wrapper runs its plain PyTorch version.  Results are
+`FitResult`s holding tensors on that device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import threading
+import time
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core import registry
+from repro_torch.core.batch_schedule import BatchSchedule
+from repro_torch.core.lloyd import lloyd
+from repro_torch.core.preprocess import quantize
+
+__all__ = [
+    "ClusterSpec",
+    "ExecutionSpec",
+    "ClusterPlan",
+    "FitResult",
+    "PreparedData",
+    "ensure_host_f64",
+    "data_fingerprint",
+    "resolve_device",
+]
+
+
+def ensure_host_f64(points) -> np.ndarray:
+    """Float64 C-contiguous host array of `points` (NumPy or a tensor on
+    any device), copying only when the input does not conform."""
+    if isinstance(points, torch.Tensor):
+        points = points.detach().cpu().numpy()
+    return np.ascontiguousarray(points, dtype=np.float64)
+
+
+def data_fingerprint(points) -> str:
+    """Content fingerprint keying the prepare cache (blake2b over the
+    shape, dtype and every byte of the host copy)."""
+    arr = ensure_host_f64(points)
+    h = hashlib.blake2b(digest_size=16)
+    h.update(repr((arr.shape, str(arr.dtype))).encode())
+    h.update(arr.tobytes())
+    return h.hexdigest()
+
+
+def resolve_device(name) -> torch.device:
+    """`torch.device(name)`, raising when CUDA is asked for and absent: the
+    port never falls back to the CPU on its own."""
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {name!r} requested but CUDA is not available; pass "
+            "ExecutionSpec(device='cpu') to run the plain versions on the CPU")
+    return dev
+
+
+def _freeze_options(options) -> tuple:
+    if isinstance(options, dict):
+        return tuple(sorted(options.items()))
+    return tuple(options)
+
+
+@dataclasses.dataclass(frozen=True)
+class ClusterSpec:
+    """Algorithm parameters: *what* to solve (frozen, hashable)."""
+
+    k: int
+    seeder: str = "rejection"           # a `registry.SEEDER_SPECS` key
+    c: float = 2.0                      # LSH approximation factor
+    schedule: Optional[BatchSchedule] = None
+    lloyd_iters: int = 0                # 0 = seeding only
+    quantize: bool = True               # Appendix-F aspect-ratio control
+    seed: int = 0
+    options: tuple = ()                 # extra seeder kwargs, (key, value)*
+
+    def __post_init__(self):
+        object.__setattr__(self, "options", _freeze_options(self.options))
+        if self.k < 1:
+            raise ValueError(f"k must be >= 1, got {self.k}")
+
+    def options_dict(self) -> dict:
+        """The extra seeder options as a fresh dict."""
+        return dict(self.options)
+
+
+@dataclasses.dataclass(frozen=True)
+class ExecutionSpec:
+    """Execution placement: *where/how* to solve (frozen, hashable).
+
+    `device` is where the artifacts live and the kernels run: ``"cuda"``
+    (the default) launches the hand-written kernels, ``"cpu"`` runs their
+    plain PyTorch versions.  `tile` is the sweep kernel's tile of points
+    (a multiple of 32, at most 1024).
+    """
+
+    backend: str = "device"
+    device: str = "cuda"
+    dtype: str = "float32"
+    tile: int = 512
+
+    def __post_init__(self):
+        if self.backend not in registry.BACKENDS:
+            raise ValueError(f"unknown backend {self.backend!r}; expected "
+                             f"{registry.BACKENDS}")
+
+
+@dataclasses.dataclass
+class FitResult:
+    """Clustering result: tensors on the device the solve ran on.
+
+    `centers` are in original coordinates regardless of the quantised
+    seeding space; `cost` is a 0-d f32 tensor.
+    """
+
+    indices: Any                  # (k,) int32
+    centers: Any                  # (k, d)
+    cost: Any                     # scalar f32
+    k: int = 0
+    prepare_seconds: float = 0.0  # of the (cached) prepare this fit used
+    solve_seconds: float = 0.0
+    extras: dict = dataclasses.field(default_factory=dict)
+
+    def to_numpy(self) -> "FitResult":
+        """Host copy: the same FitResult with NumPy arrays and a float."""
+        return dataclasses.replace(
+            self, indices=self.indices.cpu().numpy().astype(np.int64),
+            centers=self.centers.cpu().numpy(), cost=float(self.cost))
+
+    def predict(self, points) -> torch.Tensor:
+        """Nearest-center index per point, (n,) int32 on the centers'
+        device (expanded BLAS form in the centers' dtype)."""
+        pts = torch.as_tensor(points, dtype=self.centers.dtype,
+                              device=self.centers.device)
+        return torch.argmin(_pairwise_d2(pts, self.centers),
+                            dim=1).to(torch.int32)
+
+
+def _pairwise_d2(points: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
+    """(n, k) squared distances, expanded BLAS form (shared by predict and
+    the cost)."""
+    d2 = ((points ** 2).sum(dim=1, keepdim=True)
+          - 2.0 * points @ centers.T
+          + (centers ** 2).sum(dim=1)[None, :])
+    return d2.clamp_min(0.0)
+
+
+def _cost_program(points: torch.Tensor, centers: torch.Tensor,
+                  chunk: int = 65536) -> torch.Tensor:
+    """sum_x min_c ||x - c||^2 as a 0-d tensor, in row chunks so the
+    (rows, k) distance block stays bounded."""
+    total = torch.zeros((), dtype=points.dtype, device=points.device)
+    for lo in range(0, points.shape[0], chunk):
+        d2 = _pairwise_d2(points[lo: lo + chunk], centers)
+        total += d2.min(dim=1).values.sum()
+    return total
+
+
+@dataclasses.dataclass
+class PreparedData:
+    """One data fingerprint's cached prepare-stage output."""
+
+    fingerprint: str
+    pts: np.ndarray                   # original coords, host float64
+    seed_pts: np.ndarray              # seeding-space coords (maybe quantised)
+    resolution: Optional[float]       # quantisation grid passed to seeders
+    artifacts: Any                    # BackendImpl.prepare output
+    rng_state: dict                   # np.Generator state after prep draws
+    prepare_seconds: float
+    points_dev: Any = None            # device copy for gather/cost
+
+
+def _load_backend(backend: str) -> None:
+    """Importing a backend module registers its impls (idempotent)."""
+    if backend == "device":
+        import repro_torch.core.device_seeding  # noqa: F401
+
+
+class ClusterPlan:
+    """A clustering problem bound to a backend: prepare once, fit many times.
+
+    Construction validates the (seeder, backend) pair against the registry
+    and the device against the machine; `prepare` caches host artifacts by
+    data fingerprint; `fit`/`refit`/`fit_prepared` run the solve stage.
+    """
+
+    def __init__(self, cluster: ClusterSpec,
+                 execution: Optional[ExecutionSpec] = None):
+        if not isinstance(cluster, ClusterSpec):
+            raise TypeError(f"expected ClusterSpec, got "
+                            f"{type(cluster).__name__}")
+        execution = execution if execution is not None else ExecutionSpec()
+        _load_backend(execution.backend)
+        spec = registry.get_seeder_spec(cluster.seeder)
+        self.cluster = cluster
+        self.execution = execution
+        self.device = resolve_device(execution.device)
+        self.caps = spec.caps
+        self.impl = spec.impl(execution.backend)
+        self._prepared: dict[str, PreparedData] = {}
+        self._active: Optional[PreparedData] = None
+        self._lock = threading.Lock()      # cache dict + stats counters
+        self.stats = {"prepare_calls": 0, "prepare_hits": 0,
+                      "prepare_builds": 0, "solves": 0}
+
+    # -- prepare stage ------------------------------------------------------
+
+    def prepare(self, points) -> "ClusterPlan":
+        """Build (or fetch) the artifacts for `points` and make them the
+        plan's active data.  Returns the plan for chaining."""
+        prep = self.prepare_data(points)
+        with self._lock:
+            self._active = prep
+        return self
+
+    def prepare_data(self, points) -> PreparedData:
+        """Thread-safe prepare returning an explicit `PreparedData` handle
+        (the plan's active data is left alone).  Re-preparing the same data
+        is a cache hit that does no host work."""
+        fp = data_fingerprint(points)
+        with self._lock:
+            self.stats["prepare_calls"] += 1
+            prep = self._prepared.get(fp)
+            if prep is not None:
+                self.stats["prepare_hits"] += 1
+                return prep
+        prep = self._build_prepared(fp, points)
+        with self._lock:
+            cur = self._prepared.get(fp)
+            if cur is not None:            # lost a same-data build race
+                self.stats["prepare_hits"] += 1
+                return cur
+            self._prepared[fp] = prep
+            self.stats["prepare_builds"] += 1
+        return prep
+
+    def _build_prepared(self, fp: str, points) -> PreparedData:
+        t0 = time.perf_counter()
+        pts = ensure_host_f64(points)
+        rng = np.random.default_rng(self.cluster.seed)
+        options = self.cluster.options_dict()
+        seed_pts, resolution = pts, options.get("resolution")
+        if self.caps.needs_quantize and self.cluster.quantize:
+            seed_pts = quantize(pts, rng).points
+            resolution = options.get("resolution", 1.0)
+        artifacts = self.impl.prepare(seed_pts, rng, resolution=resolution,
+                                      options=options,
+                                      execution=self.execution)
+        return PreparedData(
+            fingerprint=fp, pts=pts, seed_pts=seed_pts,
+            resolution=resolution, artifacts=artifacts,
+            rng_state=rng.bit_generator.state,
+            prepare_seconds=time.perf_counter() - t0,
+            points_dev=torch.as_tensor(pts, dtype=getattr(
+                torch, self.execution.dtype), device=self.device))
+
+    def cache_info(self) -> dict:
+        """Prepare-cache statistics (hits, builds, solves, entries)."""
+        with self._lock:
+            return dict(self.stats, entries=len(self._prepared))
+
+    def _require(self, points) -> PreparedData:
+        if points is not None:
+            self.prepare(points)
+        with self._lock:
+            active = self._active
+        if active is None:
+            raise RuntimeError("no prepared data: call plan.prepare(points) "
+                               "or plan.fit(points) first")
+        return active
+
+    # -- execute stage ------------------------------------------------------
+
+    def fit(self, points=None, *, seed: Optional[int] = None) -> FitResult:
+        """Seed (+ optional Lloyd) on `points`, or on the prepared data.
+
+        With `seed` unset (or equal to the spec's) the prepare-time rng
+        snapshot is replayed, so the solve takes the draw the JAX package's
+        solve takes; another `seed` reseeds the solve stage only.
+        """
+        return self._execute(self._require(points), self.cluster.k, seed)
+
+    def refit(self, *, k: Optional[int] = None,
+              seed: Optional[int] = None) -> FitResult:
+        """Re-run the solve stage on the already-prepared data: no host
+        re-preparation."""
+        with self._lock:
+            active = self._active
+        if active is None:
+            raise RuntimeError("refit() needs a prior prepare()/fit(points)")
+        return self._execute(active, k or self.cluster.k, seed)
+
+    def fit_prepared(self, prepared: PreparedData, *,
+                     k: Optional[int] = None,
+                     seed: Optional[int] = None) -> FitResult:
+        """Solve against an explicit `prepare_data` handle (no implicit
+        active-data state); same seed semantics as `fit`."""
+        return self._execute(prepared, k or self.cluster.k, seed)
+
+    def _solve_rng(self, prep: PreparedData,
+                   seed: Optional[int]) -> np.random.Generator:
+        rng = np.random.default_rng(
+            self.cluster.seed if seed is None else seed)
+        if seed is None or seed == self.cluster.seed:
+            rng.bit_generator.state = prep.rng_state
+        return rng
+
+    def _execute(self, prep: PreparedData, k: int,
+                 seed: Optional[int]) -> FitResult:
+        t0 = time.perf_counter()
+        with self._lock:
+            self.stats["solves"] += 1
+        options = self.cluster.options_dict()
+        options.pop("resolution", None)
+        idx, extras = self.impl.solve(
+            prep.artifacts, prep.seed_pts, k, self._solve_rng(prep, seed),
+            c=self.cluster.c, schedule=self.cluster.schedule,
+            options=options, execution=self.execution)
+        centers = prep.points_dev[idx.long()]
+        if self.cluster.lloyd_iters > 0:
+            host_idx = idx.cpu().numpy().astype(np.int64)
+            refinement = lloyd(prep.pts, prep.pts[host_idx],
+                               max_iters=self.cluster.lloyd_iters)
+            centers = torch.as_tensor(refinement.centers,
+                                      dtype=centers.dtype,
+                                      device=centers.device)
+            cost = torch.tensor(refinement.cost, dtype=torch.float32,
+                                device=centers.device)
+            extras = dict(extras, lloyd_iterations=refinement.iterations)
+        else:
+            cost = _cost_program(prep.points_dev, centers)
+        if cost.is_cuda:        # solve_seconds covers the device work too
+            torch.cuda.synchronize(cost.device)
+        return FitResult(indices=idx, centers=centers, cost=cost, k=k,
+                         prepare_seconds=prep.prepare_seconds,
+                         solve_seconds=time.perf_counter() - t0,
+                         extras=extras)

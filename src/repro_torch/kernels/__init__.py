@@ -1,0 +1,12 @@
+"""Kernel layer: hand-written CUDA kernels (`csrc/`), their plain PyTorch
+versions (`ref.py`) and the padding/dispatch wrappers (`ops.py`)."""
+
+from repro_torch.kernels.ops import (  # noqa: F401
+    LSH_MISS,
+    launch_counts,
+    lsh_bucket_accept,
+    reset_launch_counts,
+    split_codes_u64,
+    tree_sep_update,
+    tree_sep_update_tiles,
+)

@@ -1,0 +1,142 @@
+"""Plain PyTorch versions of the hand-written kernels (the correctness oracles).
+
+Each function computes what its CUDA twin computes, in the same dtype and
+with the same elementwise order.  The wrappers in `ops.py` run them for CPU
+tensors, `chip_smoke.py` holds every kernel against them on the card, and
+the tests hold them against the JAX package's `kernels/ref.py` oracles,
+which they mirror one for one.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = [
+    "LSH_MISS",
+    "tile_sums_ref",
+    "tree_sep_update_ref",
+    "tree_sep_update_tiles_ref",
+    "lsh_bucket_min_ref",
+    "lsh_bucket_accept_ref",
+    "lsh_bucket_accept_penalty_ref",
+]
+
+LSH_MISS = 3.0e38  # "no colliding center" sentinel (finite in f32)
+
+
+def tile_sums_ref(w: torch.Tensor, block_n: int) -> torch.Tensor:
+    """Per-tile weight sums — the `_tiles` kernel's epilogue oracle."""
+    return w.reshape(-1, block_n).sum(dim=1)
+
+
+def tree_sep_update_ref(
+    codes_lo: torch.Tensor,   # (H, n) int32 — low 32 bits of cell codes
+    codes_hi: torch.Tensor,   # (H, n) int32 — high 32 bits
+    center_lo: torch.Tensor,  # (H,) int32
+    center_hi: torch.Tensor,  # (H,) int32
+    w: torch.Tensor,          # (n,) f32 — current MultiTreeDist(x, S)^2
+    *,
+    scale: float,             # 2 * sqrt(d) * max_dist
+    num_levels: int,          # H (heights incl. root)
+) -> torch.Tensor:
+    """One tree's MULTITREEOPEN weight sweep.
+
+    sep(y, x) = 1 (root) + #{h >= 1 : codes agree}; the closed-form tree
+    distance is scale * (2^(1-sep) - 2^(1-H)); w' = min(w, dist^2).  The
+    code arrays carry heights 1..H-1 (the root is implicit).  `scale`, a
+    Python float against an f32 tensor, is rounded to f32 once.
+    """
+    eq = (codes_lo == center_lo[:, None]) & (codes_hi == center_hi[:, None])
+    sep = 1 + eq.sum(dim=0, dtype=torch.int32)
+    dist = scale * (torch.exp2(1.0 - sep.to(torch.float32))
+                    - 2.0 ** (1.0 - num_levels))
+    dist = dist.clamp_min(0.0)
+    return torch.minimum(w.to(torch.float32), dist * dist)
+
+
+def tree_sep_update_tiles_ref(codes_lo, codes_hi, center_lo, center_hi, w, *,
+                              scale: float, num_levels: int,
+                              block_n: int = 512):
+    """(w', per-tile sums of w') — the `tree_sep_update_tiles` oracle."""
+    out = tree_sep_update_ref(codes_lo, codes_hi, center_lo, center_hi, w,
+                              scale=scale, num_levels=num_levels)
+    return out, tile_sums_ref(out, block_n)
+
+
+def _masked_d2(q_keys_lo, q_keys_hi, q, c_keys_lo, c_keys_hi, c,
+               live: torch.Tensor) -> torch.Tensor:
+    """(B, K) squared distances where a live center shares a bucket with
+    the candidate, `LSH_MISS` elsewhere."""
+    collide = ((q_keys_lo[:, :, None] == c_keys_lo[:, None, :])
+               & (q_keys_hi[:, :, None] == c_keys_hi[:, None, :])).any(dim=0)
+    qf = q.to(torch.float32)
+    cf = c.to(torch.float32)
+    q_sq = (qf * qf).sum(dim=1)
+    c_sq = (cf * cf).sum(dim=1)
+    d2 = (q_sq[:, None] - 2.0 * (qf @ cf.T) + c_sq[None, :]).clamp_min(0.0)
+    return torch.where(collide & live[None, :], d2,
+                       torch.full_like(d2, LSH_MISS))
+
+
+def _row_min(masked: torch.Tensor) -> torch.Tensor:
+    """Row minimum of a (B, K) block, `LSH_MISS` for K == 0."""
+    if masked.shape[1] == 0:
+        return torch.full((masked.shape[0],), LSH_MISS, dtype=torch.float32,
+                          device=masked.device)
+    return masked.min(dim=1).values
+
+
+def _accept_p(d2_min: torch.Tensor, mtd2: torch.Tensor,
+              c2: float) -> torch.Tensor:
+    """``p = d2_min / max(c^2 * mtd2, 1e-30)``, 0 where ``mtd2 == 0``."""
+    mtd2 = mtd2.to(torch.float32)
+    return torch.where(mtd2 > 0.0, d2_min / (c2 * mtd2).clamp_min(1e-30),
+                       torch.zeros_like(mtd2))
+
+
+def lsh_bucket_min_ref(
+    q_keys_lo: torch.Tensor,  # (L, B) int32 — candidate bucket keys, low plane
+    q_keys_hi: torch.Tensor,  # (L, B) int32
+    q: torch.Tensor,          # (B, D) — candidate coordinates
+    c_keys_lo: torch.Tensor,  # (L, K) int32 — opened-center bucket keys
+    c_keys_hi: torch.Tensor,  # (L, K) int32
+    c: torch.Tensor,          # (K, D) — opened-center coordinates
+    count=None,               # only the first `count` centers are live
+) -> torch.Tensor:
+    """Monotone-LSH nearest-bucket query: min over centers sharing a bucket.
+
+    Returns (B,) f32 — squared distance to the nearest colliding live
+    center, or `LSH_MISS` when none shares any of the L buckets.
+    """
+    k = c.shape[0]
+    live = torch.arange(k, device=c.device) < (k if count is None else count)
+    return _row_min(_masked_d2(q_keys_lo, q_keys_hi, q, c_keys_lo, c_keys_hi,
+                               c, live))
+
+
+def lsh_bucket_accept_ref(q_keys_lo, q_keys_hi, q, c_keys_lo, c_keys_hi, c,
+                          mtd2: torch.Tensor, count=None, *, c2: float):
+    """(d2_min, acceptance probability) — the `lsh_bucket_accept` oracle.
+
+    ``p = d2_min / max(c^2 * mtd2, 1e-30)`` with ``p = 0`` where
+    ``mtd2 == 0``; a miss (``d2_min == LSH_MISS``) gives p >> 1, i.e. the
+    sampler always accepts.
+    """
+    d2_min = lsh_bucket_min_ref(q_keys_lo, q_keys_hi, q,
+                                c_keys_lo, c_keys_hi, c, count)
+    return d2_min, _accept_p(d2_min, mtd2, c2)
+
+
+def lsh_bucket_accept_penalty_ref(q_keys_lo, q_keys_hi, q, c_keys_lo,
+                                  c_keys_hi, c, penalty: torch.Tensor,
+                                  mtd2: torch.Tensor, *, c2: float):
+    """The kernel's own form of `lsh_bucket_accept_ref`, on the padded
+    inputs the kernel takes: liveness comes as a penalty row (0 live,
+    `LSH_MISS` dead) that is max()ed into every colliding distance, exactly
+    as the TPU kernel and the CUDA kernel apply it."""
+    every = torch.ones(c.shape[0], dtype=torch.bool, device=c.device)
+    masked = torch.maximum(
+        _masked_d2(q_keys_lo, q_keys_hi, q, c_keys_lo, c_keys_hi, c, every),
+        penalty[None, :])
+    d2_min = _row_min(masked)
+    return d2_min, _accept_p(d2_min, mtd2, c2)

@@ -1,0 +1,161 @@
+"""The port stands alone and never hides the device.
+
+  * No module of `repro_torch`, and not `chip_smoke.py`, imports JAX or the
+    JAX package: a scan of the sources and, in a fresh interpreter, the
+    modules loaded after importing every `repro_torch` module.
+  * Entry points run on CUDA unless the caller asks for the CPU, and raise
+    rather than fall back when CUDA is absent.
+  * The CUDA bindings check their arguments before anything reaches the
+    card: a CPU tensor, a wrong dtype, shape or contiguity raises.
+"""
+
+import pathlib
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.core import device_seeding as ds
+from repro_torch.core.plan import ClusterPlan, ClusterSpec, ExecutionSpec
+from repro_torch.kernels import lsh_bucket_accept_cuda as lba_binding
+from repro_torch.kernels import ops
+from repro_torch.kernels import tree_sep_update_cuda as tsu_binding
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PACKAGE = pathlib.Path(repro_torch.__file__).resolve().parent
+FORBIDDEN_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|repro)\b",
+                              re.MULTILINE)
+
+
+def test_sources_import_no_jax_and_no_reference_package():
+    sources = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(sources) > 10
+    offenders = [str(p) for p in sources
+                 if FORBIDDEN_IMPORT.search(p.read_text())]
+    assert offenders == []
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(n for n in sys.modules if n == 'jax' or"
+        " n.startswith(('jax.', 'jaxlib')) or n == 'repro'"
+        " or n.startswith('repro.'))\n"
+        "print(len([n for n in sys.modules if n.startswith('repro_torch.')]))\n"
+        "print(bad)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True,
+                         env={"PYTHONPATH": str(PACKAGE.parent),
+                              "PATH": "/usr/bin:/bin"})
+    loaded, bad = out.stdout.strip().splitlines()
+    assert int(loaded) >= 15
+    assert bad == "[]"
+
+
+def test_entry_points_default_to_cuda():
+    spec = ExecutionSpec()
+    assert spec.device == "cuda" and spec.backend == "device"
+
+
+def test_no_silent_cpu_fallback(monkeypatch):
+    """Without CUDA, an entry point that was not asked for the CPU raises."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ClusterPlan(ClusterSpec(k=3))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ClusterPlan(ClusterSpec(k=3, seeder="fastkmeans++"),
+                    ExecutionSpec(backend="device", device="cuda:0"))
+    ClusterPlan(ClusterSpec(k=3), ExecutionSpec(device="cpu"))   # asked for
+
+
+def test_wrappers_refuse_other_devices():
+    w = torch.zeros(8, device="meta")
+    codes = torch.zeros((3, 8), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.tree_sep_update(codes, codes, codes[:, 0], codes[:, 0], w,
+                            scale=1.0, num_levels=4)
+
+
+def _sweep_args(h=4, n=64):
+    lo = torch.zeros((h, n), dtype=torch.int32)
+    return [lo, lo.clone(), lo[:, 0], lo[:, 0], torch.zeros(n)]
+
+
+def _accept_args(b=8, k=32, l=15, d=6):
+    keys_q = torch.zeros((l, b), dtype=torch.int32)
+    keys_c = torch.zeros((l, k), dtype=torch.int32)
+    return [keys_q, keys_q.clone(), torch.zeros((b, d)), keys_c,
+            keys_c.clone(), torch.zeros((k, d)), torch.zeros(k),
+            torch.zeros(b)]
+
+
+def _bad_variants(args, sizes):
+    """(argument index, bad tensor) pairs: wrong dtype, wrong shape and
+    non-contiguous versions of the argument at each index in `sizes`."""
+    for i in sizes:
+        t = args[i]
+        wrong_dtype = (t.to(torch.float64) if t.is_floating_point()
+                       else t.to(torch.int64))
+        yield i, wrong_dtype
+        yield i, torch.cat([t, t[..., :1]], dim=-1)
+        if t.dim() == 2 and t.shape[1] > 1:
+            yield i, torch.cat([t, t], dim=1)[:, ::2]
+
+
+@pytest.mark.parametrize("which", ["sweep", "tiles", "accept"])
+def test_bindings_check_arguments_before_launching(which):
+    """The bindings refuse a CPU tensor passed as if it were on the card and
+    every wrong dtype, shape or contiguity, before loading any library."""
+    if which == "accept":
+        args, sizes = _accept_args(), range(8)
+
+        def call(a):
+            return lba_binding.launch(*a, c2=4.0)
+    else:
+        args, sizes = _sweep_args(), [0, 1, 4]
+        kw = dict(scale=1.0, num_levels=5)
+        if which == "tiles":
+            kw["tile"] = 32
+
+        def call(a):
+            fn = tsu_binding.launch if which == "sweep" else \
+                tsu_binding.launch_tiles
+            return fn(*a, **kw)
+
+    with pytest.raises(ValueError, match="CUDA kernel got a tensor on cpu"):
+        call(args)
+    bad = 0
+    for i, t in _bad_variants(args, sizes):
+        a = list(args)
+        a[i] = t
+        with pytest.raises((TypeError, ValueError)) as err:
+            call(a)
+        assert "CUDA kernel got a tensor" not in str(err.value)
+        bad += 1
+    assert bad >= 8
+    assert ops.launch_counts() == {name: 0 for name in ops.LAUNCHES}
+
+
+def test_bindings_check_kernel_block_shapes():
+    a = _accept_args(b=12)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        lba_binding.launch(*a, c2=1.0)
+    with pytest.raises(ValueError, match="tile must be"):
+        tsu_binding.launch_tiles(*_sweep_args(n=48), scale=1.0, num_levels=5,
+                                 tile=32)
+    with pytest.raises(ValueError, match="at most 64 code rows"):
+        tsu_binding.launch(*_sweep_args(h=65), scale=1.0, num_levels=66)
+
+
+def test_prepare_uploads_only_where_asked():
+    pts = np.random.default_rng(0).normal(size=(50, 3))
+    data = ds.prepare_rejection(pts, seed=1, device="cpu")
+    assert data.codes_lo.device.type == data.points.device.type == "cpu"
