@@ -461,12 +461,18 @@ def main() -> int:
     # -- 8. idle share over a solve ----------------------------------------------
     from torch.profiler import ProfilerActivity, profile
 
+    # The same solve twice, unprofiled and then traced: one seed gives the
+    # same draws, so both run the same rounds, and the untraced wall time
+    # shows what the tracing costs.
+    bare = plan.refit(seed=2)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
         t0 = time.perf_counter()
         profiled = plan.refit(seed=2)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    if not torch.equal(bare.indices, profiled.indices):
+        raise AssertionError("refit(seed=2) opened other centers when traced")
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
@@ -484,11 +490,12 @@ def main() -> int:
     for e in kernels:
         by_name[e.name][0] += e.time_range.elapsed_us() / 1e3
         by_name[e.name][1] += 1
-    log(f"idle share: device busy {busy:.4f} s over {len(kernels)} device "
-        f"events in a profiled solve of {wall:.4f} s (idle share "
-        f"{1 - busy / wall:.4f}); against the unprofiled refit's "
-        f"{refit.solve_seconds:.4f} s: idle share "
-        f"{1 - busy / refit.solve_seconds:.4f}; profiled cost "
+    log(f"idle share: {1 - busy / wall:.4f} (device busy {busy:.4f} s over "
+        f"{len(kernels)} device events in the traced refit(seed=2), whose "
+        f"wall time was {wall:.4f} s); the same solve untraced took "
+        f"{bare.solve_seconds:.4f} s with the same centers, an idle share "
+        f"of {1 - busy / bare.solve_seconds:.4f} if its device time was the "
+        f"traced run's; cost "
         f"{float(profiled.cost):.9g}")
     for name, (ms, cnt) in sorted(by_name.items(),
                                   key=lambda kv: -kv[1][0])[:8]:

@@ -5,8 +5,9 @@ The pointer-machine structures become tensors, as in the JAX package:
     on the host once (NumPy, bit-identical to the JAX package's);
   - MULTITREEOPEN is the `tree_sep_update` kernel per tree; the last tree's
     sweep is the `_tiles` variant, whose epilogue emits per-tile weight sums;
-  - MULTITREESAMPLE is the two-level `TiledSampleTree` descent, refreshed
-    after each opened center from those tile sums (O(T log T), no rebuild);
+  - MULTITREESAMPLE is the two-level `TiledSampleTree` descent; after each
+    opened center its coarse heap is rebuilt from those T tile sums (O(T),
+    no pass over the n weights);
   - the monotone LSH of Algorithm 4 is a (L, n) int32x2 bucket-key tensor
     plus the `lsh_bucket_accept` kernel: nearest colliding opened center per
     candidate, with the acceptance probability in its epilogue.
@@ -53,9 +54,6 @@ __all__ = [
 ]
 
 _FAR = 1.0e17        # "no center yet" coordinate sentinel (f32-finite d2)
-# Center slots are allocated in multiples of the accept kernel's center
-# block, so the wrapper's padding of the center buffers is a no-op.
-_CENTER_BLOCK = 32
 
 
 def prepare_embedding(points: np.ndarray, *, seed: int = 0,
@@ -271,7 +269,9 @@ def device_rejection_sampling(
     klo_pad = _pad_axis(keys_lo, 1, ts.n_pad)
     khi_pad = _pad_axis(keys_hi, 1, ts.n_pad)
 
-    k_pad = -(-k // _CENTER_BLOCK) * _CENTER_BLOCK
+    # Center slots come in multiples of the accept kernel's center block,
+    # so the wrapper's padding of the center buffers is a no-op.
+    k_pad = -(-k // ops.BLOCK_K) * ops.BLOCK_K
     ctr_pts = torch.full((k_pad, d), _FAR, dtype=torch.float32, device=dev)
     ck_lo = torch.zeros((l, k_pad), dtype=torch.int32, device=dev)
     ck_hi = torch.zeros((l, k_pad), dtype=torch.int32, device=dev)
@@ -285,8 +285,7 @@ def device_rejection_sampling(
                             device=dev)
             _, p_acc = ops.lsh_bucket_accept(
                 klo_pad[:, cand], khi_pad[:, cand], pts_pad[cand],
-                ck_lo, ck_hi, ctr_pts, weights[cand], i, c2=c2,
-                block_k=_CENTER_BLOCK)
+                ck_lo, ck_hi, ctr_pts, weights[cand], i, c2=c2)
             acc = us < p_acc
             hit = torch.argmax(acc.to(torch.int8))             # first accept
             # The round's one device-to-host transfer.

@@ -9,10 +9,10 @@ The tree is a flat array heap of size 2*cap (1-indexed, leaves at
 
 - `SampleTree`: NumPy, float64, exact — the host reference.
 - `SampleTreeTorch`: the same heap as an f32 tensor on any device; its
-  `scatter_update` fixes only the touched ancestors (one `index_add_` per
-  level, clamped to >= 0), never an O(n) rebuild.
+  `scatter_update` fixes only the touched ancestors (their children's sum,
+  level by level, clamped to >= 0), never an O(n) rebuild.
 - `TiledSampleTree`: the device seeders' two-level sampler — a coarse heap
-  over per-tile weight sums (refreshed from the sweep kernel's tile-sum
+  over per-tile weight sums (rebuilt from the sweep kernel's tile-sum
   epilogue) plus an exact intra-tile cumsum over the dense weights.
 
 Draws take an explicit `torch.Generator` on the tensors' device.
@@ -126,17 +126,21 @@ class SampleTreeTorch:
     def scatter_update(self, heap: torch.Tensor, indices: torch.Tensor,
                        new_weights: torch.Tensor) -> torch.Tensor:
         """Set w[indices] = new_weights (unique indices) and fix ONLY the
-        touched ancestors, in place: O(U log n) for U leaves.  Every
-        internal level is clamped to >= 0 after its scatter-add so f32
-        dust can never steer a descent into an empty subtree."""
+        touched ancestors, in place: O(U log n) for U leaves.
+
+        The JAX package scatter-adds each leaf's delta into its ancestors.
+        Here each touched ancestor is set to the sum of its two children
+        instead, as `init` computes it: a scatter-add on a CUDA device
+        sums colliding ancestors with atomics in no fixed order, so one
+        seed would not replay the same draws, and its f32 deltas drift
+        from the leaves.  The result is bit-identical to `init` of the new
+        weights.  Every internal level is still clamped to >= 0.
+        """
         leaf = indices.to(torch.int64) + self.cap
-        new = new_weights.to(torch.float32)
-        delta = new - heap[leaf]
-        heap[leaf] = new
+        heap[leaf] = new_weights.to(torch.float32)
         anc = leaf >> 1
         for _ in range(self.levels):
-            heap.index_add_(0, anc, delta)
-            heap[anc] = heap[anc].clamp_min(0.0)
+            heap[anc] = (heap[2 * anc] + heap[2 * anc + 1]).clamp_min(0.0)
             anc = anc >> 1
         return heap
 
@@ -182,9 +186,14 @@ class TiledSampleTree:
 
     def refresh(self, heap: torch.Tensor,
                 tile_sums: torch.Tensor) -> torch.Tensor:
-        """Incremental per-center update from the kernels' tile sums."""
-        ids = torch.arange(self.num_tiles, device=heap.device)
-        return self.coarse.scatter_update(heap, ids, tile_sums)
+        """Per-center update from the kernels' tile sums.
+
+        A sweep changes every tile sum, so this is `scatter_update` of all
+        T leaves, which equals a rebuild bit for bit; the rebuild takes
+        fewer launches (two per level).  `heap` is replaced, not updated.
+        """
+        del heap
+        return self.coarse.init(tile_sums)
 
     def total(self, heap: torch.Tensor) -> torch.Tensor:
         return heap[1]
@@ -196,8 +205,8 @@ class TiledSampleTree:
         wt = w_pad.reshape(self.num_tiles, self.tile)[tiles]         # (B, tile)
         csum = torch.cumsum(wt, dim=1)
         # A fresh intra-tile uniform over the tile's exact mass keeps the
-        # conditional leaf law exact even when the coarse sums carry f32
-        # scatter drift.  Smallest j with csum[j] > u.
+        # conditional leaf law exact even where a coarse tile sum rounds
+        # differently from the cumsum.  Smallest j with csum[j] > u.
         u = torch.rand(size, generator=generator, dtype=torch.float32,
                        device=w_pad.device) * csum[:, -1]
         off = (csum <= u[:, None]).sum(dim=1).clamp_max(self.tile - 1)

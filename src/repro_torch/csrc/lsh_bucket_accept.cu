@@ -22,12 +22,12 @@
 // The design is the simple one: one block per 8 candidates (one warp
 // each), a loop over tiles of 32 center slots staged in shared memory
 // (coordinates with an odd row stride, so the 32 lanes read 32 different
-// banks), the key compare as an OR over the L tables unrolled at compile
-// time for the main path's L = 15, and the distance as an f32 FMA loop over
-// d, evaluated only for the slots whose keys collide: a slot that shares no
-// bucket yields MISS whatever its distance, as the reference's where()
-// does.  A warp-level min ends the sweep and lane 0 writes d2_min and the
-// acceptance probability.  No library call computes q.c.
+// banks), the key compare as an OR over the L tables, and the distance as
+// an f32 FMA loop over d, evaluated only for the slots whose keys collide:
+// a slot that shares no bucket yields MISS whatever its distance, as the
+// reference's where() does.  A warp-level min ends the sweep and lane 0
+// writes d2_min and the acceptance probability.  No library call computes
+// q.c.
 //
 // The distance keeps the reference's expanded form and its order,
 // (|q|^2 - 2 q.c) + |c|^2; the sums over d run in another order than the
@@ -45,17 +45,13 @@ constexpr int kWarps = 8;         // candidates per block, one warp each
 constexpr int kTile = 32;         // center slots per shared-memory tile
 constexpr float kMiss = 3.0e38f;  // LSH_MISS
 
-// kL > 0 fixes the number of tables at compile time (the loops over the
-// tables unroll); kL == 0 takes it from `L_rt`.
-template <int kL>
 __global__ void lsh_accept_kernel(
     const int* __restrict__ qlo, const int* __restrict__ qhi,
     const float* __restrict__ q, const int* __restrict__ clo,
     const int* __restrict__ chi, const float* __restrict__ c,
     const float* __restrict__ penalty, const float* __restrict__ mtd2,
-    float* __restrict__ d2_out, float* __restrict__ p_out, int L_rt, int B,
+    float* __restrict__ d2_out, float* __restrict__ p_out, int L, int B,
     int K, int D, float c2) {
-  const int L = kL > 0 ? kL : L_rt;
   extern __shared__ float smem[];
   const int dp = D | 1;                       // odd row stride: no conflicts
   float* c_s = smem;                          // [kTile][dp]
@@ -104,7 +100,6 @@ __global__ void lsh_accept_kernel(
 
     const int* my_qk = qk_s + warp * 2 * L;
     bool collide = false;
-#pragma unroll
     for (int l = 0; l < L; ++l) {
       collide |= (my_qk[l] == ck_s[l * kTile + lane]) &
                  (my_qk[L + l] == ck_s[(L + l) * kTile + lane]);
@@ -133,29 +128,6 @@ __global__ void lsh_accept_kernel(
   }
 }
 
-template <int kL>
-int launch(const int* qlo, const int* qhi, const float* q, const int* clo,
-           const int* chi, const float* c, const float* penalty,
-           const float* mtd2, float* d2_out, float* p_out, int L, int B,
-           int K, int D, float c2, cudaStream_t stream) {
-  const int dp = D | 1;
-  const size_t smem = sizeof(float) * (kTile * dp + kTile + kWarps * D) +
-                      sizeof(int) * (2 * L * kTile + kWarps * 2 * L);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        lsh_accept_kernel<kL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int blocks = B / kWarps;
-  if (blocks > 0) {
-    lsh_accept_kernel<kL><<<blocks, kWarps * 32, smem, stream>>>(
-        qlo, qhi, q, clo, chi, c, penalty, mtd2, d2_out, p_out, L, B, K, D,
-        c2);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 // Layouts (row-major): qlo/qhi (L, B), q (B, D), clo/chi (L, K), c (K, D),
@@ -167,11 +139,21 @@ extern "C" int lsh_bucket_accept_launch(
     const int* chi, const float* c, const float* penalty, const float* mtd2,
     float* d2_out, float* p_out, int L, int B, int K, int D, float c2,
     void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (L == 15) {
-    return launch<15>(qlo, qhi, q, clo, chi, c, penalty, mtd2, d2_out, p_out,
-                      L, B, K, D, c2, s);
+  const int dp = D | 1;
+  const size_t smem = sizeof(float) * (kTile * dp + kTile + kWarps * D) +
+                      sizeof(int) * (2 * L * kTile + kWarps * 2 * L);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        lsh_accept_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
-  return launch<0>(qlo, qhi, q, clo, chi, c, penalty, mtd2, d2_out, p_out, L,
-                   B, K, D, c2, s);
+  const int blocks = B / kWarps;
+  if (blocks > 0) {
+    lsh_accept_kernel<<<blocks, kWarps * 32, smem,
+                        static_cast<cudaStream_t>(stream)>>>(
+        qlo, qhi, q, clo, chi, c, penalty, mtd2, d2_out, p_out, L, B, K, D,
+        c2);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

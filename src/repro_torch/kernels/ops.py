@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.lsh_bucket_accept_cuda import BLOCK_B, BLOCK_K
 from repro_torch.kernels.ref import LSH_MISS
 
 __all__ = [
@@ -131,28 +132,27 @@ def tree_sep_update_tiles(codes_lo, codes_hi, center_lo, center_hi, w, *,
 
 
 def lsh_bucket_accept(q_keys_lo, q_keys_hi, q, c_keys_lo, c_keys_hi, c, mtd2,
-                      count=None, *, c2: float, block_b: int = 8,
-                      block_k: int = 32):
+                      count=None, *, c2: float):
     """Nearest colliding-bucket center plus the Algorithm-4 acceptance
     probability, per candidate: ``(d2_min (B,), p_accept (B,))``.
 
     Keys are (L, B) / (L, K) int32 planes of the uint64 bucket keys.  Only
     the first `count` center slots are live (`None`: all K); the rest are
-    masked through the penalty row.  Candidates pad to `block_b`, center
-    slots to `block_k` (the kernel's block shapes; the CUDA binding checks
-    them).
+    masked through the penalty row.  Candidates pad to a multiple of
+    `BLOCK_B` and center slots to one of `BLOCK_K`, the kernel's block
+    shapes.
     """
     b, k = q.shape[0], c.shape[0]
-    cp = _pad_to(c, 0, block_k, _PAD_FAR)
+    cp = _pad_to(c, 0, BLOCK_K, _PAD_FAR)
     args = (
-        _pad_to(q_keys_lo, 1, block_b, _QUERY_CODE_PAD),
-        _pad_to(q_keys_hi, 1, block_b, _QUERY_CODE_PAD),
-        _pad_to(q, 0, block_b, 0.0),
-        _pad_to(c_keys_lo, 1, block_k, _CENTER_CODE_PAD),
-        _pad_to(c_keys_hi, 1, block_k, _CENTER_CODE_PAD),
+        _pad_to(q_keys_lo, 1, BLOCK_B, _QUERY_CODE_PAD),
+        _pad_to(q_keys_hi, 1, BLOCK_B, _QUERY_CODE_PAD),
+        _pad_to(q, 0, BLOCK_B, 0.0),
+        _pad_to(c_keys_lo, 1, BLOCK_K, _CENTER_CODE_PAD),
+        _pad_to(c_keys_hi, 1, BLOCK_K, _CENTER_CODE_PAD),
         cp,
         penalty_row(cp.shape[0], k if count is None else count, q.device),
-        _pad_to(mtd2, 0, block_b, 0.0),
+        _pad_to(mtd2, 0, BLOCK_B, 0.0),
     )
     if not _on_card(q):
         d2_min, p = ref.lsh_bucket_accept_penalty_ref(*args, c2=c2)

@@ -210,3 +210,11 @@ def test_heaps_match_jax():
     np.testing.assert_allclose(coarse.numpy(), np.asarray(jcoarse), rtol=1e-6,
                                atol=1e-4)
     assert float(ts.total(coarse)) == float(coarse[1])
+    # The refresh is a rebuild: the same heap as `init` from those sums, and
+    # as `scatter_update` of every tile.
+    rebuilt = ts.coarse.init(torch.from_numpy(sums))
+    np.testing.assert_array_equal(coarse.numpy(), rebuilt.numpy())
+    patched = ts.coarse.scatter_update(
+        ts.init(torch.from_numpy(w_pad)), torch.arange(ts.num_tiles),
+        torch.from_numpy(sums))
+    np.testing.assert_array_equal(coarse.numpy(), patched.numpy())

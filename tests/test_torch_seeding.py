@@ -134,7 +134,10 @@ def test_replayed_centers_match_jax_sweeps():
     """The same artifacts (carried across from the JAX package) and the same
     sequence of opened centers give the same weights and coarse heap in both
     packages: the port's per-center sweep over all trees, its padding and
-    its heap refresh are the JAX package's."""
+    its heap refresh are the JAX package's.  The port's refresh sums each
+    ancestor from its children, where the JAX package's adds deltas that
+    drift, so its heap is held to the JAX package's heap rebuilt from the
+    JAX package's own tile sums."""
     pts = _mixture(n=1100, d=5, seed=9)
     jdata = jds.prepare_rejection(pts, seed=3, resolution=0.5)
     data = ds.seeding_data_from_arrays(jdata, device="cpu")
@@ -153,7 +156,7 @@ def test_replayed_centers_match_jax_sweeps():
         weights, tsums = open_center(weights, int(x))
         coarse = ts.refresh(coarse, tsums)
         jweights, jtsums = jopen(jweights, int(x))
-        jcoarse = jts.refresh(jcoarse, jtsums)
+        jcoarse = jts.coarse.init(jtsums)
         # XLA's CPU exp2 is a few ulps off on deep separation levels (see
         # test_torch_kernels): f32 rounding, not a different weight.
         np.testing.assert_allclose(weights.numpy(), np.asarray(jweights),
