@@ -3,32 +3,42 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, the paper's Algorithm 4 through
+Drives the port's two paths through the plan, each at the shape of the
+paper's smallest real dataset (KDD Cup, 311,029 x 74, generated here from a
+seed as `benchmarks/datasets.py` does) with k = 1000: the paper's
+Algorithm 4,
 `ClusterPlan(ClusterSpec(k=1000, seeder="rejection"),
-ExecutionSpec(backend="device")).fit(points)`, at the shape of the paper's
-smallest real dataset (KDD Cup, 311,029 x 74, generated here from a seed as
-`benchmarks/datasets.py` does), after building every CUDA kernel of that
-path from `src/repro_torch/csrc/` and holding each against its plain
-PyTorch version on the card.  In order:
+ExecutionSpec(backend="device")).fit(points)`, and the k-means|| baseline,
+the same with `seeder="kmeans||"` (5 rounds, ell = 2k, 8,000 center slots
+per round).  It builds every CUDA kernel from `src/repro_torch/csrc/` and
+holds each against its plain PyTorch version on the card.  In order:
 
   1. the card (`nvidia-smi` name and power limit), torch and CUDA versions;
   2. the kernel build: time, registers and spills from `ptxas -v`;
-  3. each kernel against its plain version at the main path's shapes:
-     the tree sweeps bit-identical at n = 311,029, their tile sums and
-     `lsh_bucket_accept` to rtol 1e-5 over B in 32..512 and 0..1000 live
-     centers, `LSH_MISS` lanes exactly;
-  4. each kernel's time (CUDA events) beside its plain version's and the
+  3. each kernel against its plain version at the paths' shapes: the tree
+     sweeps bit-identical at n = 311,029, their tile sums,
+     `lsh_bucket_accept` and `lsh_bucket_min` to rtol 1e-5 over B in
+     32..512 and 0..1000 live centers (`LSH_MISS` lanes exactly),
+     `pairwise_argmin` at 311,029 x 8,000 x 74 (one k-means|| round's
+     slots) and at a ragged small shape in f32 and bf16, `d2_update` and
+     `d2_update_tiles` at n = 311,029;
+  4. each kernel's time (CUDA events) beside its plain version's, a
+     PyTorch library call's where one computes the same function, and the
      least time the card could take for the same work;
-  5. the main path: `fit` and `refit(seed=1)`, each with the launch counts
-     set to 0 just before and read just after (every kernel must have
-     launched: 2k, k and at least k - 1 times), then Algorithm 3 on the
-     same prepared data;
-  6. the result against references: a replay of the fit's centers through
-     the plain versions on the card, and the port on the card against the
-     port on the CPU at a small size (64-seed mean costs within 5%);
+  5. the paths: `fit` and `refit(seed=1)` of each, with the launch counts
+     set to 0 just before and read just after (Algorithm 4: 2k, k and at
+     least k - 1 launches; k-means||: exactly 5 `pairwise_argmin`), then
+     Algorithm 3 on the rejection plan's prepared data, and the k-means||
+     rounds timed apart from the host recluster on the fit's own seed (a
+     replay: the same indices);
+  6. the result against references: a replay of the rejection fit's
+     centers through the plain versions on the card, and both seeders on
+     the card against the port on the CPU at a small size (64-seed mean
+     costs within 5%);
   7. quality in float64 against exact k-means++ and uniform seeding
      (information only);
-  8. the device's idle share over a solve, from `torch.profiler`;
+  8. the device's idle share over Algorithm 4's `refit(seed=1)` again,
+     traced with `torch.profiler`, beside the untraced one;
   9. one JSON line per the kernels, the card's line again, and last
      ``{"ok": true, "device": {...}}``.
 
@@ -43,6 +53,7 @@ import collections
 import json
 import math
 import os
+import resource
 import subprocess
 import sys
 import time
@@ -66,7 +77,18 @@ KERNELS = {
                               "src/repro/kernels/tree_sep_update.py:95"),
     "lsh_bucket_accept": ("src/repro_torch/csrc/lsh_bucket_accept.cu",
                           "src/repro/kernels/lsh_bucket_min.py:140"),
+    "lsh_bucket_min": ("src/repro_torch/csrc/lsh_bucket_accept.cu",
+                       "src/repro/kernels/lsh_bucket_min.py:99"),
+    "pairwise_argmin": ("src/repro_torch/csrc/pairwise_argmin.cu",
+                        "src/repro/kernels/pairwise_argmin.py:55"),
+    "d2_update": ("src/repro_torch/csrc/d2_update.cu",
+                  "src/repro/kernels/d2_update.py:44"),
+    "d2_update_tiles": ("src/repro_torch/csrc/d2_update.cu",
+                        "src/repro/kernels/d2_update.py:70"),
 }
+KMP_ROUNDS = 5                          # the k-means|| defaults
+KMP_ELL = 2.0 * K
+KMP_CAP = int(min(N, max(8, 4 * KMP_ELL)))
 
 
 def log(*parts) -> None:
@@ -123,6 +145,43 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def peak_rss_gib() -> float:
+    """This process's peak resident set so far (Linux reports KiB)."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+
+
+def check_pairwise(torch, ops, ref, x, c, label):
+    """`pairwise_argmin` against its plain version on the same inputs.
+
+    Both evaluate the expanded form (|x|^2 - 2 x.c) + |c|^2 in f32, which
+    rounds relative to |x|^2 + |c|^2, not to d2; so d2 must agree within
+    `RTOL` of that scale, and an argmin may differ only where the exact
+    distances of the two picks lie that close.  Returns the max abs d2
+    error.
+    """
+    d2, idx = ops.pairwise_argmin(x, c)
+    pd2, pidx = ref.pairwise_argmin_ref(x, c)
+    torch.cuda.synchronize()
+    xf, cf = x.float(), c.float()
+    scale = (xf * xf).sum(dim=1) + (cf * cf).sum(dim=1)[pidx.long()]
+    rel = float(((d2 - pd2).abs() / scale.clamp_min(1.0)).max())
+    rows = torch.nonzero(idx != pidx).flatten()
+    tie = 0.0
+    if len(rows):
+        xr = xf[rows].double()
+        mine = ((xr - cf[idx[rows].long()].double()) ** 2).sum(dim=1)
+        theirs = ((xr - cf[pidx[rows].long()].double()) ** 2).sum(dim=1)
+        tie = float(((mine - theirs).abs() / scale[rows].double()).max())
+    err = float((d2 - pd2).abs().max())
+    if rel > RTOL or tie > RTOL or int(idx.max()) >= c.shape[0]:
+        raise AssertionError(f"pairwise_argmin {label}: d2 rel err {rel}, "
+                             f"{len(rows)} other argmins off by {tie}")
+    log(f"pairwise_argmin {label}: max|d2 err| {err:.3g}, {rel:.3g} of "
+        f"|x|^2+|c|^2 (tol {RTOL}); {len(rows)} of {x.shape[0]} argmins "
+        f"differ, each a tie within {tie:.3g}")
+    return err
+
+
 def cost64(torch, pts, centers, chunk=16384) -> float:
     """sum_x min_c ||x - c||^2 in float64 on the card."""
     total = 0.0
@@ -146,7 +205,9 @@ def main() -> int:
     from repro_torch.core.plan import ClusterPlan, ClusterSpec, ExecutionSpec
     from repro_torch.core.sample_tree import TiledSampleTree
     from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import d2_update_cuda as d2_cuda
     from repro_torch.kernels import lsh_bucket_accept_cuda as lsh_cuda
+    from repro_torch.kernels import pairwise_argmin_cuda as pam_cuda
     from repro_torch.kernels import tree_sep_update_cuda as sweep_cuda
 
     t_start = time.perf_counter()
@@ -241,21 +302,32 @@ def main() -> int:
         ck_hi[:, :count] = khi[:, centers[:count]]
         return ck_lo, ck_hi, c
 
-    log(f"lsh_bucket_accept (L={l}, d={D}, {k_pad} slots): B count hits "
-        "max|d2 err| max rel err")
-    errs["lsh_bucket_accept"] = 0.0
+    log(f"lsh_bucket_accept and lsh_bucket_min (L={l}, d={D}, {k_pad} "
+        "slots): B count hits max|d2 err| max rel err")
+    errs["lsh_bucket_accept"] = errs["lsh_bucket_min"] = 0.0
     for b in (32, 64, 128, 256, 512):
         cand = ts.sample(coarse, w, gen, b)
         q_args = (klo[:, cand], khi[:, cand], pts_pad[cand])
         for count in (0, 1, K // 2, K):
             args = q_args + center_slots(count) + (w[cand],)
             d2, p = ops.lsh_bucket_accept(*args, count, c2=c2)
+            d2_only = ops.lsh_bucket_min(*args[:6], count)
             pd2, pp = ref.lsh_bucket_accept_ref(*args, count, c2=c2)
+            pd2_only = ref.lsh_bucket_min_ref(*args[:6], count)
             torch.cuda.synchronize()
             miss = pd2 == ref.LSH_MISS
-            if not torch.equal(d2 == ref.LSH_MISS, miss):
+            if not (torch.equal(d2 == ref.LSH_MISS, miss)
+                    and torch.equal(d2_only == ref.LSH_MISS, miss)
+                    and torch.equal(pd2_only, pd2)):
                 raise AssertionError(f"LSH_MISS lanes differ at B={b} "
                                      f"count={count}")
+            if not torch.allclose(d2_only[~miss], pd2[~miss], rtol=RTOL,
+                                  atol=RTOL):
+                raise AssertionError(f"lsh_bucket_min B={b} count={count}")
+            errs["lsh_bucket_min"] = max(
+                errs["lsh_bucket_min"],
+                float((d2_only - pd2)[~miss].abs().max()) if (~miss).any()
+                else 0.0)
             hit = ~miss
             diff = (d2 - pd2)[hit].abs()
             err = float(diff.max()) if hit.any() else 0.0
@@ -271,7 +343,55 @@ def main() -> int:
                 float((p - pp)[hit].abs().max()) if hit.any() else 0.0)
             log(f"  {b} {count} {int(hit.sum())} {err:.3g} {rel:.3g}")
 
+    log(f"[{time.perf_counter() - t_start:.1f} s] k-means|| kernels")
+    # k-means|| at full width: the plan's artifact is the f32 upload, and one
+    # round's center slots come from the seeder's own draws.
+    plan_km = ClusterPlan(ClusterSpec(k=K, seeder="kmeans||", seed=SEED),
+                          ExecutionSpec(backend="device"))
+    km_prep = plan_km.prepare(points).prepare_data(points)
+    x_km = km_prep.artifacts
+    km_gen = torch.Generator(device=dev).manual_seed(SEED)
+    d2_0 = ((x_km - x_km[int(rng.integers(n))]) ** 2).sum(dim=1)
+    _, slots = ds._kmeans_parallel_picks(x_km, d2_0, km_gen, KMP_ELL,
+                                         KMP_CAP)
+    live_slots = int((slots[:, 0] < ds._FAR).sum())
+    log(f"k-means|| prepare: {km_prep.prepare_seconds:.3f} s; one round's "
+        f"{KMP_CAP} center slots hold {live_slots} picks")
+    errs["pairwise_argmin"] = check_pairwise(
+        torch, ops, ref, x_km, slots, f"{N} x {KMP_CAP} x {D} f32")
+    small_x = torch.randn(1001, D, generator=km_gen, device=dev)
+    small_c = torch.randn(77, D, generator=km_gen, device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        errs["pairwise_argmin"] = max(errs["pairwise_argmin"], check_pairwise(
+            torch, ops, ref, small_x.to(dtype), small_c.to(dtype),
+            f"1001 x 77 x {D} {str(dtype)[6:]}"))
+
+    w_km = ((x_km - x_km[int(rng.integers(n))]) ** 2).sum(dim=1)
+    ctr_km = x_km[int(rng.integers(n))]
+    out = ops.d2_update(x_km, ctr_km, w_km)
+    tiles, sums = ops.d2_update_tiles(x_km, ctr_km, w_km, block_n=tile)
+    x_pad = ops._pad_to(x_km, 0, tile, 0.0)
+    w_pad = ops._pad_to(w_km, 0, tile, 0.0)
+    plain, psums = ref.d2_update_tiles_ref(x_pad, ctr_km, w_pad,
+                                           block_n=tile)
+    torch.cuda.synchronize()
+    errs["d2_update"] = float((out - plain[:n]).abs().max())
+    errs["d2_update_tiles"] = max(float((tiles - plain).abs().max()),
+                                  float((sums - psums).abs().max()))
+    rel = float(((sums - psums).abs() / psums.abs().clamp_min(1e-30)).max())
+    if not (torch.allclose(out, plain[:n], rtol=RTOL, atol=RTOL)
+            and torch.allclose(tiles, plain, rtol=RTOL, atol=RTOL)
+            and rel <= RTOL and bool((tiles[n:] == 0).all())):
+        raise AssertionError(f"d2_update: errs {errs['d2_update']}, "
+                             f"{errs['d2_update_tiles']}, tile sums rel {rel}")
+    log(f"d2_update, d2_update_tiles: n={n} d={D}: max|w' err| "
+        f"{errs['d2_update']:.3g}, {errs['d2_update_tiles']:.3g}; "
+        f"{x_pad.shape[0] // tile} tile sums max rel err {rel:.3g} "
+        f"(rtol {RTOL})")
+
     # -- 5. the main path -------------------------------------------------------
+    log(f"[{time.perf_counter() - t_start:.1f} s] the paths")
+
     def fit_once(label, call):
         ops.reset_launch_counts()
         res = call()
@@ -317,13 +437,69 @@ def main() -> int:
     torch.cuda.synchronize()
     fast_s = time.perf_counter() - t0
     fast_counts = ops.launch_counts()
-    if fast_counts != {"tree_sep_update": (t - 1) * K,
-                       "tree_sep_update_tiles": K, "lsh_bucket_accept": 0} \
+    if fast_counts != dict({name: 0 for name in fast_counts},
+                           tree_sep_update=(t - 1) * K,
+                           tree_sep_update_tiles=K) \
             or len(torch.unique(fast_idx)) != K:
         raise AssertionError(f"fastkmeans++: launches {fast_counts}")
     log(f"  fastkmeans++ on the same prepared data: solve {fast_s:.3f} s, "
         f"launches={fast_counts}")
 
+    def fit_km(label, call):
+        ops.reset_launch_counts()
+        res = call()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        if counts["pairwise_argmin"] != KMP_ROUNDS or \
+                sum(counts.values()) != KMP_ROUNDS:
+            raise AssertionError(f"{label}: launches {counts}, expected "
+                                 f"{KMP_ROUNDS} pairwise_argmin and no other")
+        idx = res.indices
+        if idx.shape != (K,) or idx.device.type != "cuda" or \
+                len(torch.unique(idx)) != K or int(idx.min()) < 0 or \
+                int(idx.max()) >= n or not math.isfinite(float(res.cost)) \
+                or float(res.cost) <= 0:
+            raise AssertionError(f"{label}: bad indices or cost {res.cost}")
+        log(f"  {label}: solve_seconds={res.solve_seconds:.3f} "
+            f"pool={res.extras['pool_size']} cost={float(res.cost):.9g} "
+            f"launches={counts} peak host RSS {peak_rss_gib():.2f} GiB")
+        return res, counts
+
+    log(f"[{time.perf_counter() - t_start:.1f} s] k-means||; peak host RSS "
+        f"before its fits: {peak_rss_gib():.2f} GiB")
+    km_fit, km_launches = fit_km("kmeans|| fit", plan_km.fit)
+    km_refit, _ = fit_km("kmeans|| refit(seed=1)",
+                         lambda: plan_km.refit(seed=1))
+    if plan_km.cache_info()["prepare_builds"] != 1:
+        raise AssertionError(f"k-means|| refit re-prepared: "
+                             f"{plan_km.cache_info()}")
+    # The fit's own draws again, called directly: the rounds on the card,
+    # synchronised, then the host recluster, each timed.
+    km_rng = plan_km._solve_rng(km_prep, None)
+    ops.reset_launch_counts()
+    rss0 = peak_rss_gib()
+    t0 = time.perf_counter()
+    sel, km_d2 = ds.device_kmeans_parallel_rounds(
+        x_km, ds._generator(km_rng, dev), KMP_ELL, rounds=KMP_ROUNDS,
+        cap=KMP_CAP)
+    torch.cuda.synchronize()
+    rounds_s = time.perf_counter() - t0
+    cand = np.flatnonzero(sel.cpu().numpy())
+    t0 = time.perf_counter()
+    km_idx, pool = seeding._candidate_pool_to_centers(points, cand, K,
+                                                      km_rng)
+    recluster_s = time.perf_counter() - t0
+    if not np.array_equal(km_idx, km_fit.indices.cpu().numpy()) or \
+            ops.launch_counts()["pairwise_argmin"] != KMP_ROUNDS:
+        raise AssertionError("k-means|| did not replay the fit's seed")
+    log(f"  kmeans|| the fit's seed replayed directly: rounds on the card "
+        f"{rounds_s:.4f} s ({KMP_ROUNDS} rounds, {len(cand)} selected, "
+        f"phi after the rounds {float(km_d2.double().sum()):.6g}), host "
+        f"recluster {recluster_s:.3f} s (pool {pool}); peak host RSS "
+        f"{peak_rss_gib():.2f} GiB ({rss0:.2f} before); same indices as "
+        "the fit")
+
+    log(f"[{time.perf_counter() - t_start:.1f} s] references")
     # -- 6. the result against references ---------------------------------------
     def replay(sweep, sweep_tiles):
         weights = torch.zeros(ts.n_pad, device=dev)
@@ -353,25 +529,31 @@ def main() -> int:
         f"bit-identical; heap leaves max rel err {leaf_rel:.3g}, internal "
         f"nodes max abs err {node_rel:.3g} of the initial total (rtol {RTOL})")
 
-    # Per-seed costs spread by about 8% here, so 64 seeds a side keep the
-    # 5% gate more than 3 standard errors of the difference away.
+    # Per-seed costs spread by about 8% (rejection) and 6% (k-means||)
+    # here, so 64 seeds a side keep the 5% gate more than 3 standard errors
+    # of the difference away.
     small = mixture()
-    costs = {}
-    for where in ("cuda", "cpu"):
-        vals = []
-        for s in range(SMALL_SEEDS):
-            p = ClusterPlan(ClusterSpec(k=24, c=1.2, quantize=False, seed=s),
-                            ExecutionSpec(device=where))
-            idx = p.fit(small).indices.cpu().numpy()
-            vals.append(seeding.clustering_cost(small, small[idx]))
-        costs[where] = float(np.mean(vals))
-    ratio = costs["cuda"] / costs["cpu"]
-    if abs(ratio - 1.0) > 0.05:
-        raise AssertionError(f"small input: card/CPU mean cost {ratio}")
-    log(f"small input (n=1200, d=5, k=24, {SMALL_SEEDS} seeds): mean cost "
-        f"on the card {costs['cuda']:.6g}, on the CPU {costs['cpu']:.6g}, "
-        f"ratio {ratio:.4f} (within 5%)")
+    log(f"[{time.perf_counter() - t_start:.1f} s] small inputs")
+    for seeder in ("rejection", "kmeans||"):
+        costs = {}
+        for where in ("cuda", "cpu"):
+            vals = []
+            for s in range(SMALL_SEEDS):
+                p = ClusterPlan(ClusterSpec(k=24, seeder=seeder, c=1.2,
+                                            quantize=False, seed=s),
+                                ExecutionSpec(device=where))
+                idx = p.fit(small).indices.cpu().numpy()
+                vals.append(seeding.clustering_cost(small, small[idx]))
+            costs[where] = float(np.mean(vals))
+        ratio = costs["cuda"] / costs["cpu"]
+        if abs(ratio - 1.0) > 0.05:
+            raise AssertionError(f"small input, {seeder}: card/CPU mean "
+                                 f"cost {ratio}")
+        log(f"small input (n=1200, d=5, k=24, {SMALL_SEEDS} seeds), "
+            f"{seeder}: mean cost on the card {costs['cuda']:.6g}, on the "
+            f"CPU {costs['cpu']:.6g}, ratio {ratio:.4f} (within 5%)")
 
+    log(f"[{time.perf_counter() - t_start:.1f} s] quality")
     # -- 7. quality, information only ------------------------------------------
     pts64 = torch.as_tensor(points, device=dev)
     t0 = time.perf_counter()
@@ -381,6 +563,7 @@ def main() -> int:
     quality = {
         "rejection": cost64(torch, pts64, pts64[fit.indices.long()]),
         "fastkmeans++": cost64(torch, pts64, pts64[fast_idx.long()]),
+        "kmeans||": cost64(torch, pts64, pts64[km_fit.indices.long()]),
         "kmeans++": cost64(torch, pts64, pts64[torch.as_tensor(
             exact.indices, device=dev)]),
         "uniform": cost64(torch, pts64, pts64[torch.as_tensor(
@@ -392,8 +575,11 @@ def main() -> int:
         f"{quality['rejection'] / quality['kmeans++']:.4f}, "
         f"fastkmeans++/kmeans++ "
         f"{quality['fastkmeans++'] / quality['kmeans++']:.4f}, "
+        f"kmeans||/kmeans++ "
+        f"{quality['kmeans||'] / quality['kmeans++']:.4f}, "
         f"rejection/uniform {quality['rejection'] / quality['uniform']:.4f}")
 
+    log(f"[{time.perf_counter() - t_start:.1f} s] kernel times")
     # -- 4. kernel times, at the main path's shapes ----------------------------
     rounds = collections.Counter()
     for res in (fit, refit):
@@ -423,8 +609,36 @@ def main() -> int:
         "lsh_bucket_accept": (
             lambda i: lsh_cuda.launch(*lsh_args, c2=c2),
             lambda i: ref.lsh_bucket_accept_penalty_ref(*lsh_args, c2=c2)),
+        "lsh_bucket_min": (
+            lambda i: lsh_cuda.launch_min(*lsh_args[:7]),
+            lambda i: ref.lsh_bucket_min_penalty_ref(*lsh_args[:7])),
+        "pairwise_argmin": (
+            lambda i: pam_cuda.launch(xp_km, slots_pad),
+            lambda i: ref.pairwise_argmin_ref(xp_km, slots_pad)),
+        "d2_update": (
+            lambda i: d2_cuda.launch(x_pad, ctr_km, w_pad),
+            lambda i: ref.d2_update_ref(x_pad, ctr_km, w_pad)),
+        "d2_update_tiles": (
+            lambda i: d2_cuda.launch_tiles(x_pad, ctr_km, w_pad, tile=tile),
+            lambda i: ref.d2_update_tiles_ref(x_pad, ctr_km, w_pad,
+                                              block_n=tile)),
     }
+    iters = {"pairwise_argmin": (10, 3)}     # (kernel, plain); else 300, 100
+
+    def cdist_min(i):
+        """The closest library form: two calls, TF32 off."""
+        with ref.full_f32_matmul():
+            return torch.cdist(x_km, slots, compute_mode=(
+                "use_mm_for_euclid_dist")).min(dim=1)
+
+    library = {"pairwise_argmin": (cdist_min, 3)}
+    xp_km = ops._pad_to(x_km, 0, pam_cuda.BLOCK_N, 0.0)
+    slots_pad = ops._pad_to(slots, 0, pam_cuda.BLOCK_K, ops._PAD_FAR)
     sweep_bytes = 4 * (2 * h * ts.n_pad + 2 * h + 2 * ts.n_pad)
+    lsh_min_ops = (b_main * count_main * 2 * l + n_collide * 2 * D
+                   + (b_main + count_main) * 2 * D + b_main)
+    n_x = x_pad.shape[0]
+    d2_bytes = 4 * (n_x * D + D + 2 * n_x)
     sweep_ops = ts.n_pad * (4 * h + 6)
     bounds = {
         "tree_sep_update": bound(sweep_bytes, sweep_ops),
@@ -435,44 +649,67 @@ def main() -> int:
                  + k_pad + 3 * b_main),
             b_main * count_main * 2 * l + n_collide * 2 * D
             + (b_main + count_main) * 2 * D + 6 * b_main),
+        "lsh_bucket_min": bound(
+            4 * (2 * l * b_main + b_main * D + 2 * l * k_pad + k_pad * D
+                 + k_pad + b_main), lsh_min_ops),
+        # The function's own work: n points against the round's 8,000
+        # slots, not the kernel's padding.
+        "pairwise_argmin": bound(4 * (N * D + KMP_CAP * D + 2 * N),
+                                 2 * N * KMP_CAP * D),
+        "d2_update": bound(d2_bytes, n_x * (3 * D + 1)),
+        "d2_update_tiles": bound(d2_bytes + 4 * (n_x // tile),
+                                 n_x * (3 * D + 2)),
     }
+    main_launches = dict(launches,
+                         pairwise_argmin=km_launches["pairwise_argmin"])
     rows = []
     for name, (kernel, plain_fn) in times.items():
-        ms = cuda_ms(torch, kernel, 300)
-        plain_ms = cuda_ms(torch, plain_fn, 100)
-        ms_again = cuda_ms(torch, kernel, 300)
+        k_iters, p_iters = iters.get(name, (300, 100))
+        ms = cuda_ms(torch, kernel, k_iters)
+        plain_ms = cuda_ms(torch, plain_fn, p_iters)
+        ms_again = cuda_ms(torch, kernel, k_iters)
+        lib_ms = None
+        if name in library:
+            lib_ms = cuda_ms(torch, *library[name])
         b_ms, b_by = bounds[name]
         source, replaces = KERNELS[name]
         rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": launches[name],
+                     "replaces": replaces, "launches": main_launches[name],
                      "max_abs_err": errs[name], "ms": min(ms, ms_again),
                      "plain_ms": plain_ms, "bound_ms": b_ms,
-                     "bound_by": b_by, "library_ms": None})
+                     "bound_by": b_by, "library_ms": lib_ms})
         log(f"time {name}: kernel {ms:.6f} / {ms_again:.6f} ms, plain "
-            f"{plain_ms:.6f} ms, bound {b_ms:.6f} ms ({b_by}), "
-            f"{b_ms / min(ms, ms_again):.3f} of the bound")
+            f"{plain_ms:.6f} ms, library "
+            f"{'none' if lib_ms is None else f'{lib_ms:.6f} ms'}, bound "
+            f"{b_ms:.6f} ms ({b_by}), {b_ms / min(ms, ms_again):.3f} of "
+            "the bound")
     log(f"  (sweeps: H-1={h}, n_pad={ts.n_pad}, trees in turn so the code "
         f"planes do not sit in L2; lsh_bucket_accept: B={b_main}, the main "
         f"path's most used block, {count_main} live of {k_pad} slots, "
-        f"{n_collide} colliding pairs)")
+        f"{n_collide} colliding pairs, and lsh_bucket_min on the same "
+        f"inputs; pairwise_argmin: {N} x {KMP_CAP} x {D} padded to "
+        f"{xp_km.shape[0]} x {slots_pad.shape[0]}, {live_slots} live "
+        f"slots, library = torch.cdist(use_mm_for_euclid_dist) + min in "
+        f"full f32; d2_update(_tiles): n_pad={n_x} d={D})")
     log("clocks/power after timing: " + smi(
         "clocks.sm,power.draw,power.limit,temperature.gpu"))
 
+    log(f"[{time.perf_counter() - t_start:.1f} s] idle share")
     # -- 8. idle share over a solve ----------------------------------------------
     from torch.profiler import ProfilerActivity, profile
 
-    # The same solve twice, unprofiled and then traced: one seed gives the
-    # same draws, so both run the same rounds, and the untraced wall time
-    # shows what the tracing costs.
-    bare = plan.refit(seed=2)
+    # The main path's refit(seed=1) again, traced: one seed gives the same
+    # draws, so both run the same rounds, and the untraced wall time shows
+    # what the tracing costs.
+    bare = refit
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
         t0 = time.perf_counter()
-        profiled = plan.refit(seed=2)
+        profiled = plan.refit(seed=1)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     if not torch.equal(bare.indices, profiled.indices):
-        raise AssertionError("refit(seed=2) opened other centers when traced")
+        raise AssertionError("refit(seed=1) opened other centers when traced")
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
@@ -491,7 +728,7 @@ def main() -> int:
         by_name[e.name][0] += e.time_range.elapsed_us() / 1e3
         by_name[e.name][1] += 1
     log(f"idle share: {1 - busy / wall:.4f} (device busy {busy:.4f} s over "
-        f"{len(kernels)} device events in the traced refit(seed=2), whose "
+        f"{len(kernels)} device events in the traced refit(seed=1), whose "
         f"wall time was {wall:.4f} s); the same solve untraced took "
         f"{bare.solve_seconds:.4f} s with the same centers, an idle share "
         f"of {1 - busy / bare.solve_seconds:.4f} if its device time was the "

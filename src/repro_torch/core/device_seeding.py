@@ -1,4 +1,5 @@
-"""Device seeders: the paper's Algorithms 3 and 4 on one card.
+"""Device seeders: the paper's Algorithms 3 and 4, and the k-means||
+baseline, on one card.
 
 The pointer-machine structures become tensors, as in the JAX package:
   - the multi-tree embedding is a (trees, H-1, n) int32x2 code tensor built
@@ -10,7 +11,11 @@ The pointer-machine structures become tensors, as in the JAX package:
     no pass over the n weights);
   - the monotone LSH of Algorithm 4 is a (L, n) int32x2 bucket-key tensor
     plus the `lsh_bucket_accept` kernel: nearest colliding opened center per
-    candidate, with the acceptance probability in its epilogue.
+    candidate, with the acceptance probability in its epilogue;
+  - the k-means|| oversampling rounds refresh every point's distance to the
+    round's picks with one `pairwise_argmin` launch per round; the weighted
+    recluster of the pool stays on the host in float64, as in the JAX
+    package.
 
 Where the JAX package runs the k-center loop as one device program
 (`fori_loop` / `while_loop` / `lax.switch`), the port runs it as a host
@@ -30,6 +35,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import time
 from typing import Optional
 
 import numpy as np
@@ -39,13 +45,22 @@ from repro_torch.core import registry
 from repro_torch.core.batch_schedule import BatchSchedule
 from repro_torch.core.lsh import MonotoneLSH
 from repro_torch.core.sample_tree import TiledSampleTree
-from repro_torch.core.seeding import _estimate_scale
+from repro_torch.core.seeding import (
+    SeedingResult,
+    _candidate_pool_to_centers,
+    _estimate_scale,
+)
 from repro_torch.core.tree_embedding import build_multitree
 from repro_torch.kernels import ops
 
 __all__ = [
     "device_fast_kmeanspp",
     "device_rejection_sampling",
+    "device_kmeans_parallel_rounds",
+    "device_fast_kmeanspp_seeder",
+    "device_rejection_seeder",
+    "device_kmeans_parallel_seeder",
+    "DEVICE_SEEDERS",
     "prepare_embedding",
     "prepare_rejection",
     "seeding_data_from_arrays",
@@ -333,6 +348,168 @@ def _generator(rng: np.random.Generator, device) -> torch.Generator:
 
 
 # ---------------------------------------------------------------------------
+# k-means|| baseline (Bahmani et al. 2012; bias analysis Makarychev et al.,
+# arXiv:2010.14487): the oversampling rounds on the card.
+# ---------------------------------------------------------------------------
+
+def device_kmeans_parallel_rounds(
+    points: torch.Tensor,       # (n, d) f32
+    generator: torch.Generator,
+    ell: float,                 # oversampling factor per round
+    *,
+    rounds: int,
+    cap: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """k-means|| oversampling: `rounds` passes, each picking every point
+    independently with probability ``min(1, ell * d2(x) / phi)`` (``phi``
+    the f32 sum of d2; nothing is picked once ``phi == 0``) and then
+    refreshing d2 against the round's picks with one `pairwise_argmin`
+    launch.  Returns ``(selected (n,) bool, d2 (n,) f32)``.
+
+    The first point is a uniform draw and its d2 the direct sum of squared
+    differences.  An already selected point may be picked again, as in the
+    JAX package's device rounds.  Only the first `cap` wanted points in
+    index order are kept (their rank is a cumsum, so a round has fixed
+    shapes and no device-to-host sync); the rest are dropped consistently,
+    neither selected nor lowering d2, so the pool is exactly the set the
+    distance field saw.  Unfilled center slots sit at `_FAR`.
+    """
+    n = points.shape[0]
+    x0 = _uniform_index(n, generator, points.device)
+    d2 = ((points - points[x0]) ** 2).sum(dim=1)
+    sel = torch.zeros(n, dtype=torch.bool, device=points.device)
+    sel[x0] = True
+    for _ in range(rounds):
+        picked, d2 = _kmeans_parallel_round(points, d2, generator, ell, cap)
+        sel |= picked
+    return sel, d2
+
+
+def _kmeans_parallel_picks(points, d2, generator, ell: float, cap: int):
+    """One round's draws: ``(picked (n,) bool, center slots (cap, d))``,
+    one uniform per point; the slots hold the picks in index order and
+    `_FAR` past them."""
+    n = points.shape[0]
+    dev = points.device
+    phi = d2.sum()
+    p = torch.clamp(ell * d2 / phi.clamp_min(1e-30), max=1.0)
+    u = torch.rand(n, generator=generator, dtype=torch.float32, device=dev)
+    want = (u < p) & (phi > 0)
+    rank = torch.cumsum(want, dim=0) - 1
+    picked = want & (rank < cap)
+    # Slot `cap` collects the dropped and unwanted rows; it is cut off.
+    idx = torch.zeros(cap + 1, dtype=torch.long, device=dev)
+    idx[torch.where(picked, rank, cap)] = torch.arange(n, device=dev)
+    valid = torch.arange(cap, device=dev) < want.sum()
+    return picked, torch.where(valid[:, None], points[idx[:cap]], _FAR)
+
+
+def _kmeans_parallel_round(points, d2, generator, ell: float, cap: int):
+    """One oversampling round of `device_kmeans_parallel_rounds`: the picks,
+    then one `pairwise_argmin` launch against the `cap` center slots.
+    Returns ``(picked (n,) bool, d2' (n,) f32)``."""
+    picked, ctrs = _kmeans_parallel_picks(points, d2, generator, ell, cap)
+    dmin, _ = ops.pairwise_argmin(points, ctrs)
+    return picked, torch.minimum(d2, dmin)
+
+
+def _kmeans_parallel_pool(points_dev, pts, k, rng, *, rounds, oversample):
+    """The solve shared by the plan and the seed_fn: the generator seed
+    from `rng` where the JAX package drew its key, the rounds on the card,
+    then the host recluster with the same `rng`.  Returns (k indices,
+    pool size)."""
+    n = points_dev.shape[0]
+    ell = float(oversample) if oversample is not None else 2.0 * k
+    cap = int(min(n, max(8, 4 * ell)))
+    sel, _ = device_kmeans_parallel_rounds(
+        points_dev, _generator(rng, points_dev.device), ell, rounds=rounds,
+        cap=cap)
+    cand = np.flatnonzero(sel.cpu().numpy())
+    return _candidate_pool_to_centers(pts, cand, k, rng)
+
+
+# ---------------------------------------------------------------------------
+# seed_fn facades: `(points, k, rng, **kw) -> SeedingResult` with NumPy
+# indices, as the JAX package's `DEVICE_SEEDERS`; `device` places the work.
+# ---------------------------------------------------------------------------
+
+def device_fast_kmeanspp_seeder(points, k, rng, *, resolution=None,
+                                tile=512, device="cuda", **_):
+    """Algorithm 3 on the card; `SeedingResult` facade over the host loop."""
+    t0 = time.perf_counter()
+    pts = np.asarray(points, dtype=np.float64)
+    lo, hi, meta = prepare_embedding(pts, seed=int(rng.integers(2 ** 31)),
+                                     resolution=resolution, device=device)
+    t_prep = time.perf_counter() - t0
+    chosen = device_fast_kmeanspp(
+        lo, hi, k, _generator(rng, lo.device), scale=meta["scale"],
+        num_levels=meta["num_levels"], m_init=meta["m_init"], tile=tile)
+    idx = chosen.cpu().numpy().astype(np.int64)
+    seconds = time.perf_counter() - t0
+    return SeedingResult(centers=pts[idx].copy(), indices=idx,
+                         seconds=seconds, num_candidates=k,
+                         prepare_seconds=t_prep,
+                         solve_seconds=seconds - t_prep,
+                         extras={"backend": "device"})
+
+
+def device_rejection_seeder(points, k, rng, *, c=1.2, lsh_r=None,
+                            num_tables=15, hashes_per_table=1,
+                            resolution=None, schedule=None, batch=None,
+                            max_rounds=32, tile=512, device="cuda", **_):
+    """Algorithm 4 on the card; `SeedingResult` facade over the host loop."""
+    t0 = time.perf_counter()
+    pts = np.asarray(points, dtype=np.float64)
+    sched = resolve_schedule(schedule, batch)
+    data = prepare_rejection(
+        pts, seed=int(rng.integers(2 ** 31)), resolution=resolution,
+        lsh_r=lsh_r, num_tables=num_tables,
+        hashes_per_table=hashes_per_table, device=device)
+    t_prep = time.perf_counter() - t0
+    chosen, trials = device_rejection_sampling(
+        data.codes_lo, data.codes_hi, data.points, data.keys_lo,
+        data.keys_hi, k, _generator(rng, data.codes_lo.device),
+        scale=data.scale, num_levels=data.num_levels, m_init=data.m_init,
+        c=c, schedule=sched, max_rounds=max_rounds, tile=tile)
+    idx = chosen.cpu().numpy().astype(np.int64)
+    trials = trials.cpu().numpy().astype(np.int64)
+    total = int(trials.sum())
+    seconds = time.perf_counter() - t0
+    return SeedingResult(
+        centers=pts[idx].copy(), indices=idx, seconds=seconds,
+        num_candidates=total, prepare_seconds=t_prep,
+        solve_seconds=seconds - t_prep,
+        extras={"backend": "device", "trials_per_center": total / k,
+                "per_center_trials": trials,
+                "batch_buckets": sched.buckets()})
+
+
+def device_kmeans_parallel_seeder(points, k, rng, *, rounds=5,
+                                  oversample=None, device="cuda", **_):
+    """k-means|| with the oversampling rounds on the card; the
+    O(ell * rounds) candidate pool is reclustered on the host by weighted
+    k-means++."""
+    t0 = time.perf_counter()
+    pts = np.asarray(points, dtype=np.float64)
+    ell = float(oversample) if oversample is not None else 2.0 * k
+    idx, pool = _kmeans_parallel_pool(
+        torch.as_tensor(pts, dtype=torch.float32, device=device), pts, k, rng,
+        rounds=rounds, oversample=oversample)
+    return SeedingResult(
+        centers=pts[idx].copy(), indices=idx,
+        seconds=time.perf_counter() - t0, num_candidates=pool,
+        extras={"backend": "device", "pool_size": pool, "rounds": rounds,
+                "oversample": ell})
+
+
+DEVICE_SEEDERS = {
+    "fastkmeans++": device_fast_kmeanspp_seeder,
+    "rejection": device_rejection_seeder,
+    "kmeans||": device_kmeans_parallel_seeder,
+}
+
+
+# ---------------------------------------------------------------------------
 # Cached prepare/solve split for `core.plan.ClusterPlan`: `prepare` consumes
 # from `rng` exactly the draws the JAX package's does, and `solve` draws the
 # generator seed where the JAX package drew its key.
@@ -374,16 +551,38 @@ def _solve_rejection(data, pts, k, rng, *, c, schedule, options, execution):
                     "rounds_per_batch": dict(collections.Counter(rounds))}
 
 
+def _prep_kmeans_parallel(pts, rng, *, resolution, options, execution):
+    # The only reusable artifact is the device upload itself (f32 copy).
+    return torch.as_tensor(pts, dtype=torch.float32, device=execution.device)
+
+
+def _solve_kmeans_parallel(points_dev, pts, k, rng, *, c, schedule, options,
+                           execution):
+    idx, pool = _kmeans_parallel_pool(
+        points_dev, pts, k, rng, rounds=options.get("rounds", 5),
+        oversample=options.get("oversample"))
+    return (torch.as_tensor(idx, dtype=torch.int32, device=points_dev.device),
+            {"pool_size": pool, "num_candidates": pool})
+
+
 def _register():
     # Algorithm 3 (D^2 sampling in the multi-tree metric) and Algorithm 4
-    # (multi-tree proposal, LSH-corrected accept) run in the quantised space.
+    # (multi-tree proposal, LSH-corrected accept) run in the quantised space;
+    # k-means|| runs on the points as given.
     for name in ("fastkmeans++", "rejection"):
         registry.register_seeder(name,
                                  registry.SeederCaps(needs_quantize=True))
+    registry.register_seeder("kmeans||", registry.SeederCaps())
     registry.register_backend("fastkmeans++", "device", registry.BackendImpl(
-        prepare=_prep_fastkmeanspp, solve=_solve_fastkmeanspp))
+        prepare=_prep_fastkmeanspp, solve=_solve_fastkmeanspp,
+        device_native=True))
     registry.register_backend("rejection", "device", registry.BackendImpl(
-        prepare=_prep_rejection, solve=_solve_rejection))
+        prepare=_prep_rejection, solve=_solve_rejection, device_native=True))
+    # Not device-native: the rounds run on the card, the weighted recluster
+    # on the host per fit.
+    registry.register_backend("kmeans||", "device", registry.BackendImpl(
+        prepare=_prep_kmeans_parallel, solve=_solve_kmeans_parallel,
+        device_native=False))
 
 
 _register()

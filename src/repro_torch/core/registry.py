@@ -45,11 +45,14 @@ class BackendImpl:
     builds the structures (codes, keys, device uploads), consuming from
     ``rng`` exactly the JAX package's draws; ``solve(artifacts, pts, k,
     rng, *, c, schedule, options, execution) -> (indices, extras)`` runs
-    the sampling stage only.
+    the sampling stage only.  ``device_native`` says, as in the JAX
+    package, that the whole solve runs on the device (k-means|| reclusters
+    its pool on the host, so it is not).
     """
 
     prepare: Callable
     solve: Callable
+    device_native: bool = False
 
 
 @dataclasses.dataclass

@@ -1,17 +1,20 @@
 """Seeding results, costs and the exact k-means++ yardstick.
 
-The port keeps from the JAX package's `core/seeding.py` what this slice
-needs: `SeedingResult`, the float64 `clustering_cost`, the LSH radius
+The port keeps from the JAX package's `core/seeding.py` what its slices
+need: `SeedingResult`, the float64 `clustering_cost`, the LSH radius
 estimate `_estimate_scale` (same rng draws, so prepare artifacts stay
-bit-identical), and exact `kmeanspp` (Arthur & Vassilvitskii 2007), the
-quality reference of every fast seeder, here in PyTorch float64 so it can
-run on the card at full size.
+bit-identical), the host tail of k-means|| (`_candidate_pool_to_centers`
+and its helpers, float64 on the host, returning the same indices for the
+same pool and rng state), and exact `kmeanspp` (Arthur & Vassilvitskii
+2007), the quality reference of every fast seeder, here in PyTorch float64
+so it can run on the card at full size.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -49,6 +52,13 @@ def clustering_cost(points: np.ndarray, centers: np.ndarray,
     return total
 
 
+def _min_d2_update(points, pts_sq, center, d2):
+    """d2 <- min(d2, ||x - center||^2) for all points; one BLAS pass."""
+    cand = pts_sq - 2.0 * (points @ center) + center @ center
+    np.minimum(d2, cand, out=d2)
+    np.maximum(d2, 0.0, out=d2)
+
+
 def _estimate_scale(pts: np.ndarray, rng: np.random.Generator) -> float:
     """Appendix-F quantisation scale (one grid unit) for *unquantised* input:
     rough 20-center uniform solution cost => sqrt(cost / (n d)) / 200,
@@ -62,6 +72,98 @@ def _estimate_scale(pts: np.ndarray, rng: np.random.Generator) -> float:
     if est <= 0:
         return 1.0
     return float(np.sqrt(est / d) / 200.0)
+
+
+# ---------------------------------------------------------------------------
+# k-means|| (Bahmani et al. 2012): the host recluster of the candidate pool.
+# ---------------------------------------------------------------------------
+
+def _nearest_chunked(points: np.ndarray, centers: np.ndarray,
+                     chunk: int = 65536, with_idx: bool = True
+                     ) -> tuple[Optional[np.ndarray], np.ndarray]:
+    """(argmin center index, min squared distance) per point; chunked BLAS.
+    ``with_idx=False`` skips the argmin reduction (index is None).
+
+    The JAX package's arithmetic bit for bit: the same NumPy BLAS product,
+    then ``(|x|^2 - 2 x.c) + |c|^2`` clamped at 0, each step correctly
+    rounded in float64 (``-2`` scales exactly, and ``a + (-b)`` is
+    ``a - b``), ties to the first index.  Only the elementwise steps
+    differ in how they run: in place on the (chunk, m) block through
+    torch's CPU threads, where the JAX package's NumPy allocates four
+    temporaries of the block and walks them on one core; so one block is
+    alive at a time.
+    """
+    pts = np.asarray(points, dtype=np.float64)
+    ctr = np.asarray(centers, dtype=np.float64)
+    c_sq = torch.from_numpy((ctr ** 2).sum(axis=1))
+    idx = np.empty(len(pts), dtype=np.int64) if with_idx else None
+    d2 = np.empty(len(pts), dtype=np.float64)
+    for lo in range(0, len(pts), chunk):
+        x = pts[lo: lo + chunk]
+        dd = torch.from_numpy(x @ ctr.T)
+        x_sq = torch.from_numpy((x ** 2).sum(axis=1))
+        dd.mul_(-2.0).add_(x_sq[:, None]).add_(c_sq[None, :])
+        dd.clamp_min_(0.0)
+        if with_idx:
+            vals, arg = dd.min(dim=1)
+            idx[lo: lo + chunk] = arg.numpy()
+        else:
+            vals = dd.amin(dim=1)
+        d2[lo: lo + chunk] = vals.numpy()
+        del dd       # free the block before the next product allocates one
+    return idx, d2
+
+
+def _weighted_kmeanspp_indices(cand: np.ndarray, weights: np.ndarray, k: int,
+                               rng: np.random.Generator) -> np.ndarray:
+    """Weighted k-means++ over a (small) candidate set: D^2 sampling with
+    per-candidate multiplicities.  Returns k distinct positions into `cand`.
+    """
+    pts = np.asarray(cand, dtype=np.float64)
+    w = np.asarray(weights, dtype=np.float64)
+    m = len(pts)
+    pts_sq = (pts ** 2).sum(axis=1)
+    chosen = np.empty(k, dtype=np.int64)
+    taken = np.zeros(m, dtype=bool)
+    chosen[0] = int(np.searchsorted(np.cumsum(w), rng.uniform(0.0, w.sum())))
+    chosen[0] = min(chosen[0], m - 1)
+    taken[chosen[0]] = True
+    d2 = np.full(m, np.inf)
+    _min_d2_update(pts, pts_sq, pts[chosen[0]], d2)
+    for i in range(1, k):
+        mass = np.where(taken, 0.0, w * d2)
+        total = mass.sum()
+        if total > 0:
+            u = rng.uniform(0.0, total)
+            x = int(np.searchsorted(np.cumsum(mass), u))
+            x = min(x, m - 1)
+        else:
+            # Degenerate pool (duplicates): any untaken position will do.
+            x = int(rng.choice(np.flatnonzero(~taken)))
+        chosen[i] = x
+        taken[x] = True
+        _min_d2_update(pts, pts_sq, pts[x], d2)
+    return chosen
+
+
+def _candidate_pool_to_centers(pts: np.ndarray, cand: np.ndarray, k: int,
+                               rng: np.random.Generator
+                               ) -> tuple[np.ndarray, int]:
+    """k-means|| tail: pad the pool to >= k distinct points, weight each
+    candidate by its Voronoi population, recluster with weighted k-means++.
+    Returns (k chosen point indices, pool size)."""
+    n = len(pts)
+    cand = np.unique(np.asarray(cand, dtype=np.int64))
+    if len(cand) < k:
+        extra = rng.permutation(np.setdiff1d(np.arange(n), cand))
+        cand = np.sort(np.concatenate([cand, extra[: k - len(cand)]]))
+    assign, _ = _nearest_chunked(pts, pts[cand])
+    w = np.bincount(assign, minlength=len(cand)).astype(np.float64)
+    # Every candidate is its own nearest candidate, so w >= 1 everywhere and
+    # the weighted D^2 distribution is well defined.
+    np.maximum(w, 1.0, out=w)
+    local = _weighted_kmeanspp_indices(pts[cand], w, k, rng)
+    return cand[local], len(cand)
 
 
 def kmeanspp(points: np.ndarray, k: int, rng: np.random.Generator, *,

@@ -1,15 +1,18 @@
-// Monotone-LSH nearest-bucket query with the Algorithm-4 acceptance
-// epilogue, for Hopper (sm_90a).
+// Monotone-LSH nearest-bucket query, with or without the Algorithm-4
+// acceptance epilogue, for Hopper (sm_90a).
 //
-// Replaces the TPU kernel `lsh_bucket_accept_pallas` (`_kernel_accept`,
-// src/repro/kernels/lsh_bucket_min.py).  Per candidate b over the center
-// slots c:
+// Replaces the TPU kernels `lsh_bucket_accept_pallas` (`_kernel_accept`)
+// and `lsh_bucket_min_pallas` (`_kernel`, the same query without the
+// epilogue: d2_min only), both in src/repro/kernels/lsh_bucket_min.py.  One
+// kernel template serves both: `kAccept` adds the epilogue, and each has
+// its own `extern "C"` entry.  Per candidate b over the center slots c:
 //
 //   collide[b,c] = OR_l (qlo[l,b] == clo[l,c] && qhi[l,b] == chi[l,c])
 //   val[b,c]     = max(collide ? max(|q|^2 - 2 q.c + |c|^2, 0) : MISS,
 //                      penalty[c])
 //   d2_min[b]    = min(MISS, min_c val[b,c])
 //   p[b]         = mtd2[b] > 0 ? d2_min[b] / max(c2 * mtd2[b], 1e-30) : 0
+//                  (kAccept only)
 //
 // The penalty row is 0 for live center slots and MISS for slots not yet
 // opened or padded, so a collision with a dead slot turns into a miss.
@@ -26,16 +29,17 @@
 // an f32 FMA loop over d, evaluated only for the slots whose keys collide:
 // a slot that shares no bucket yields MISS whatever its distance, as the
 // reference's where() does.  A warp-level min ends the sweep and lane 0
-// writes d2_min and the acceptance probability.  No library call computes
-// q.c.
+// writes d2_min and, with kAccept, the acceptance probability.  No
+// library call computes q.c.
 //
 // The distance keeps the reference's expanded form and its order,
 // (|q|^2 - 2 q.c) + |c|^2; the sums over d run in another order than the
 // reference's, so results agree to f32 rounding (exactly for small
 // integer-valued coordinates).
 //
-// The wrapper (`ops.lsh_bucket_accept`) pads B to a multiple of kWarps and
-// K to a multiple of kTile, so the kernel has no ragged edge.
+// The wrappers (`ops.lsh_bucket_accept`, `ops.lsh_bucket_min`) pad B to a
+// multiple of kWarps and K to a multiple of kTile, so the kernel has no
+// ragged edge.
 
 #include <cuda_runtime.h>
 
@@ -45,7 +49,8 @@ constexpr int kWarps = 8;         // candidates per block, one warp each
 constexpr int kTile = 32;         // center slots per shared-memory tile
 constexpr float kMiss = 3.0e38f;  // LSH_MISS
 
-__global__ void lsh_accept_kernel(
+template <bool kAccept>
+__global__ void lsh_query_kernel(
     const int* __restrict__ qlo, const int* __restrict__ qhi,
     const float* __restrict__ q, const int* __restrict__ clo,
     const int* __restrict__ chi, const float* __restrict__ c,
@@ -122,38 +127,60 @@ __global__ void lsh_accept_kernel(
   for (int o = 16; o > 0; o >>= 1)
     best = fminf(best, __shfl_xor_sync(0xffffffffu, best, o));
   if (lane == 0) {
-    const float m = mtd2[b];
     d2_out[b] = best;
-    p_out[b] = m > 0.0f ? best / fmaxf(c2 * m, 1e-30f) : 0.0f;
+    if (kAccept) {
+      const float m = mtd2[b];
+      p_out[b] = m > 0.0f ? best / fmaxf(c2 * m, 1e-30f) : 0.0f;
+    }
   }
+}
+
+template <bool kAccept>
+int launch(const int* qlo, const int* qhi, const float* q, const int* clo,
+           const int* chi, const float* c, const float* penalty,
+           const float* mtd2, float* d2_out, float* p_out, int L, int B,
+           int K, int D, float c2, void* stream) {
+  const int dp = D | 1;
+  const size_t smem = sizeof(float) * (kTile * dp + kTile + kWarps * D) +
+                      sizeof(int) * (2 * L * kTile + kWarps * 2 * L);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        lsh_query_kernel<kAccept>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int blocks = B / kWarps;
+  if (blocks > 0) {
+    lsh_query_kernel<kAccept><<<blocks, kWarps * 32, smem,
+                                static_cast<cudaStream_t>(stream)>>>(
+        qlo, qhi, q, clo, chi, c, penalty, mtd2, d2_out, p_out, L, B, K, D,
+        c2);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Layouts (row-major): qlo/qhi (L, B), q (B, D), clo/chi (L, K), c (K, D),
 // penalty (K,), mtd2 (B,); outputs d2_out, p_out (B,).  B % 8 == 0 and
-// K % 32 == 0 (the Python binding checks both).  Returns the cudaError_t of
-// the attribute call or of the launch.
+// K % 32 == 0 (the Python binding checks both).  Each returns the
+// cudaError_t of the attribute call or of the launch.
 extern "C" int lsh_bucket_accept_launch(
     const int* qlo, const int* qhi, const float* q, const int* clo,
     const int* chi, const float* c, const float* penalty, const float* mtd2,
     float* d2_out, float* p_out, int L, int B, int K, int D, float c2,
     void* stream) {
-  const int dp = D | 1;
-  const size_t smem = sizeof(float) * (kTile * dp + kTile + kWarps * D) +
-                      sizeof(int) * (2 * L * kTile + kWarps * 2 * L);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        lsh_accept_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int blocks = B / kWarps;
-  if (blocks > 0) {
-    lsh_accept_kernel<<<blocks, kWarps * 32, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-        qlo, qhi, q, clo, chi, c, penalty, mtd2, d2_out, p_out, L, B, K, D,
-        c2);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch<true>(qlo, qhi, q, clo, chi, c, penalty, mtd2, d2_out,
+                      p_out, L, B, K, D, c2, stream);
+}
+
+// The query alone (no mtd2, no p): d2_out (B,).
+extern "C" int lsh_bucket_min_launch(const int* qlo, const int* qhi,
+                                     const float* q, const int* clo,
+                                     const int* chi, const float* c,
+                                     const float* penalty, float* d2_out,
+                                     int L, int B, int K, int D,
+                                     void* stream) {
+  return launch<false>(qlo, qhi, q, clo, chi, c, penalty, nullptr, d2_out,
+                       nullptr, L, B, K, D, 0.0f, stream);
 }

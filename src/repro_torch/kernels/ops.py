@@ -2,20 +2,20 @@
 
 Dispatch follows the tensors: on the CPU a wrapper runs the plain PyTorch
 version from `ref.py`; on a CUDA device it launches the hand-written kernel
-(bound in `tree_sep_update_cuda.py` and `lsh_bucket_accept_cuda.py`) or the
-launch raises.  There is no fallback from one to the other, and any other
-device raises.
+(bound in the `*_cuda.py` modules beside this one) or the launch raises.
+There is no fallback from one to the other, and any other device raises.
 
 Padding is done before the dispatch, so the CPU tests run it too.  It
 follows the JAX package's wrappers: points pad with weight 0 (never
 sampled, nothing added to a tile sum), query-side codes and keys pad with
 -1 and center-side keys with -2 (so a padded query lane never collides
 with a padded center slot), padded center coordinates sit at `_PAD_FAR`,
-and the penalty row turns every dead slot into a miss.  The TPU also padded
-the heights H and the tables L to a multiple of 8 sublanes; the CUDA
-kernels loop over any count, so those axes are not padded.  On the main
-path every pad is a no-op: the seeders keep their buffers at block
-multiples.
+and the penalty row turns every dead slot into a miss; `pairwise_argmin`
+pads points with zeros and center slots at `_PAD_FAR`, `d2_update` rows
+with zeros and w with 0.  The TPU also padded the heights H and the tables
+L to a multiple of 8 sublanes; the CUDA kernels loop over any count, so
+those axes are not padded.  On the Algorithm 4 path every pad is a no-op:
+the seeders keep their buffers at block multiples.
 
 Each wrapper adds one to its entry of `LAUNCHES` where it launches its
 kernel, and nowhere else: a run shows it went through the kernels by
@@ -28,13 +28,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import pairwise_argmin_cuda, ref
 from repro_torch.kernels.lsh_bucket_accept_cuda import BLOCK_B, BLOCK_K
 from repro_torch.kernels.ref import LSH_MISS
 
 __all__ = [
+    "pairwise_argmin",
+    "d2_update",
+    "d2_update_tiles",
     "tree_sep_update",
     "tree_sep_update_tiles",
+    "lsh_bucket_min",
     "lsh_bucket_accept",
     "split_codes_u64",
     "penalty_row",
@@ -49,7 +53,8 @@ _QUERY_CODE_PAD = -1   # query-side (points, candidates) code and key pad
 _CENTER_CODE_PAD = -2  # center-side key pad: never equals a query pad
 
 LAUNCHES = {"tree_sep_update": 0, "tree_sep_update_tiles": 0,
-            "lsh_bucket_accept": 0}
+            "lsh_bucket_accept": 0, "lsh_bucket_min": 0, "pairwise_argmin": 0,
+            "d2_update": 0, "d2_update_tiles": 0}
 
 
 def launch_counts() -> dict[str, int]:
@@ -87,6 +92,63 @@ def penalty_row(k_pad: int, count, device) -> torch.Tensor:
     for slots not yet opened or padded; the kernel max()es it in."""
     live = torch.arange(k_pad, device=device) < count
     return torch.where(live, 0.0, LSH_MISS).to(torch.float32)
+
+
+def pairwise_argmin(x: torch.Tensor, c: torch.Tensor):
+    """(min squared distance (n,) f32, argmin center index (n,) int32) per
+    point, for any (n, d) x (k, d) with k >= 1, f32 or bf16.
+
+    Points pad to a multiple of the kernel's `BLOCK_N` with zeros; center
+    slots pad to one of `BLOCK_K` with every coordinate at `_PAD_FAR`, so a
+    padded slot never wins while a real one is nearer and its distance stays
+    f32-finite.  The outputs are cut back to n.
+    """
+    n, k = x.shape[0], c.shape[0]
+    if k == 0:
+        raise ValueError("pairwise_argmin needs at least one center")
+    xp = _pad_to(x, 0, pairwise_argmin_cuda.BLOCK_N, 0.0)
+    cp = _pad_to(c, 0, pairwise_argmin_cuda.BLOCK_K, _PAD_FAR)
+    if not _on_card(x):
+        d2, idx = ref.pairwise_argmin_ref(xp, cp)
+    else:
+        d2, idx = pairwise_argmin_cuda.launch(xp, cp)
+        LAUNCHES["pairwise_argmin"] += 1
+    return d2[:n], idx[:n]
+
+
+def d2_update(x: torch.Tensor, center: torch.Tensor,
+              w: torch.Tensor, *, block_n: int = 512) -> torch.Tensor:
+    """w <- min(w, ||x - center||^2) for any n; rows pad to `block_n` with
+    zeros and w with 0, and the result is cut back to n."""
+    n = x.shape[0]
+    xp = _pad_to(x, 0, block_n, 0.0)
+    wp = _pad_to(w, 0, block_n, 0.0)
+    if not _on_card(w):
+        return ref.d2_update_ref(xp, center, wp)[:n]
+    from repro_torch.kernels import d2_update_cuda as binding
+
+    out = binding.launch(xp, center, wp)
+    LAUNCHES["d2_update"] += 1
+    return out[:n]
+
+
+def d2_update_tiles(x: torch.Tensor, center: torch.Tensor, w: torch.Tensor,
+                    *, block_n: int = 512):
+    """`d2_update` plus per-tile sums; pads as `d2_update` does.
+
+    Returns the *padded* ``(w' (n_pad,), tile_sums (n_pad // block_n,))``,
+    as `tree_sep_update_tiles` does: padded lanes carry w = 0, so they add
+    nothing to a tile sum.
+    """
+    xp = _pad_to(x, 0, block_n, 0.0)
+    wp = _pad_to(w, 0, block_n, 0.0)
+    if not _on_card(w):
+        return ref.d2_update_tiles_ref(xp, center, wp, block_n=block_n)
+    from repro_torch.kernels import d2_update_cuda as binding
+
+    out = binding.launch_tiles(xp, center, wp, tile=block_n)
+    LAUNCHES["d2_update_tiles"] += 1
+    return out
 
 
 def tree_sep_update(codes_lo, codes_hi, center_lo, center_hi, w, *,
@@ -131,10 +193,27 @@ def tree_sep_update_tiles(codes_lo, codes_hi, center_lo, center_hi, w, *,
     return out
 
 
-def lsh_bucket_accept(q_keys_lo, q_keys_hi, q, c_keys_lo, c_keys_hi, c, mtd2,
-                      count=None, *, c2: float):
-    """Nearest colliding-bucket center plus the Algorithm-4 acceptance
-    probability, per candidate: ``(d2_min (B,), p_accept (B,))``.
+def _lsh_query_args(q_keys_lo, q_keys_hi, q, c_keys_lo, c_keys_hi, c,
+                    count) -> tuple:
+    """The LSH query's inputs padded to the kernel's blocks, plus the
+    penalty row that masks every slot past `count` (`None`: all K)."""
+    cp = _pad_to(c, 0, BLOCK_K, _PAD_FAR)
+    return (
+        _pad_to(q_keys_lo, 1, BLOCK_B, _QUERY_CODE_PAD),
+        _pad_to(q_keys_hi, 1, BLOCK_B, _QUERY_CODE_PAD),
+        _pad_to(q, 0, BLOCK_B, 0.0),
+        _pad_to(c_keys_lo, 1, BLOCK_K, _CENTER_CODE_PAD),
+        _pad_to(c_keys_hi, 1, BLOCK_K, _CENTER_CODE_PAD),
+        cp,
+        penalty_row(cp.shape[0], c.shape[0] if count is None else count,
+                    q.device),
+    )
+
+
+def lsh_bucket_min(q_keys_lo, q_keys_hi, q, c_keys_lo, c_keys_hi, c,
+                   count=None) -> torch.Tensor:
+    """Nearest colliding-bucket center per candidate: d2_min (B,), or
+    `LSH_MISS` where no live center shares a bucket.
 
     Keys are (L, B) / (L, K) int32 planes of the uint64 bucket keys.  Only
     the first `count` center slots are live (`None`: all K); the rest are
@@ -142,18 +221,27 @@ def lsh_bucket_accept(q_keys_lo, q_keys_hi, q, c_keys_lo, c_keys_hi, c, mtd2,
     `BLOCK_B` and center slots to one of `BLOCK_K`, the kernel's block
     shapes.
     """
-    b, k = q.shape[0], c.shape[0]
-    cp = _pad_to(c, 0, BLOCK_K, _PAD_FAR)
-    args = (
-        _pad_to(q_keys_lo, 1, BLOCK_B, _QUERY_CODE_PAD),
-        _pad_to(q_keys_hi, 1, BLOCK_B, _QUERY_CODE_PAD),
-        _pad_to(q, 0, BLOCK_B, 0.0),
-        _pad_to(c_keys_lo, 1, BLOCK_K, _CENTER_CODE_PAD),
-        _pad_to(c_keys_hi, 1, BLOCK_K, _CENTER_CODE_PAD),
-        cp,
-        penalty_row(cp.shape[0], k if count is None else count, q.device),
-        _pad_to(mtd2, 0, BLOCK_B, 0.0),
-    )
+    b = q.shape[0]
+    args = _lsh_query_args(q_keys_lo, q_keys_hi, q, c_keys_lo, c_keys_hi, c,
+                           count)
+    if not _on_card(q):
+        d2_min = ref.lsh_bucket_min_penalty_ref(*args)
+    else:
+        from repro_torch.kernels import lsh_bucket_accept_cuda as binding
+
+        d2_min = binding.launch_min(*args)
+        LAUNCHES["lsh_bucket_min"] += 1
+    return d2_min[:b]
+
+
+def lsh_bucket_accept(q_keys_lo, q_keys_hi, q, c_keys_lo, c_keys_hi, c, mtd2,
+                      count=None, *, c2: float):
+    """`lsh_bucket_min` plus the Algorithm-4 acceptance probability, per
+    candidate: ``(d2_min (B,), p_accept (B,))``; padding as in
+    `lsh_bucket_min`, with mtd2 padded with zeros (p = 0 there)."""
+    b = q.shape[0]
+    args = _lsh_query_args(q_keys_lo, q_keys_hi, q, c_keys_lo, c_keys_hi, c,
+                           count) + (_pad_to(mtd2, 0, BLOCK_B, 0.0),)
     if not _on_card(q):
         d2_min, p = ref.lsh_bucket_accept_penalty_ref(*args, c2=c2)
     else:

@@ -9,14 +9,21 @@ which they mirror one for one.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 __all__ = [
     "LSH_MISS",
+    "full_f32_matmul",
     "tile_sums_ref",
+    "pairwise_argmin_ref",
+    "d2_update_ref",
+    "d2_update_tiles_ref",
     "tree_sep_update_ref",
     "tree_sep_update_tiles_ref",
     "lsh_bucket_min_ref",
+    "lsh_bucket_min_penalty_ref",
     "lsh_bucket_accept_ref",
     "lsh_bucket_accept_penalty_ref",
 ]
@@ -24,9 +31,67 @@ __all__ = [
 LSH_MISS = 3.0e38  # "no colliding center" sentinel (finite in f32)
 
 
+@contextlib.contextmanager
+def full_f32_matmul():
+    """Run float32 matrix products on the card in full float32, whatever
+    the process set: TF32 keeps about three decimal digits, and the plain
+    versions are the kernels' oracles.  Restores the setting on exit; has
+    no effect on the CPU."""
+    m = torch.backends.cuda.matmul
+    try:    # the newer API; reading the legacy flag raises once it is used
+        attr, saved, value = "fp32_precision", m.fp32_precision, "ieee"
+    except AttributeError:
+        attr, saved, value = "allow_tf32", m.allow_tf32, False
+    setattr(m, attr, value)
+    try:
+        yield
+    finally:
+        setattr(m, attr, saved)
+
+
 def tile_sums_ref(w: torch.Tensor, block_n: int) -> torch.Tensor:
     """Per-tile weight sums — the `_tiles` kernel's epilogue oracle."""
     return w.reshape(-1, block_n).sum(dim=1)
+
+
+def pairwise_argmin_ref(x: torch.Tensor, c: torch.Tensor, *,
+                        chunk: int = 16384):
+    """argmin_c ||x - c||^2 per row of x: ``(min_d2 (n,) f32, argmin (n,)
+    int32)``.
+
+    The expanded form ``max((|x|^2 - 2 x.c) + |c|^2, 0)`` in f32 (f32 or
+    bf16 inputs are widened first), ties to the smallest center index
+    (`torch.min` returns the first minimum).  Rows go in chunks of `chunk`
+    so the (rows, k) block stays bounded at any n.
+    """
+    xf = x.to(torch.float32)
+    cf = c.to(torch.float32)
+    c_sq = (cf * cf).sum(dim=1)
+    d2_min = torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
+    arg = torch.empty(x.shape[0], dtype=torch.int32, device=x.device)
+    with full_f32_matmul():
+        for lo in range(0, x.shape[0], chunk):
+            xs = xf[lo: lo + chunk]
+            x_sq = (xs * xs).sum(dim=1)
+            d2 = ((x_sq[:, None] - 2.0 * (xs @ cf.T)) + c_sq[None, :])
+            vals, idx = d2.clamp_min_(0.0).min(dim=1)
+            d2_min[lo: lo + chunk] = vals
+            arg[lo: lo + chunk] = idx
+    return d2_min, arg
+
+
+def d2_update_ref(x: torch.Tensor, center: torch.Tensor,
+                  w: torch.Tensor) -> torch.Tensor:
+    """w <- min(w, ||x - center||^2): the D^2 maintenance step of exact
+    k-means++ (direct differences, f32)."""
+    diff = x.to(torch.float32) - center.to(torch.float32)[None, :]
+    return torch.minimum(w.to(torch.float32), (diff * diff).sum(dim=1))
+
+
+def d2_update_tiles_ref(x, center, w, *, block_n: int = 512):
+    """(w', per-tile sums of w') — the `d2_update_tiles` oracle."""
+    out = d2_update_ref(x, center, w)
+    return out, tile_sums_ref(out, block_n)
 
 
 def tree_sep_update_ref(
@@ -73,7 +138,9 @@ def _masked_d2(q_keys_lo, q_keys_hi, q, c_keys_lo, c_keys_hi, c,
     cf = c.to(torch.float32)
     q_sq = (qf * qf).sum(dim=1)
     c_sq = (cf * cf).sum(dim=1)
-    d2 = (q_sq[:, None] - 2.0 * (qf @ cf.T) + c_sq[None, :]).clamp_min(0.0)
+    with full_f32_matmul():
+        dots = qf @ cf.T
+    d2 = (q_sq[:, None] - 2.0 * dots + c_sq[None, :]).clamp_min(0.0)
     return torch.where(collide & live[None, :], d2,
                        torch.full_like(d2, LSH_MISS))
 
@@ -127,16 +194,24 @@ def lsh_bucket_accept_ref(q_keys_lo, q_keys_hi, q, c_keys_lo, c_keys_hi, c,
     return d2_min, _accept_p(d2_min, mtd2, c2)
 
 
+def lsh_bucket_min_penalty_ref(q_keys_lo, q_keys_hi, q, c_keys_lo,
+                               c_keys_hi, c,
+                               penalty: torch.Tensor) -> torch.Tensor:
+    """The kernel's own form of `lsh_bucket_min_ref`, on the padded inputs
+    the kernel takes: liveness comes as a penalty row (0 live, `LSH_MISS`
+    dead) that is max()ed into every colliding distance, exactly as the TPU
+    kernel and the CUDA kernel apply it."""
+    every = torch.ones(c.shape[0], dtype=torch.bool, device=c.device)
+    return _row_min(torch.maximum(
+        _masked_d2(q_keys_lo, q_keys_hi, q, c_keys_lo, c_keys_hi, c, every),
+        penalty[None, :]))
+
+
 def lsh_bucket_accept_penalty_ref(q_keys_lo, q_keys_hi, q, c_keys_lo,
                                   c_keys_hi, c, penalty: torch.Tensor,
                                   mtd2: torch.Tensor, *, c2: float):
-    """The kernel's own form of `lsh_bucket_accept_ref`, on the padded
-    inputs the kernel takes: liveness comes as a penalty row (0 live,
-    `LSH_MISS` dead) that is max()ed into every colliding distance, exactly
-    as the TPU kernel and the CUDA kernel apply it."""
-    every = torch.ones(c.shape[0], dtype=torch.bool, device=c.device)
-    masked = torch.maximum(
-        _masked_d2(q_keys_lo, q_keys_hi, q, c_keys_lo, c_keys_hi, c, every),
-        penalty[None, :])
-    d2_min = _row_min(masked)
+    """`lsh_bucket_min_penalty_ref` plus the acceptance epilogue: the
+    kernel's own form of `lsh_bucket_accept_ref`."""
+    d2_min = lsh_bucket_min_penalty_ref(q_keys_lo, q_keys_hi, q, c_keys_lo,
+                                        c_keys_hi, c, penalty)
     return d2_min, _accept_p(d2_min, mtd2, c2)

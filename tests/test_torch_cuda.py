@@ -7,14 +7,16 @@ machine with a card, from the repository root:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Shapes are small and ragged on purpose (n not a multiple of the tile, B and
-K not multiples of the kernel's blocks, L = 15 and L = 1, 59 code rows);
-`chip_smoke.py` makes the same comparison at the main path's full shapes.
+K not multiples of the kernel's blocks, n and k not multiples of 128,
+L = 15 and L = 1, 59 code rows, f32 and bf16 points); `chip_smoke.py` makes
+the same comparison at the main paths' full shapes.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import device_seeding as ds
 from repro_torch.core.plan import ClusterPlan, ClusterSpec, ExecutionSpec
 from repro_torch.kernels import ops, ref
 
@@ -126,3 +128,113 @@ def test_one_seed_replays_on_the_card(cuda):
     for _ in range(3):
         torch.testing.assert_close(plan.refit(seed=0).indices, first.indices,
                                    rtol=0, atol=0)
+
+
+def _lsh_args(b, k, l, d, miss, dev):
+    rng = np.random.default_rng(b + k)
+    qk = rng.integers(-5, 5, size=(2, l, b)).astype(np.int32)
+    ck = rng.integers(-5, 5, size=(2, l, k)).astype(np.int32) + (
+        100 if miss else 0)
+    arrays = (qk[0], qk[1], rng.normal(size=(b, d)).astype(np.float32),
+              ck[0], ck[1], rng.normal(size=(k, d)).astype(np.float32))
+    return [torch.from_numpy(a).to(dev) for a in arrays]
+
+
+@pytest.mark.parametrize("b,k,l,d,count,miss", [
+    (7, 3, 15, 6, None, False),
+    (130, 129, 15, 74, 60, False),
+    (64, 1, 1, 3, None, False),
+    (16, 40, 15, 8, 0, False),
+    (50, 20, 15, 10, None, True),
+    (512, 1000, 15, 74, 999, False),
+])
+def test_lsh_bucket_min_kernel(cuda, b, k, l, d, count, miss):
+    args = _lsh_args(b, k, l, d, miss, cuda)
+    before = ops.launch_counts()["lsh_bucket_min"]
+    d2 = ops.lsh_bucket_min(*args, count)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["lsh_bucket_min"] == before + 1
+    pd2 = ref.lsh_bucket_min_ref(*args, count)
+    miss_lanes = pd2 == ref.LSH_MISS
+    assert torch.equal(d2 == ref.LSH_MISS, miss_lanes)
+    if miss or count == 0:
+        assert miss_lanes.all()
+    torch.testing.assert_close(d2[~miss_lanes], pd2[~miss_lanes], rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,k,d", [(7, 3, 5), (300, 70, 17), (1024, 256, 74),
+                                   (65, 129, 33), (2000, 300, 200)])
+def test_pairwise_argmin_kernel(cuda, n, k, d, dtype):
+    """Distances to rtol 1e-5 (the expanded form, sums in another order);
+    argmins equal except where the plain version's best two distances lie
+    that close; duplicated centers go to the first copy."""
+    rng = np.random.default_rng(n + k)
+    x = torch.tensor(rng.normal(size=(n, d)), dtype=dtype, device=cuda)
+    c = torch.tensor(rng.normal(size=(k, d)), dtype=dtype, device=cuda)
+    c[k - 1] = c[0]                            # a duplicate: 0 wins
+    before = ops.launch_counts()["pairwise_argmin"]
+    d2, idx = ops.pairwise_argmin(x, c)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["pairwise_argmin"] == before + 1
+    pd2, pidx = ref.pairwise_argmin_ref(x, c)
+    torch.testing.assert_close(d2, pd2, rtol=1e-5, atol=1e-5)
+    full = ((x.float()[:, None] - c.float()[None]) ** 2).sum(-1).double()
+    rows = torch.nonzero(idx != pidx).flatten()
+    assert len(rows) <= max(1, n // 100)
+    torch.testing.assert_close(full[rows, idx[rows].long()],
+                               full[rows, pidx[rows].long()], rtol=1e-5,
+                               atol=1e-5)
+    assert int(idx.max()) < k and (k == 1 or not (idx == k - 1).any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d", [(5, 3), (1000, 74), (513, 128)])
+def test_d2_update_kernels(cuda, n, d, dtype):
+    rng = np.random.default_rng(n * d)
+    x = torch.tensor(rng.normal(size=(n, d)), dtype=dtype, device=cuda)
+    ctr = torch.tensor(rng.normal(size=(d,)), dtype=dtype, device=cuda)
+    w = torch.tensor(rng.uniform(0, 4 * d, size=n), dtype=torch.float32,
+                     device=cuda)
+    out = ops.d2_update(x, ctr, w)
+    tiles, sums = ops.d2_update_tiles(x, ctr, w, block_n=128)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref.d2_update_ref(x, ctr, w), rtol=1e-5,
+                               atol=1e-5)
+    pw, psums = ref.d2_update_tiles_ref(ops._pad_to(x, 0, 128, 0.0), ctr,
+                                        ops._pad_to(w, 0, 128, 0.0),
+                                        block_n=128)
+    torch.testing.assert_close(tiles, pw, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(sums, psums, rtol=1e-5, atol=0.0)
+    assert (tiles[n:] == 0.0).all()
+
+
+def test_kmeans_parallel_plan_runs_through_the_kernel(cuda):
+    """One `pairwise_argmin` launch per round, k distinct indices on the
+    card, and one seed replays."""
+    rng = np.random.default_rng(2)
+    ctr = rng.normal(size=(40, 8)) * 40
+    pts = ctr[rng.integers(40, size=20_000)] + rng.normal(size=(20_000, 8))
+    plan = ClusterPlan(ClusterSpec(k=64, seeder="kmeans||",
+                                   options={"rounds": 4}),
+                       ExecutionSpec(backend="device"))
+    ops.reset_launch_counts()
+    res = plan.fit(pts)
+    counts = ops.launch_counts()
+    assert counts["pairwise_argmin"] == 4
+    assert sum(counts.values()) == 4
+    assert res.indices.is_cuda and len(torch.unique(res.indices)) == 64
+    assert torch.isfinite(res.cost) and float(res.cost) > 0
+    for _ in range(2):
+        torch.testing.assert_close(plan.refit(seed=0).indices, res.indices,
+                                   rtol=0, atol=0)
+    sel, d2 = ds.device_kmeans_parallel_rounds(
+        plan.prepare_data(pts).artifacts,
+        torch.Generator(device=cuda).manual_seed(3), 128.0, rounds=4,
+        cap=512)
+    again = ds.device_kmeans_parallel_rounds(
+        plan.prepare_data(pts).artifacts,
+        torch.Generator(device=cuda).manual_seed(3), 128.0, rounds=4,
+        cap=512)
+    assert torch.equal(sel, again[0]) and torch.equal(d2, again[1])

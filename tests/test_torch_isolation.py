@@ -21,8 +21,10 @@ import torch
 import repro_torch
 from repro_torch.core import device_seeding as ds
 from repro_torch.core.plan import ClusterPlan, ClusterSpec, ExecutionSpec
+from repro_torch.kernels import d2_update_cuda as d2u_binding
 from repro_torch.kernels import lsh_bucket_accept_cuda as lba_binding
 from repro_torch.kernels import ops
+from repro_torch.kernels import pairwise_argmin_cuda as pam_binding
 from repro_torch.kernels import tree_sep_update_cuda as tsu_binding
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -110,26 +112,36 @@ def _bad_variants(args, sizes):
             yield i, torch.cat([t, t], dim=1)[:, ::2]
 
 
-@pytest.mark.parametrize("which", ["sweep", "tiles", "accept"])
+def _binding_call(which):
+    """(arguments, indices to corrupt, call) of one binding's launch."""
+    if which in ("sweep", "tiles"):
+        kw = dict(scale=1.0, num_levels=5)
+        if which == "sweep":
+            return _sweep_args(), [0, 1, 4], \
+                lambda a: tsu_binding.launch(*a, **kw)
+        return _sweep_args(), [0, 1, 4], \
+            lambda a: tsu_binding.launch_tiles(*a, tile=32, **kw)
+    if which == "accept":
+        return _accept_args(), range(8), \
+            lambda a: lba_binding.launch(*a, c2=4.0)
+    if which == "lsh_min":
+        return _accept_args()[:7], range(7), \
+            lambda a: lba_binding.launch_min(*a)
+    if which == "pairwise":
+        return [torch.zeros((128, 5)), torch.zeros((128, 5))], [0, 1], \
+            lambda a: pam_binding.launch(*a)
+    args = [torch.zeros((64, 5)), torch.zeros(5), torch.zeros(64)]
+    if which == "d2":
+        return args, [0, 1, 2], lambda a: d2u_binding.launch(*a)
+    return args, [0, 1, 2], lambda a: d2u_binding.launch_tiles(*a, tile=32)
+
+
+@pytest.mark.parametrize("which", ["sweep", "tiles", "accept", "lsh_min",
+                                   "pairwise", "d2", "d2_tiles"])
 def test_bindings_check_arguments_before_launching(which):
     """The bindings refuse a CPU tensor passed as if it were on the card and
     every wrong dtype, shape or contiguity, before loading any library."""
-    if which == "accept":
-        args, sizes = _accept_args(), range(8)
-
-        def call(a):
-            return lba_binding.launch(*a, c2=4.0)
-    else:
-        args, sizes = _sweep_args(), [0, 1, 4]
-        kw = dict(scale=1.0, num_levels=5)
-        if which == "tiles":
-            kw["tile"] = 32
-
-        def call(a):
-            fn = tsu_binding.launch if which == "sweep" else \
-                tsu_binding.launch_tiles
-            return fn(*a, **kw)
-
+    args, sizes, call = _binding_call(which)
     with pytest.raises(ValueError, match="CUDA kernel got a tensor on cpu"):
         call(args)
     bad = 0
@@ -140,7 +152,9 @@ def test_bindings_check_arguments_before_launching(which):
             call(a)
         assert "CUDA kernel got a tensor" not in str(err.value)
         bad += 1
-    assert bad >= 8
+    # every argument gets a wrong dtype and shape, every matrix a stride
+    assert bad == sum(3 if args[i].dim() == 2 and args[i].shape[1] > 1
+                      else 2 for i in sizes) >= 6
     assert ops.launch_counts() == {name: 0 for name in ops.LAUNCHES}
 
 
@@ -153,6 +167,17 @@ def test_bindings_check_kernel_block_shapes():
                                  tile=32)
     with pytest.raises(ValueError, match="at most 64 code rows"):
         tsu_binding.launch(*_sweep_args(h=65), scale=1.0, num_levels=66)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        lba_binding.launch_min(*a[:7])
+    for n, k in ((100, 128), (128, 100), (128, 0)):
+        with pytest.raises(ValueError, match="multiple of 128"):
+            pam_binding.launch(torch.zeros((n, 3)), torch.zeros((k, 3)))
+    with pytest.raises(TypeError, match="must be one of"):
+        pam_binding.launch(torch.zeros((128, 3), dtype=torch.float16),
+                           torch.zeros((128, 3), dtype=torch.float16))
+    with pytest.raises(ValueError, match="tile must be"):
+        d2u_binding.launch_tiles(torch.zeros((48, 3)), torch.zeros(3),
+                                 torch.zeros(48), tile=32)
 
 
 def test_prepare_uploads_only_where_asked():
