@@ -616,8 +616,8 @@ def main() -> int:
             lambda i: pam_cuda.launch(xp_km, slots_pad),
             lambda i: ref.pairwise_argmin_ref(xp_km, slots_pad)),
         "d2_update": (
-            lambda i: d2_cuda.launch(x_pad, ctr_km, w_pad),
-            lambda i: ref.d2_update_ref(x_pad, ctr_km, w_pad)),
+            lambda i: d2_cuda.launch(x_km, ctr_km, w_km),
+            lambda i: ref.d2_update_ref(x_km, ctr_km, w_km)),
         "d2_update_tiles": (
             lambda i: d2_cuda.launch_tiles(x_pad, ctr_km, w_pad, tile=tile),
             lambda i: ref.d2_update_tiles_ref(x_pad, ctr_km, w_pad,
@@ -638,7 +638,6 @@ def main() -> int:
     lsh_min_ops = (b_main * count_main * 2 * l + n_collide * 2 * D
                    + (b_main + count_main) * 2 * D + b_main)
     n_x = x_pad.shape[0]
-    d2_bytes = 4 * (n_x * D + D + 2 * n_x)
     sweep_ops = ts.n_pad * (4 * h + 6)
     bounds = {
         "tree_sep_update": bound(sweep_bytes, sweep_ops),
@@ -656,8 +655,8 @@ def main() -> int:
         # slots, not the kernel's padding.
         "pairwise_argmin": bound(4 * (N * D + KMP_CAP * D + 2 * N),
                                  2 * N * KMP_CAP * D),
-        "d2_update": bound(d2_bytes, n_x * (3 * D + 1)),
-        "d2_update_tiles": bound(d2_bytes + 4 * (n_x // tile),
+        "d2_update": bound(4 * (N * D + D + 2 * N), N * (3 * D + 1)),
+        "d2_update_tiles": bound(4 * (n_x * D + D + 2 * n_x + n_x // tile),
                                  n_x * (3 * D + 2)),
     }
     main_launches = dict(launches,
@@ -690,7 +689,7 @@ def main() -> int:
         f"inputs; pairwise_argmin: {N} x {KMP_CAP} x {D} padded to "
         f"{xp_km.shape[0]} x {slots_pad.shape[0]}, {live_slots} live "
         f"slots, library = torch.cdist(use_mm_for_euclid_dist) + min in "
-        f"full f32; d2_update(_tiles): n_pad={n_x} d={D})")
+        f"full f32; d2_update: n={N}, d2_update_tiles: n_pad={n_x}, d={D})")
     log("clocks/power after timing: " + smi(
         "clocks.sm,power.draw,power.limit,temperature.gpu"))
 

@@ -44,6 +44,7 @@ import torch
 from repro_torch.core import registry
 from repro_torch.core.batch_schedule import BatchSchedule
 from repro_torch.core.lsh import MonotoneLSH
+from repro_torch.core.plan import ExecutionSpec
 from repro_torch.core.sample_tree import TiledSampleTree
 from repro_torch.core.seeding import (
     SeedingResult,
@@ -413,102 +414,6 @@ def _kmeans_parallel_round(points, d2, generator, ell: float, cap: int):
     return picked, torch.minimum(d2, dmin)
 
 
-def _kmeans_parallel_pool(points_dev, pts, k, rng, *, rounds, oversample):
-    """The solve shared by the plan and the seed_fn: the generator seed
-    from `rng` where the JAX package drew its key, the rounds on the card,
-    then the host recluster with the same `rng`.  Returns (k indices,
-    pool size)."""
-    n = points_dev.shape[0]
-    ell = float(oversample) if oversample is not None else 2.0 * k
-    cap = int(min(n, max(8, 4 * ell)))
-    sel, _ = device_kmeans_parallel_rounds(
-        points_dev, _generator(rng, points_dev.device), ell, rounds=rounds,
-        cap=cap)
-    cand = np.flatnonzero(sel.cpu().numpy())
-    return _candidate_pool_to_centers(pts, cand, k, rng)
-
-
-# ---------------------------------------------------------------------------
-# seed_fn facades: `(points, k, rng, **kw) -> SeedingResult` with NumPy
-# indices, as the JAX package's `DEVICE_SEEDERS`; `device` places the work.
-# ---------------------------------------------------------------------------
-
-def device_fast_kmeanspp_seeder(points, k, rng, *, resolution=None,
-                                tile=512, device="cuda", **_):
-    """Algorithm 3 on the card; `SeedingResult` facade over the host loop."""
-    t0 = time.perf_counter()
-    pts = np.asarray(points, dtype=np.float64)
-    lo, hi, meta = prepare_embedding(pts, seed=int(rng.integers(2 ** 31)),
-                                     resolution=resolution, device=device)
-    t_prep = time.perf_counter() - t0
-    chosen = device_fast_kmeanspp(
-        lo, hi, k, _generator(rng, lo.device), scale=meta["scale"],
-        num_levels=meta["num_levels"], m_init=meta["m_init"], tile=tile)
-    idx = chosen.cpu().numpy().astype(np.int64)
-    seconds = time.perf_counter() - t0
-    return SeedingResult(centers=pts[idx].copy(), indices=idx,
-                         seconds=seconds, num_candidates=k,
-                         prepare_seconds=t_prep,
-                         solve_seconds=seconds - t_prep,
-                         extras={"backend": "device"})
-
-
-def device_rejection_seeder(points, k, rng, *, c=1.2, lsh_r=None,
-                            num_tables=15, hashes_per_table=1,
-                            resolution=None, schedule=None, batch=None,
-                            max_rounds=32, tile=512, device="cuda", **_):
-    """Algorithm 4 on the card; `SeedingResult` facade over the host loop."""
-    t0 = time.perf_counter()
-    pts = np.asarray(points, dtype=np.float64)
-    sched = resolve_schedule(schedule, batch)
-    data = prepare_rejection(
-        pts, seed=int(rng.integers(2 ** 31)), resolution=resolution,
-        lsh_r=lsh_r, num_tables=num_tables,
-        hashes_per_table=hashes_per_table, device=device)
-    t_prep = time.perf_counter() - t0
-    chosen, trials = device_rejection_sampling(
-        data.codes_lo, data.codes_hi, data.points, data.keys_lo,
-        data.keys_hi, k, _generator(rng, data.codes_lo.device),
-        scale=data.scale, num_levels=data.num_levels, m_init=data.m_init,
-        c=c, schedule=sched, max_rounds=max_rounds, tile=tile)
-    idx = chosen.cpu().numpy().astype(np.int64)
-    trials = trials.cpu().numpy().astype(np.int64)
-    total = int(trials.sum())
-    seconds = time.perf_counter() - t0
-    return SeedingResult(
-        centers=pts[idx].copy(), indices=idx, seconds=seconds,
-        num_candidates=total, prepare_seconds=t_prep,
-        solve_seconds=seconds - t_prep,
-        extras={"backend": "device", "trials_per_center": total / k,
-                "per_center_trials": trials,
-                "batch_buckets": sched.buckets()})
-
-
-def device_kmeans_parallel_seeder(points, k, rng, *, rounds=5,
-                                  oversample=None, device="cuda", **_):
-    """k-means|| with the oversampling rounds on the card; the
-    O(ell * rounds) candidate pool is reclustered on the host by weighted
-    k-means++."""
-    t0 = time.perf_counter()
-    pts = np.asarray(points, dtype=np.float64)
-    ell = float(oversample) if oversample is not None else 2.0 * k
-    idx, pool = _kmeans_parallel_pool(
-        torch.as_tensor(pts, dtype=torch.float32, device=device), pts, k, rng,
-        rounds=rounds, oversample=oversample)
-    return SeedingResult(
-        centers=pts[idx].copy(), indices=idx,
-        seconds=time.perf_counter() - t0, num_candidates=pool,
-        extras={"backend": "device", "pool_size": pool, "rounds": rounds,
-                "oversample": ell})
-
-
-DEVICE_SEEDERS = {
-    "fastkmeans++": device_fast_kmeanspp_seeder,
-    "rejection": device_rejection_seeder,
-    "kmeans||": device_kmeans_parallel_seeder,
-}
-
-
 # ---------------------------------------------------------------------------
 # Cached prepare/solve split for `core.plan.ClusterPlan`: `prepare` consumes
 # from `rng` exactly the draws the JAX package's does, and `solve` draws the
@@ -547,7 +452,8 @@ def _solve_rejection(data, pts, k, rng, *, c, schedule, options, execution):
         scale=data.scale, num_levels=data.num_levels, m_init=data.m_init,
         c=c, schedule=sched, max_rounds=options.get("max_rounds", 32),
         tile=execution.tile, round_log=rounds)
-    return chosen, {"trials": trials, "batch_buckets": sched.buckets(),
+    return chosen, {"trials": trials, "num_candidates": int(trials.sum()),
+                    "batch_buckets": sched.buckets(),
                     "rounds_per_batch": dict(collections.Counter(rounds))}
 
 
@@ -558,11 +464,20 @@ def _prep_kmeans_parallel(pts, rng, *, resolution, options, execution):
 
 def _solve_kmeans_parallel(points_dev, pts, k, rng, *, c, schedule, options,
                            execution):
-    idx, pool = _kmeans_parallel_pool(
-        points_dev, pts, k, rng, rounds=options.get("rounds", 5),
-        oversample=options.get("oversample"))
+    # The rounds on the card, then the host recluster with the same `rng`.
+    n = points_dev.shape[0]
+    rounds = options.get("rounds", 5)
+    oversample = options.get("oversample")
+    ell = float(oversample) if oversample is not None else 2.0 * k
+    cap = int(min(n, max(8, 4 * ell)))
+    sel, _ = device_kmeans_parallel_rounds(
+        points_dev, _generator(rng, points_dev.device), ell, rounds=rounds,
+        cap=cap)
+    idx, pool = _candidate_pool_to_centers(
+        pts, np.flatnonzero(sel.cpu().numpy()), k, rng)
     return (torch.as_tensor(idx, dtype=torch.int32, device=points_dev.device),
-            {"pool_size": pool, "num_candidates": pool})
+            {"pool_size": pool, "num_candidates": pool, "rounds": rounds,
+             "oversample": ell})
 
 
 def _register():
@@ -586,3 +501,46 @@ def _register():
 
 
 _register()
+
+
+# ---------------------------------------------------------------------------
+# seed_fn facades: `(points, k, rng, **kw) -> SeedingResult` with NumPy
+# indices, as the JAX package's `DEVICE_SEEDERS`, each running its seeder's
+# registered prepare and solve; `device` and `tile` place the work.
+# ---------------------------------------------------------------------------
+
+def _seed_fn(name: str):
+    def seed_fn(points, k, rng, *, c=1.2, schedule=None, resolution=None,
+                device="cuda", tile=ExecutionSpec.tile, **options):
+        impl = registry.get_seeder_spec(name).impl("device")
+        execution = ExecutionSpec(device=device, tile=tile)
+        t0 = time.perf_counter()
+        pts = np.asarray(points, dtype=np.float64)
+        artifacts = impl.prepare(pts, rng, resolution=resolution,
+                                 options=options, execution=execution)
+        t_prep = time.perf_counter() - t0
+        chosen, extras = impl.solve(artifacts, pts, k, rng, c=c,
+                                    schedule=schedule, options=options,
+                                    execution=execution)
+        idx = chosen.cpu().numpy().astype(np.int64)
+        seconds = time.perf_counter() - t0
+        return SeedingResult(
+            centers=pts[idx].copy(), indices=idx, seconds=seconds,
+            num_candidates=extras["num_candidates"], prepare_seconds=t_prep,
+            solve_seconds=seconds - t_prep,
+            extras=dict(extras, backend="device"))
+
+    seed_fn.__doc__ = (f"`{name}` on the card through its registered "
+                       "prepare and solve; `SeedingResult` facade.")
+    return seed_fn
+
+
+device_fast_kmeanspp_seeder = _seed_fn("fastkmeans++")
+device_rejection_seeder = _seed_fn("rejection")
+device_kmeans_parallel_seeder = _seed_fn("kmeans||")
+
+DEVICE_SEEDERS = {
+    "fastkmeans++": device_fast_kmeanspp_seeder,
+    "rejection": device_rejection_seeder,
+    "kmeans||": device_kmeans_parallel_seeder,
+}

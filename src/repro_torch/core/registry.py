@@ -47,7 +47,9 @@ class BackendImpl:
     rng, *, c, schedule, options, execution) -> (indices, extras)`` runs
     the sampling stage only.  ``device_native`` says, as in the JAX
     package, that the whole solve runs on the device (k-means|| reclusters
-    its pool on the host, so it is not).
+    its pool on the host, so it is not).  Nothing in the port reads it yet:
+    the JAX package's plan keys its device-resident fast path on it, and
+    the port's tests hold the flag to the JAX registration.
     """
 
     prepare: Callable

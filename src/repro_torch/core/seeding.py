@@ -14,8 +14,6 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Optional
-
 import numpy as np
 import torch
 
@@ -79,10 +77,8 @@ def _estimate_scale(pts: np.ndarray, rng: np.random.Generator) -> float:
 # ---------------------------------------------------------------------------
 
 def _nearest_chunked(points: np.ndarray, centers: np.ndarray,
-                     chunk: int = 65536, with_idx: bool = True
-                     ) -> tuple[Optional[np.ndarray], np.ndarray]:
-    """(argmin center index, min squared distance) per point; chunked BLAS.
-    ``with_idx=False`` skips the argmin reduction (index is None).
+                     chunk: int = 65536) -> np.ndarray:
+    """Argmin center index per point; chunked BLAS.
 
     The JAX package's arithmetic bit for bit: the same NumPy BLAS product,
     then ``(|x|^2 - 2 x.c) + |c|^2`` clamped at 0, each step correctly
@@ -91,27 +87,22 @@ def _nearest_chunked(points: np.ndarray, centers: np.ndarray,
     differ in how they run: in place on the (chunk, m) block through
     torch's CPU threads, where the JAX package's NumPy allocates four
     temporaries of the block and walks them on one core; so one block is
-    alive at a time.
+    alive at a time.  The JAX package's twin also returns the min distance;
+    the recluster reads only the argmin.
     """
     pts = np.asarray(points, dtype=np.float64)
     ctr = np.asarray(centers, dtype=np.float64)
     c_sq = torch.from_numpy((ctr ** 2).sum(axis=1))
-    idx = np.empty(len(pts), dtype=np.int64) if with_idx else None
-    d2 = np.empty(len(pts), dtype=np.float64)
+    idx = np.empty(len(pts), dtype=np.int64)
     for lo in range(0, len(pts), chunk):
         x = pts[lo: lo + chunk]
         dd = torch.from_numpy(x @ ctr.T)
         x_sq = torch.from_numpy((x ** 2).sum(axis=1))
         dd.mul_(-2.0).add_(x_sq[:, None]).add_(c_sq[None, :])
         dd.clamp_min_(0.0)
-        if with_idx:
-            vals, arg = dd.min(dim=1)
-            idx[lo: lo + chunk] = arg.numpy()
-        else:
-            vals = dd.amin(dim=1)
-        d2[lo: lo + chunk] = vals.numpy()
+        idx[lo: lo + chunk] = dd.argmin(dim=1).numpy()
         del dd       # free the block before the next product allocates one
-    return idx, d2
+    return idx
 
 
 def _weighted_kmeanspp_indices(cand: np.ndarray, weights: np.ndarray, k: int,
@@ -157,7 +148,7 @@ def _candidate_pool_to_centers(pts: np.ndarray, cand: np.ndarray, k: int,
     if len(cand) < k:
         extra = rng.permutation(np.setdiff1d(np.arange(n), cand))
         cand = np.sort(np.concatenate([cand, extra[: k - len(cand)]]))
-    assign, _ = _nearest_chunked(pts, pts[cand])
+    assign = _nearest_chunked(pts, pts[cand])
     w = np.bincount(assign, minlength=len(cand)).astype(np.float64)
     # Every candidate is its own nearest candidate, so w >= 1 everywhere and
     # the weighted D^2 distribution is well defined.

@@ -11,8 +11,8 @@ sampled, nothing added to a tile sum), query-side codes and keys pad with
 -1 and center-side keys with -2 (so a padded query lane never collides
 with a padded center slot), padded center coordinates sit at `_PAD_FAR`,
 and the penalty row turns every dead slot into a miss; `pairwise_argmin`
-pads points with zeros and center slots at `_PAD_FAR`, `d2_update` rows
-with zeros and w with 0.  The TPU also padded the heights H and the tables
+pads points with zeros and center slots at `_PAD_FAR`, `d2_update_tiles`
+rows with zeros and w with 0.  The TPU also padded the heights H and the tables
 L to a multiple of 8 sublanes; the CUDA kernels loop over any count, so
 those axes are not padded.  On the Algorithm 4 path every pad is a no-op:
 the seeders keep their buffers at block multiples.
@@ -117,24 +117,22 @@ def pairwise_argmin(x: torch.Tensor, c: torch.Tensor):
 
 
 def d2_update(x: torch.Tensor, center: torch.Tensor,
-              w: torch.Tensor, *, block_n: int = 512) -> torch.Tensor:
-    """w <- min(w, ||x - center||^2) for any n; rows pad to `block_n` with
-    zeros and w with 0, and the result is cut back to n."""
-    n = x.shape[0]
-    xp = _pad_to(x, 0, block_n, 0.0)
-    wp = _pad_to(w, 0, block_n, 0.0)
+              w: torch.Tensor) -> torch.Tensor:
+    """w <- min(w, ||x - center||^2) for any n (the kernel guards its
+    ragged edge, so nothing pads)."""
     if not _on_card(w):
-        return ref.d2_update_ref(xp, center, wp)[:n]
+        return ref.d2_update_ref(x, center, w)
     from repro_torch.kernels import d2_update_cuda as binding
 
-    out = binding.launch(xp, center, wp)
+    out = binding.launch(x, center, w)
     LAUNCHES["d2_update"] += 1
-    return out[:n]
+    return out
 
 
 def d2_update_tiles(x: torch.Tensor, center: torch.Tensor, w: torch.Tensor,
                     *, block_n: int = 512):
-    """`d2_update` plus per-tile sums; pads as `d2_update` does.
+    """`d2_update` plus per-tile sums; rows pad to `block_n` with zeros
+    and w with 0.
 
     Returns the *padded* ``(w' (n_pad,), tile_sums (n_pad // block_n,))``,
     as `tree_sep_update_tiles` does: padded lanes carry w = 0, so they add
