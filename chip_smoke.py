@@ -3,18 +3,23 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths through the plan, each at the shape of the
-paper's smallest real dataset (KDD Cup, 311,029 x 74, generated here from a
-seed as `benchmarks/datasets.py` does) with k = 1000: the paper's
-Algorithm 4,
+Drives the port's three paths.  Two go through the plan, each at the shape
+of the paper's smallest real dataset (KDD Cup, 311,029 x 74, generated
+here from a seed as `benchmarks/datasets.py` does) with k = 1000: the
+paper's Algorithm 4,
 `ClusterPlan(ClusterSpec(k=1000, seeder="rejection"),
 ExecutionSpec(backend="device")).fit(points)`, and the k-means|| baseline,
 the same with `seeder="kmeans||"` (5 rounds, ell = 2k, 8,000 center slots
-per round).  It builds every CUDA kernel from `src/repro_torch/csrc/` and
-holds each against its plain PyTorch version on the card.  In order:
+per round).  The third is LM serving: yi-9b at full width and depth
+(48 layers, d_model 4096, 32 query heads over 4 KV heads of 128, random
+bf16 weights from a seed) through `Engine(params, cfg, ServeConfig(
+max_new_tokens=32, max_seq=2088)).generate` on 4 prompts of 2,048 tokens.
+It builds every CUDA kernel from `src/repro_torch/csrc/` and holds each
+against its plain PyTorch version on the card.  In order:
 
   1. the card (`nvidia-smi` name and power limit), torch and CUDA versions;
-  2. the kernel build: time, registers and spills from `ptxas -v`;
+  2. the kernel build (five sources, in parallel): time, registers and
+     spills from `ptxas -v`;
   3. each kernel against its plain version at the paths' shapes: the tree
      sweeps bit-identical at n = 311,029, their tile sums,
      `lsh_bucket_accept` and `lsh_bucket_min` to rtol 1e-5 over B in
@@ -39,7 +44,35 @@ holds each against its plain PyTorch version on the card.  In order:
      (information only);
   8. the device's idle share over Algorithm 4's `refit(seed=1)` again,
      traced with `torch.profiler`, beside the untraced one;
-  9. one JSON line per the kernels, the card's line again, and last
+  9. the seeding paths' device tensors are freed;
+ 10. `flash_attention` against its plain version (the chunked
+     online-softmax scan) at the serving path's shape, q (4, 2048, 32, 128)
+     over k, v (4, 2048, 4, 128) in bf16, causal, and at f32 non-causal
+     with g = 1, a ragged S and the (BH, S, D) entry, to 1e-4;
+ 11. its time (CUDA events) beside the plain version's, PyTorch's
+     `scaled_dot_product_attention` on the (B, H, S, D) view (the table's
+     yardstick; the port never calls it), and the bound: 2 S (S + 1) D
+     operations per head on the bf16 tensor cores;
+ 12. the serving path: yi-9b's 17.7 GB of weights drawn on the card,
+     a warm-up, then `generate` with the launch counts set to 0 just
+     before and read just after (exactly 48 `flash_attention`, one per
+     layer, in the prefill; decode runs no kernel), peak device memory,
+     a second `generate` with the same tokens, the engine's steps timed
+     apart (prefill seconds, time to first token, decode tokens per
+     second; the same tokens again), and a prefill and 4 decode steps
+     traced with `torch.profiler` (device busy share, top kernels);
+ 13. the kernel inside the model, apart from its plain version, on
+     128-token prompts: layer by layer through all 48 layers, each
+     layer's prefill attention (one launch) against its decode attention
+     (128 steps over a cache, no kernel) on the same input, f32
+     activations over the bf16 weights, to 1e-3 of the layer's largest
+     output; and, for information, the last logits of `prefill` against
+     `replay_prefill` end to end in bf16 (under the JAX package's init
+     law the attention is nearly one-hot, so the random model is chaotic
+     and the two drift apart over the depth);
+ 14. reduced yi-9b in f32 on the card against the port on the CPU with
+     the same weights: prefill logits to 1e-3 and the same greedy tokens;
+ 15. one JSON line per the eight kernels, the card's line again, and last
      ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero before the last line is printed.
@@ -50,6 +83,7 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import collections
+import gc
 import json
 import math
 import os
@@ -68,6 +102,7 @@ K = 1000
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12             # H100 SXM data sheet
 F32_OPS_PER_S = 67e12                 # f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12               # bf16 on the tensor cores, dense
 RTOL = 1e-5
 SMALL_SEEDS = 64
 KERNELS = {
@@ -85,10 +120,23 @@ KERNELS = {
                   "src/repro/kernels/d2_update.py:44"),
     "d2_update_tiles": ("src/repro_torch/csrc/d2_update.cu",
                         "src/repro/kernels/d2_update.py:70"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:94"),
 }
 KMP_ROUNDS = 5                          # the k-means|| defaults
 KMP_ELL = 2.0 * K
 KMP_CAP = int(min(N, max(8, 4 * KMP_ELL)))
+SERVE_ARCH = "yi-9b"                    # the serving launcher's default
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 2048, 32
+REPLAY_PROMPT = 128
+TRACE_STEPS = 4
+# f32 sums over up to 2,048 keys in another order than the plain version's
+ATTN_TOL = 1e-4
+# one layer's attention, prefill against decode on the same f32 input, as
+# a share of its largest output (f32 sums in other orders)
+LAYER_TOL = 1e-3
+# f32 on the card against f32 on the CPU, 4 layers (tests/test_torch_models)
+SMALL_TOL = 1e-3
 
 
 def log(*parts) -> None:
@@ -137,11 +185,12 @@ def cuda_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
-    """Least milliseconds for moving `nbytes` and doing `ops`, and which
-    of the two binds."""
+def bound(nbytes: float, ops: float,
+          ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
+    """Least milliseconds for moving `nbytes` and doing `ops` at
+    `ops_per_s`, and which of the two binds."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -193,41 +242,50 @@ def cost64(torch, pts, centers, chunk=16384) -> float:
     return total
 
 
-def main() -> int:
-    import torch
+def device_time(torch, prof) -> tuple:
+    """(seconds the device was busy, device events, {kernel name: [ms,
+    count]}) of a `torch.profiler` trace: the union of its CUDA events'
+    spans."""
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        raise AssertionError("the profiler recorded no device events")
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy = (busy + cur_e - cur_s) / 1e6
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for e in kernels:
+        by_name[e.name][0] += e.time_range.elapsed_us() / 1e3
+        by_name[e.name][1] += 1
+    return busy, len(kernels), by_name
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is false; this check "
-              "needs an NVIDIA GPU", file=sys.stderr)
-        return 1
+
+def log_top(by_name: dict, n: int) -> None:
+    for name, (ms, cnt) in sorted(by_name.items(),
+                                  key=lambda kv: -kv[1][0])[:n]:
+        log(f"  {ms:10.3f} ms {cnt:7d}x {name[:90]}")
+
+
+def seeding_paths(torch, t_start: float) -> list:
+    """Phases 3 to 8 on the seeding paths; returns their kernels' rows.
+    Every device tensor they made is freed when this returns."""
     from repro_torch.core import device_seeding as ds
     from repro_torch.core import seeding
     from repro_torch.core.plan import ClusterPlan, ClusterSpec, ExecutionSpec
     from repro_torch.core.sample_tree import TiledSampleTree
-    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels import d2_update_cuda as d2_cuda
     from repro_torch.kernels import lsh_bucket_accept_cuda as lsh_cuda
     from repro_torch.kernels import pairwise_argmin_cuda as pam_cuda
     from repro_torch.kernels import tree_sep_update_cuda as sweep_cuda
 
-    t_start = time.perf_counter()
     dev = torch.device("cuda")
-    card = smi("name,power.limit")
-    log(card)
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} python "
-        f"{sys.version.split()[0]} device {torch.cuda.get_device_name(0)} "
-        f"capability {torch.cuda.get_device_capability(0)} count "
-        f"{torch.cuda.device_count()}")
-
-    # -- 2. build ----------------------------------------------------------
-    t0 = time.perf_counter()
-    report = _build.build_all()
-    log(f"kernel build: {time.perf_counter() - t0:.2f} s")
-    for name, info in report.items():
-        for line in info["ptxas"].splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}.cu: {line.strip()}")
-
     # -- data and prepare (the main path's first stage) -----------------------
     t0 = time.perf_counter()
     points = kddcup_shaped(SEED)
@@ -709,35 +767,389 @@ def main() -> int:
         wall = time.perf_counter() - t0
     if not torch.equal(bare.indices, profiled.indices):
         raise AssertionError("refit(seed=1) opened other centers when traced")
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
-        raise AssertionError("the profiler recorded no device events")
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
-    for s, e in spans[1:]:
-        if s > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy = (busy + cur_e - cur_s) / 1e6
-    by_name = collections.defaultdict(lambda: [0.0, 0])
-    for e in kernels:
-        by_name[e.name][0] += e.time_range.elapsed_us() / 1e3
-        by_name[e.name][1] += 1
+    busy, n_events, by_name = device_time(torch, prof)
     log(f"idle share: {1 - busy / wall:.4f} (device busy {busy:.4f} s over "
-        f"{len(kernels)} device events in the traced refit(seed=1), whose "
+        f"{n_events} device events in the traced refit(seed=1), whose "
         f"wall time was {wall:.4f} s); the same solve untraced took "
         f"{bare.solve_seconds:.4f} s with the same centers, an idle share "
         f"of {1 - busy / bare.solve_seconds:.4f} if its device time was the "
         f"traced run's; cost "
         f"{float(profiled.cost):.9g}")
-    for name, (ms, cnt) in sorted(by_name.items(),
-                                  key=lambda kv: -kv[1][0])[:8]:
-        log(f"  {ms:10.3f} ms {cnt:7d}x {name[:90]}")
+    log_top(by_name, 8)
     log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**20:.1f}"
-        f" MiB; total {time.perf_counter() - t_start:.1f} s")
+        f" MiB; {time.perf_counter() - t_start:.1f} s so far")
+    return rows
+
+
+def check_attention(torch, ops, ref, q, k, v, causal: bool, label: str,
+                    tol: float) -> float:
+    """`attention_bshd` (the kernel) against its plain version on the same
+    inputs, to `tol` absolute and relative; returns the max abs error."""
+    scale = q.shape[-1] ** -0.5
+    out = ops.attention_bshd(q, k, v, scale=scale, causal=causal)
+    plain = ref.attention_bshd_ref(q, k, v, scale=scale, causal=causal)
+    torch.cuda.synchronize()
+    err = float((out - plain).abs().max())
+    if not bool(torch.isfinite(out).all()) or \
+            not torch.allclose(out, plain, rtol=tol, atol=tol):
+        raise AssertionError(f"flash_attention {label}: max abs err {err}")
+    log(f"flash_attention {label}: q {tuple(q.shape)} k {tuple(k.shape)} "
+        f"{str(q.dtype)[6:]}: max abs err {err:.3g} (tol {tol})")
+    return err
+
+
+def prefill_vs_replay(torch, params, cfg, short) -> None:
+    """Information: the last logits of `prefill` (one kernel launch per
+    layer) against `Engine.replay_prefill` (one decode step per token over
+    the cache, no kernel) on the prompts `short`, end to end."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import Engine, ServeConfig
+    from repro_torch.serving.prefill import prefill
+
+    n = short.shape[1]
+    ops.reset_launch_counts()
+    last_f, _ = prefill(params, cfg, {"tokens": short}, max_seq=n + 8)
+    torch.cuda.synchronize()
+    n_prefill = ops.launch_counts()
+    ops.reset_launch_counts()
+    last_r, _ = Engine(params, cfg, ServeConfig(max_seq=n + 8)
+                       ).replay_prefill(short)
+    torch.cuda.synchronize()
+    n_replay = ops.launch_counts()
+    if n_prefill["flash_attention"] != cfg.num_layers or \
+            sum(n_prefill.values()) != cfg.num_layers or \
+            sum(n_replay.values()) != 0:
+        raise AssertionError(f"prefill launches {n_prefill}, replay "
+                             f"{n_replay}")
+    lf, lr = last_f.float(), last_r.float()
+    rows = (lf.argmax(dim=-1) == lr.argmax(dim=-1)).sum()
+    log(f"  end to end (information): prefill ({cfg.num_layers} kernel "
+        f"launches) against replay ({n} decode steps, no kernel) on "
+        f"{short.shape[0]} x {n} tokens in {cfg.dtype}: last logits max abs "
+        f"diff {float((lf - lr).abs().max()):.4g} of max |logit| "
+        f"{float(lf.abs().max()):.4g}; argmax equal in {int(rows)} of "
+        f"{short.shape[0]} rows")
+
+
+def attention_prefill_vs_replay(torch, params, cfg, short) -> float:
+    """The kernel inside the model, apart from its plain version: layer by
+    layer through the whole depth, each layer's prefill attention
+    (`attn_forward`, one kernel launch) against the same layer's decode
+    attention (`attn_decode`, one step per token over its own cache, no
+    kernel) on the same normed input, f32 activations over the bf16
+    weights.  Returns the worst max abs difference as a share of the
+    layer's largest output; raises past `LAYER_TOL` or on other launch
+    counts than one per layer."""
+    import dataclasses
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention
+    from repro_torch.models.layers import apply_mlp, apply_norm
+    from repro_torch.models.model import layer_slice
+
+    dev = short.device
+    f32cfg = dataclasses.replace(cfg, dtype="float32")
+    b, n = short.shape
+    at = torch.arange(n, device=dev)
+    worst, first = 0.0, []
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        x = params["embed"]["tokens"][short].to(torch.float32)
+        for i in range(cfg.num_layers):
+            layer = layer_slice(params["groups"]["pos00"], i)
+            h = apply_norm(layer["norm1"], x, f32cfg)
+            y_f, _ = attention.attn_forward(layer["attn"], h, f32cfg)
+            kv = (b, n, cfg.num_kv_heads, cfg.head_dim)
+            cache = {"k": torch.zeros(kv, device=dev),
+                     "v": torch.zeros(kv, device=dev)}
+            y_d = torch.empty_like(y_f)
+            for t in range(n):
+                y_d[:, t: t + 1], cache = attention.attn_decode(
+                    layer["attn"], h[:, t: t + 1], cache, at[t], f32cfg)
+            rel = float((y_f - y_d).abs().max() / y_f.abs().max())
+            worst = max(worst, rel)
+            if i < 3:
+                first.append(f"{rel:.3g}")
+            x = x + y_f
+            x = x + apply_mlp(layer["mlp"],
+                              apply_norm(layer["norm2"], x, f32cfg), f32cfg)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    if counts["flash_attention"] != cfg.num_layers or \
+            sum(counts.values()) != cfg.num_layers or worst > LAYER_TOL:
+        raise AssertionError(f"layer by layer: launches {counts}, worst "
+                             f"relative difference {worst}")
+    log(f"  layer by layer through all {cfg.num_layers} layers at full "
+        f"width, f32 activations over the bf16 weights, {b} x {n} tokens: "
+        f"prefill attention ({counts['flash_attention']} kernel launches) "
+        f"against decode attention ({n} steps a layer, no kernel): worst max "
+        f"abs diff {worst:.3g} of the layer's largest output (tol "
+        f"{LAYER_TOL}; layers 0 to 2: {', '.join(first)})")
+    return worst
+
+
+def serving_path(torch, t_start: float) -> dict:
+    """Phases 10 to 14: the `flash_attention` kernel against its plain
+    version and timed at the serving path's shape, then yi-9b at full
+    width and depth through `Engine.generate`, prefill against replay, and
+    the reduced model on the card against the CPU.  Returns the kernel's
+    row."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.kernels import flash_attention_cuda as fa_cuda
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import (decode_step, init_params, param_specs,
+                                    params_from_numpy)
+    from repro_torch.serving.engine import Engine, ServeConfig
+    from repro_torch.serving.prefill import prefill
+
+    dev = torch.device("cuda")
+    cfg = get_config(SERVE_ARCH)
+    b, s, new = SERVE_BATCH, SERVE_PROMPT, SERVE_NEW
+    h, hk, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    scale = hd ** -0.5
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    # -- 10. the kernel against its plain version ----------------------------
+    log(f"[{time.perf_counter() - t_start:.1f} s] flash_attention")
+    bf16, f32 = torch.bfloat16, torch.float32
+    q, k, v = (randn((b, s, n, hd), bf16) for n in (h, hk, hk))
+    err = check_attention(torch, ops, ref, q, k, v, True,
+                          "at the path's shape, causal", ATTN_TOL)
+    x = [randn((2, 1024, 8, hd), f32) for _ in range(3)]
+    err = max(err, check_attention(torch, ops, ref, *x, False,
+                                   "f32, non-causal, g = 1", ATTN_TOL))
+    x = [randn((1, 1000, n, hd), bf16) for n in (h, hk, hk)]
+    err = max(err, check_attention(torch, ops, ref, *x, True,
+                                   "ragged S, causal", ATTN_TOL))
+    x = [randn((8, 333, 64), f32) for _ in range(3)]
+    flat = ops.flash_attention(*x, scale=0.125, causal=True)
+    plain = ref.flash_attention_ref(*x, scale=0.125, causal=True)
+    torch.cuda.synchronize()
+    flat_err = float((flat - plain).abs().max())
+    if not torch.allclose(flat, plain, rtol=ATTN_TOL, atol=ATTN_TOL):
+        raise AssertionError(f"flash_attention (BH, S, D): {flat_err}")
+    log(f"flash_attention, the (BH, S, D) entry at (8, 333, 64) f32 causal: "
+        f"max abs err {flat_err:.3g} (tol {ATTN_TOL})")
+    err = max(err, flat_err)
+    del x, flat, plain
+
+    # -- 11. its time at the path's shape ------------------------------------
+    ms = cuda_ms(torch, lambda i: fa_cuda.launch(q, k, v, scale=scale,
+                                                 causal=True), 20)
+    plain_ms = cuda_ms(torch, lambda i: ref.attention_bshd_ref(
+        q, k, v, scale=scale, causal=True), 3)
+    ms_again = cuda_ms(torch, lambda i: fa_cuda.launch(q, k, v, scale=scale,
+                                                       causal=True), 20)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib_ms = cuda_ms(torch, lambda i: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, scale=scale, enable_gqa=True), 20)
+    ops_count = 2 * s * (s + 1) * hd * b * h
+    nbytes = (q.element_size() * (q.numel() + k.numel() + v.numel())
+              + 4 * q.numel())       # each input read once, f32 out
+    b_ms, b_by = bound(nbytes, ops_count, BF16_OPS_PER_S)
+    simt_ms = ops_count / F32_OPS_PER_S * 1e3
+    log(f"time flash_attention: kernel {ms:.6f} / {ms_again:.6f} ms, plain "
+        f"{plain_ms:.6f} ms, library (scaled_dot_product_attention, bf16 "
+        f"out) {lib_ms:.6f} ms, bound {b_ms:.6f} ms ({b_by}; {ops_count} "
+        f"operations take {ops_count / BF16_OPS_PER_S * 1e3:.6f} ms at 989 "
+        f"TFLOP/s bf16 and {simt_ms:.6f} ms at the 67 TFLOP/s of f32 outside "
+        f"the tensor cores; {nbytes} bytes take "
+        f"{nbytes / HBM_BYTES_PER_S * 1e3:.6f} ms), "
+        f"{b_ms / min(ms, ms_again):.4f} of the bound")
+    source, replaces = KERNELS["flash_attention"]
+    row = {"name": "flash_attention", "route": "cuda", "source": source,
+           "replaces": replaces, "launches": None, "max_abs_err": err,
+           "ms": min(ms, ms_again), "plain_ms": plain_ms, "bound_ms": b_ms,
+           "bound_by": b_by, "library_ms": lib_ms}
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+
+    # -- 12. the path: yi-9b at full width and depth ------------------------
+    log(f"[{time.perf_counter() - t_start:.1f} s] {cfg.name} at full width")
+    t0 = time.perf_counter()
+    params = init_params(param_specs(cfg), gen, bf16, dev)
+    torch.cuda.synchronize()
+    log(f"  parameters: {cfg.param_count()} in bf16 drawn on the card in "
+        f"{time.perf_counter() - t0:.2f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    prompts = np.random.default_rng(SEED).integers(
+        1, cfg.vocab_size, (b, s)).astype(np.int32)
+    serve = ServeConfig(max_new_tokens=new, max_seq=s + 40)
+    eng = Engine(params, cfg, serve)
+    t0 = time.perf_counter()
+    eng.serve = dataclasses.replace(serve, max_new_tokens=1)
+    eng.generate(prompts)                       # warm-up: cuBLAS, allocator
+    eng.serve = serve
+    log(f"  warm-up generate (1 new token): "
+        f"{time.perf_counter() - t0:.3f} s")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    tokens = eng.generate(prompts)
+    gen_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    if counts["flash_attention"] != cfg.num_layers or \
+            sum(counts.values()) != cfg.num_layers:
+        raise AssertionError(f"generate: launches {counts}, expected "
+                             f"{cfg.num_layers} flash_attention and no other")
+    row["launches"] = counts["flash_attention"]
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    if tokens.shape != (b, new) or tokens.min() < 0 or \
+            tokens.max() >= cfg.vocab_size:
+        raise AssertionError(f"generate: bad tokens {tokens}")
+    again = eng.generate(prompts)
+    if not np.array_equal(tokens, again):
+        raise AssertionError("generate: a second run gave other tokens")
+    log(f"  generate: {b} prompts x {s} tokens, {new} new each, "
+        f"max_seq={serve.max_seq}: {gen_s:.4f} s; launches {counts}; peak "
+        f"device memory {peak_gib:.3f} GiB; a second run gave the same "
+        f"tokens; first sequence starts {tokens[0, :8].tolist()}")
+
+    # The engine's own steps again, timed apart: prefill, the first token,
+    # then the decode steps; greedy, so the same tokens as generate.
+    toks = torch.as_tensor(prompts, dtype=torch.int64, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, cfg, {"tokens": toks},
+                            max_seq=serve.max_seq)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    cur = torch.argmax(logits, dim=-1)
+    out = [cur.cpu()]
+    ttft_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    steps = [cur]
+    for _ in range(new - 1):
+        logits, cache = decode_step(params, cfg, cur, cache)
+        cur = torch.argmax(logits, dim=-1)
+        steps.append(cur)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t1
+    split = torch.stack(steps, dim=1).cpu().numpy()
+    if not np.array_equal(split, tokens):
+        raise AssertionError("the timed steps gave other tokens than "
+                             "generate")
+    log(f"  prefill {prefill_s:.4f} s ({b * s / prefill_s:.1f} prompt "
+        f"tokens/s); time to first token {ttft_s:.4f} s; decode "
+        f"{new - 1} steps in {decode_s:.4f} s, "
+        f"{b * (new - 1) / decode_s:.2f} tokens/s "
+        f"({decode_s / (new - 1) * 1e3:.3f} ms per step of {b} tokens); "
+        f"the same tokens as generate")
+    del logits, cache, out, steps
+
+    # Where the time goes: the prefill and TRACE_STEPS decode steps again,
+    # each traced with torch.profiler.
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts, acc_events=True) as prof:
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, cfg, {"tokens": toks},
+                                max_seq=serve.max_seq)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, n_events, by_name = device_time(torch, prof)
+    log(f"  traced prefill: wall {wall:.4f} s, device busy {busy:.4f} s "
+        f"over {n_events} device events, idle share {1 - busy / wall:.4f}")
+    log_top(by_name, 6)
+    cur = torch.argmax(logits, dim=-1)
+    with profile(activities=acts, acc_events=True) as prof:
+        t0 = time.perf_counter()
+        for _ in range(TRACE_STEPS):
+            logits, cache = decode_step(params, cfg, cur, cache)
+            cur = torch.argmax(logits, dim=-1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, n_events, by_name = device_time(torch, prof)
+    log(f"  traced decode, {TRACE_STEPS} steps: wall {wall:.4f} s, device "
+        f"busy {busy:.4f} s over {n_events} device events "
+        f"({n_events / TRACE_STEPS:.0f} a step), idle share "
+        f"{1 - busy / wall:.4f}")
+    log_top(by_name, 6)
+    del logits, cache, cur, prof
+
+    # -- 13. the kernel inside the model, apart from its plain version: prefill
+    # against replay, layer by layer (gated) and end to end (information:
+    # under the init law the attention is nearly one-hot, so a rounding
+    # difference can change the key a head picks and the change grows
+    # over 48 layers).
+    short = toks[:, :REPLAY_PROMPT]
+    attention_prefill_vs_replay(torch, params, cfg, short)
+    prefill_vs_replay(torch, params, cfg, short)
+    del params, eng, toks, short
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 14. reduced yi-9b on the card against the port on the CPU ----------
+    small = reduce_for_smoke(cfg)
+    p_cpu = init_params(param_specs(small),
+                        torch.Generator().manual_seed(SEED), f32, "cpu")
+    p_card = params_from_numpy(p_cpu, dev)
+    toks = np.random.default_rng(SEED).integers(1, small.vocab_size, (b, 64))
+    cpu_last, _ = prefill(p_cpu, small, {"tokens": torch.from_numpy(toks)},
+                          max_seq=88)
+    card_last, _ = prefill(p_card, small, {"tokens": torch.from_numpy(
+        toks).to(dev)}, max_seq=88)
+    small_err = float((card_last.cpu() - cpu_last).abs().max())
+    sv = ServeConfig(max_new_tokens=16, max_seq=88)
+    on_card = Engine(p_card, small, sv).generate(toks)
+    on_cpu = Engine(p_cpu, small, sv, device="cpu").generate(toks)
+    if small_err > SMALL_TOL or not np.array_equal(on_card, on_cpu):
+        raise AssertionError(f"reduced {cfg.name}, card against CPU: logits "
+                             f"{small_err}, tokens equal "
+                             f"{np.array_equal(on_card, on_cpu)}")
+    log(f"  reduced {cfg.name} (f32, {small.num_layers} layers, d_model "
+        f"{small.d_model}) on the card against the port on the CPU: prefill "
+        f"logits max abs diff {small_err:.3g} (tol {SMALL_TOL}), the same "
+        f"{b} x 16 greedy tokens")
+    log("clocks/power after the serving path: " + smi(
+        "clocks.sm,power.draw,power.limit,temperature.gpu"))
+    return row
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this check "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    from repro_torch.kernels import _build
+
+    t_start = time.perf_counter()
+    card = smi("name,power.limit")
+    log(card)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} python "
+        f"{sys.version.split()[0]} device {torch.cuda.get_device_name(0)} "
+        f"capability {torch.cuda.get_device_capability(0)} count "
+        f"{torch.cuda.device_count()}")
+
+    # -- 2. build ----------------------------------------------------------
+    t0 = time.perf_counter()
+    report = _build.build_all()
+    log(f"kernel build: {time.perf_counter() - t0:.2f} s "
+        f"({len(report)} sources)")
+    for name, info in report.items():
+        for line in info["ptxas"].splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}.cu: {line.strip()}")
+
+    rows = seeding_paths(torch, t_start)
+    # -- 9. free the seeding paths' tensors before the 17.7 GB of weights ---
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[{time.perf_counter() - t_start:.1f} s] device memory after the "
+        f"seeding paths: {torch.cuda.memory_allocated() / 2**20:.1f} MiB "
+        f"allocated, {torch.cuda.memory_reserved() / 2**20:.1f} MiB reserved")
+    rows.append(serving_path(torch, t_start))
+    log(f"total {time.perf_counter() - t_start:.1f} s")
 
     log(card)
     log(json.dumps({"kernels": rows}))

@@ -3,8 +3,10 @@ versions (`ref.py`) and the padding/dispatch wrappers (`ops.py`)."""
 
 from repro_torch.kernels.ops import (  # noqa: F401
     LSH_MISS,
+    attention_bshd,
     d2_update,
     d2_update_tiles,
+    flash_attention,
     launch_counts,
     lsh_bucket_accept,
     lsh_bucket_min,

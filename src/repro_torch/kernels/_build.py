@@ -26,7 +26,7 @@ __all__ = ["SOURCES", "build_all", "library"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("tree_sep_update", "lsh_bucket_accept", "pairwise_argmin",
-           "d2_update")
+           "d2_update", "flash_attention")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -40,6 +40,8 @@ __all__ = [
     "tree_sep_update_tiles",
     "lsh_bucket_min",
     "lsh_bucket_accept",
+    "flash_attention",
+    "attention_bshd",
     "split_codes_u64",
     "penalty_row",
     "launch_counts",
@@ -54,7 +56,7 @@ _CENTER_CODE_PAD = -2  # center-side key pad: never equals a query pad
 
 LAUNCHES = {"tree_sep_update": 0, "tree_sep_update_tiles": 0,
             "lsh_bucket_accept": 0, "lsh_bucket_min": 0, "pairwise_argmin": 0,
-            "d2_update": 0, "d2_update_tiles": 0}
+            "d2_update": 0, "d2_update_tiles": 0, "flash_attention": 0}
 
 
 def launch_counts() -> dict[str, int]:
@@ -248,6 +250,43 @@ def lsh_bucket_accept(q_keys_lo, q_keys_hi, q, c_keys_lo, c_keys_hi, c, mtd2,
         d2_min, p = binding.launch(*args, c2=c2)
         LAUNCHES["lsh_bucket_accept"] += 1
     return d2_min[:b], p[:b]
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    scale: float, causal: bool = True) -> torch.Tensor:
+    """Exact softmax attention on (BH, S, D), f32 out: the TPU kernel's
+    signature.  Any S (the kernel guards its ragged edge), D <= 256."""
+    if not _on_card(q):
+        return ref.flash_attention_ref(q, k, v, scale=scale, causal=causal)
+    from repro_torch.kernels import flash_attention_cuda as binding
+
+    out = binding.launch(q[:, :, None], k[:, :, None], v[:, :, None],
+                         scale=scale, causal=causal)
+    LAUNCHES["flash_attention"] += 1
+    return out[:, :, 0]
+
+
+def attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   scale: float, causal: bool,
+                   prefix_len: int = 0) -> torch.Tensor:
+    """The model's attention: q (B, S, H, D) over k, v (B, S, Hk, D), GQA
+    head h reading KV head h // (H // Hk); (B, S, H, D) f32 out.
+
+    The CUDA kernel reads all three through their strides, so nothing is
+    copied.  `prefix_len` > 0 (the vlm prefix with full attention) is not
+    ported yet.
+    """
+    if prefix_len:
+        raise NotImplementedError(
+            "attention over a vlm prefix (prefix_len > 0) is not ported "
+            "yet: ROADMAP Queue 1 item 11")
+    if not _on_card(q):
+        return ref.attention_bshd_ref(q, k, v, scale=scale, causal=causal)
+    from repro_torch.kernels import flash_attention_cuda as binding
+
+    out = binding.launch(q, k, v, scale=scale, causal=causal)
+    LAUNCHES["flash_attention"] += 1
+    return out
 
 
 def split_codes_u64(codes: np.ndarray) -> tuple[np.ndarray, np.ndarray]:

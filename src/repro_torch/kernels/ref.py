@@ -1,10 +1,13 @@
 """Plain PyTorch versions of the hand-written kernels (the correctness oracles).
 
 Each function computes what its CUDA twin computes, in the same dtype and
-with the same elementwise order.  The wrappers in `ops.py` run them for CPU
-tensors, `chip_smoke.py` holds every kernel against them on the card, and
-the tests hold them against the JAX package's `kernels/ref.py` oracles,
-which they mirror one for one.
+with the same elementwise order; the two attention versions compute the
+JAX package's functions (exact softmax, and the model's 1024-key online
+scan), which the flash kernel meets to f32 rounding with 64-key tiles.
+The wrappers in `ops.py` run them for CPU tensors, `chip_smoke.py` holds
+every kernel against them on the card, and the tests hold them against
+the JAX package's `kernels/ref.py` oracles, which they mirror one for
+one.
 """
 
 from __future__ import annotations
@@ -26,9 +29,13 @@ __all__ = [
     "lsh_bucket_min_penalty_ref",
     "lsh_bucket_accept_ref",
     "lsh_bucket_accept_penalty_ref",
+    "flash_attention_ref",
+    "attention_bshd_ref",
 ]
 
 LSH_MISS = 3.0e38  # "no colliding center" sentinel (finite in f32)
+NEG_INF = -1.0e30  # masked attention score (not -inf: no NaN on a masked row)
+KV_CHUNK = 1024    # keys per step of the model's online-softmax scan
 
 
 @contextlib.contextmanager
@@ -215,3 +222,59 @@ def lsh_bucket_accept_penalty_ref(q_keys_lo, q_keys_hi, q, c_keys_lo,
     d2_min = lsh_bucket_min_penalty_ref(q_keys_lo, q_keys_hi, q, c_keys_lo,
                                         c_keys_hi, c, penalty)
     return d2_min, _accept_p(d2_min, mtd2, c2)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        scale: float, causal: bool = True) -> torch.Tensor:
+    """Exact softmax attention on (BH, S, D), f32 out: the oracle of the
+    flash kernel, as the JAX package's `flash_attention_ref`.  q is widened
+    to f32 and then scaled; masked scores are -1e30."""
+    qf = q.to(torch.float32) * scale
+    with full_f32_matmul():
+        s = qf @ k.to(torch.float32).transpose(1, 2)
+        if causal:
+            n = q.shape[1]
+            keep = torch.ones(n, n, dtype=torch.bool, device=q.device).tril()
+            s = torch.where(keep, s, NEG_INF)
+        return torch.softmax(s, dim=-1) @ v.to(torch.float32)
+
+
+def attention_bshd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                       scale: float, causal: bool,
+                       chunk: int = KV_CHUNK) -> torch.Tensor:
+    """The model's attention, q (B, S, H, D) over k, v (B, S, Hk, D) ->
+    (B, S, H, D) f32: the online-softmax scan over key chunks of the JAX
+    package's `models/attention.py:_flash_attention`.
+
+    Query head h reads KV head h // (H // Hk), the order of
+    ``q.reshape(b, s, hk, g, d)``.  The last chunk may be short, so any S
+    runs here; the model keeps the JAX package's rule on S.
+    """
+    b, s, h, d = q.shape
+    hk, dv = k.shape[2], v.shape[3]
+    g = h // hk
+    qg = q.reshape(b, s, hk, g, d).to(torch.float32) * scale
+    kf = k.to(torch.float32)
+    vf = v.to(torch.float32)
+    q_pos = torch.arange(s, device=q.device)
+    m = torch.full((b, s, hk, g), NEG_INF, device=q.device)
+    l = torch.zeros((b, s, hk, g), device=q.device)
+    acc = torch.zeros((b, s, hk, g, dv), device=q.device)
+    with full_f32_matmul():
+        for lo in range(0, s, chunk):
+            kb, vb = kf[:, lo: lo + chunk], vf[:, lo: lo + chunk]
+            scores = torch.einsum("bqkgd,bskd->bqkgs", qg, kb)
+            if causal:
+                kv_pos = torch.arange(lo, lo + kb.shape[1], device=q.device)
+                keep = q_pos[:, None] >= kv_pos[None, :]
+                scores = torch.where(keep[None, :, None, None, :], scores,
+                                     NEG_INF)
+            m_new = torch.maximum(m, scores.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(scores - m_new[..., None])
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum("bqkgs,bskv->bqkgv",
+                                                        p, vb)
+            m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.reshape(b, s, h, dv)

@@ -1,0 +1,16 @@
+"""Model stack for inference: layers, GQA attention, composition."""
+
+from repro_torch.models.model import (  # noqa: F401
+    decode_step,
+    empty_cache,
+    forward,
+    make_batch_specs,
+    make_cache_specs,
+    param_specs,
+)
+from repro_torch.models.params import (  # noqa: F401
+    ParamSpec,
+    init_params,
+    params_from_numpy,
+    spec_bytes,
+)

@@ -1,0 +1,133 @@
+"""Block composition: attention residual blocks with a dense MLP, grouped
+into homogeneous layer layouts.
+
+The counterpart of the JAX package's `models/transformer.py`.  A model's
+layers are a periodic *layout* of (block_type, is_moe) positions repeated
+`num_groups` times; each position's parameters are stacked over groups on a
+leading "layers" axis, the JAX package's tree.  The port's model walks that
+axis in a Python loop where the JAX package scans it.
+
+Only ``"attn"`` blocks with a dense MLP are ported: Mamba, RWKV-6, MoE and
+the clustered KV cache raise `NotImplementedError` (ROADMAP Queue 1
+item 11).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention
+from repro_torch.models.layers import (apply_mlp, apply_norm, mlp_specs,
+                                       norm_specs)
+from repro_torch.models.params import ParamSpec
+
+__all__ = ["layer_layout", "block_specs", "block_forward", "block_decode",
+           "block_cache_spec", "stack_specs", "LayerLayout"]
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerLayout:
+    period: int
+    num_groups: int
+    first_k_dense: int
+    positions: tuple              # tuple[(block_type, is_moe)] of len period
+
+    @property
+    def scanned_layers(self) -> int:
+        return self.period * self.num_groups
+
+
+def layer_layout(cfg: ModelConfig) -> LayerLayout:
+    period = cfg.attn_period if cfg.attn_period > 1 else 1
+    if cfg.num_experts and cfg.moe_period > 1:
+        period = math.lcm(period, cfg.moe_period)
+    scanned = cfg.num_layers - cfg.first_k_dense
+    if scanned % period:
+        raise ValueError(f"{cfg.name}: {scanned} layers do not fill periods "
+                         f"of {period}")
+    positions = tuple(
+        (cfg.block_type(cfg.first_k_dense + p),
+         cfg.layer_is_moe(cfg.first_k_dense + p))
+        for p in range(period))
+    for layer in range(cfg.first_k_dense, cfg.num_layers):
+        p = (layer - cfg.first_k_dense) % period
+        if (cfg.block_type(layer), cfg.layer_is_moe(layer)) != positions[p]:
+            raise ValueError(f"{cfg.name}: layer {layer} breaks the layout "
+                             f"{positions}")
+    return LayerLayout(period=period, num_groups=scanned // period,
+                       first_k_dense=cfg.first_k_dense, positions=positions)
+
+
+def stack_specs(specs, n: int):
+    """Prefix every ParamSpec with a ("layers",) group axis of size n."""
+    return {key: stack_specs(node, n) if isinstance(node, dict) else
+            ParamSpec((n,) + node.shape, ("layers",) + node.axes,
+                      init=node.init, scale=node.scale)
+            for key, node in specs.items()}
+
+
+def _check_block(cfg: ModelConfig, block_type: str, is_moe: bool) -> None:
+    if block_type != "attn":
+        raise NotImplementedError(
+            f"{cfg.name}: {block_type} blocks are not ported yet: ROADMAP "
+            "Queue 1 item 11")
+    if is_moe:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE blocks are not ported yet: ROADMAP Queue 1 "
+            "item 11")
+
+
+# ---------------------------------------------------------------------------
+# One residual block.
+# ---------------------------------------------------------------------------
+
+def block_specs(cfg: ModelConfig, block_type: str, is_moe: bool) -> dict:
+    _check_block(cfg, block_type, is_moe)
+    return {"norm1": norm_specs(cfg), "norm2": norm_specs(cfg),
+            "attn": attention.attn_specs(cfg), "mlp": mlp_specs(cfg)}
+
+
+def block_cache_spec(cfg: ModelConfig, block_type: str, batch: int,
+                     max_seq: int, dtype: torch.dtype) -> dict:
+    _check_block(cfg, block_type, False)
+    if cfg.cluster_kv:
+        raise NotImplementedError(
+            f"{cfg.name}: the clustered KV cache (cluster_kv) is not ported "
+            "yet: ROADMAP Queue 1 item 11")
+    return attention.init_kv_cache_spec(cfg, batch, max_seq, dtype)
+
+
+def block_forward(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                  block_type: str, is_moe: bool, *,
+                  positions: Optional[torch.Tensor] = None,
+                  return_cache: bool = False):
+    """Returns (x, cache_entries_or_None, aux_loss); aux is 0 without MoE."""
+    _check_block(cfg, block_type, is_moe)
+    h = apply_norm(params["norm1"], x, cfg)
+    y, cache = attention.attn_forward(params["attn"], h, cfg,
+                                      positions=positions,
+                                      return_cache=return_cache)
+    x = x + y
+    x = x + apply_mlp(params["mlp"], apply_norm(params["norm2"], x, cfg), cfg)
+    return x, cache, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def block_decode(params: dict, x: torch.Tensor, cache: dict,
+                 index: torch.Tensor, cfg: ModelConfig, block_type: str,
+                 is_moe: bool):
+    """Single-token step.  Returns (x, cache), the cache updated in place."""
+    _check_block(cfg, block_type, is_moe)
+    h = apply_norm(params["norm1"], x, cfg)
+    if cfg.cluster_kv:
+        y, cache = attention.attn_decode_clustered(params["attn"], h, cache,
+                                                   index, cfg)
+    else:
+        y, cache = attention.attn_decode(params["attn"], h, cache, index, cfg)
+    x = x + y
+    x = x + apply_mlp(params["mlp"], apply_norm(params["norm2"], x, cfg), cfg)
+    return x, cache

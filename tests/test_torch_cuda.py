@@ -238,3 +238,75 @@ def test_kmeans_parallel_plan_runs_through_the_kernel(cuda):
         torch.Generator(device=cuda).manual_seed(3), 128.0, rounds=4,
         cap=512)
     assert torch.equal(sel, again[0]) and torch.equal(d2, again[1])
+
+
+def _attn_inputs(b, s, h, hk, d, dtype, dev, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn((b, s, n, d), generator=gen, device=dev).to(dtype)
+            for n in (h, hk, hk)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,s,d,causal", [
+    (4, 256, 64, True), (2, 256, 32, False), (3, 512, 128, True),
+    (1, 128, 16, True), (2, 200, 74, True), (3, 333, 256, False),
+    (1, 1, 8, True)])
+def test_flash_attention_kernel(cuda, bh, s, d, causal, dtype):
+    """The (BH, S, D) entry against exact softmax on the same inputs:
+    ragged S, D up to 256, f32 and bf16 (widened exactly, so f32 rounding
+    only: 2e-5)."""
+    q, k, v = (t[:, :, 0] for t in _attn_inputs(bh, s, 1, 1, d, dtype,
+                                                 cuda, s + d))
+    before = ops.launch_counts()["flash_attention"]
+    out = ops.flash_attention(q, k, v, scale=d ** -0.5, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    assert out.dtype == torch.float32 and out.shape == (bh, s, d)
+    plain = ref.flash_attention_ref(q, k, v, scale=d ** -0.5, causal=causal)
+    torch.testing.assert_close(out, plain, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,hk,causal", [
+    (2, 256, 8, 8, True), (2, 256, 8, 2, False), (1, 2048, 32, 4, True),
+    (3, 200, 4, 1, True)])
+def test_attention_bshd_kernel(cuda, b, s, h, hk, causal, dtype):
+    """The model's (B, S, H, D) entry with GQA against the chunked scan;
+    q is a strided view (every other head of a wider tensor), read in
+    place."""
+    d = 128
+    q2, k, v = _attn_inputs(b, s, 2 * h, hk, d, dtype, cuda, s + h)
+    q = q2[:, :, ::2]
+    assert not q.is_contiguous()
+    out = ops.attention_bshd(q, k, v, scale=d ** -0.5, causal=causal)
+    plain = ref.attention_bshd_ref(q, k, v, scale=d ** -0.5, causal=causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, plain, rtol=2e-5, atol=2e-5)
+
+
+def test_serving_on_the_card_matches_the_cpu(cuda):
+    """Reduced yi-9b in f32 with the same weights on the card and on the
+    CPU: prefill logits to 1e-3 (summation order, as against the JAX
+    package), the same greedy tokens, one kernel launch per layer."""
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.models import init_params, param_specs, params_from_numpy
+    from repro_torch.serving.engine import Engine, ServeConfig
+    from repro_torch.serving.prefill import prefill
+
+    cfg = reduce_for_smoke(get_config("yi-9b"))
+    params = init_params(param_specs(cfg), torch.Generator().manual_seed(0),
+                         torch.float32, "cpu")
+    on_card = params_from_numpy(params, cuda)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        1, cfg.vocab_size, (3, 64)))
+    ops.reset_launch_counts()
+    lg_card, _ = prefill(on_card, cfg, {"tokens": toks.to(cuda)},
+                         max_seq=80)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == cfg.num_layers
+    lg_cpu, _ = prefill(params, cfg, {"tokens": toks}, max_seq=80)
+    torch.testing.assert_close(lg_card.cpu(), lg_cpu, rtol=1e-3, atol=1e-3)
+    serve = ServeConfig(max_new_tokens=8, max_seq=80)
+    np.testing.assert_array_equal(
+        Engine(on_card, cfg, serve).generate(toks.numpy()),
+        Engine(params, cfg, serve, device="cpu").generate(toks.numpy()))

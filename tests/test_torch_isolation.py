@@ -3,12 +3,14 @@
   * No module of `repro_torch`, and not `chip_smoke.py`, imports JAX or the
     JAX package: a scan of the sources and, in a fresh interpreter, the
     modules loaded after importing every `repro_torch` module.
-  * Entry points run on CUDA unless the caller asks for the CPU, and raise
-    rather than fall back when CUDA is absent.
+  * Entry points (the plan, the serving engine and its launcher) run on
+    CUDA unless the caller asks for the CPU, and raise rather than fall
+    back when CUDA is absent.
   * The CUDA bindings check their arguments before anything reaches the
     card: a CPU tensor, a wrong dtype, shape or contiguity raises.
 """
 
+import inspect
 import pathlib
 import re
 import subprocess
@@ -21,11 +23,16 @@ import torch
 import repro_torch
 from repro_torch.core import device_seeding as ds
 from repro_torch.core.plan import ClusterPlan, ClusterSpec, ExecutionSpec
+from repro_torch.configs import get_config, reduce_for_smoke
 from repro_torch.kernels import d2_update_cuda as d2u_binding
+from repro_torch.kernels import flash_attention_cuda as fa_binding
 from repro_torch.kernels import lsh_bucket_accept_cuda as lba_binding
 from repro_torch.kernels import ops
 from repro_torch.kernels import pairwise_argmin_cuda as pam_binding
 from repro_torch.kernels import tree_sep_update_cuda as tsu_binding
+from repro_torch.launch import serve
+from repro_torch.models import init_params, param_specs
+from repro_torch.serving.engine import Engine, ServeConfig
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PACKAGE = pathlib.Path(repro_torch.__file__).resolve().parent
@@ -65,6 +72,9 @@ def test_importing_the_port_loads_no_jax():
 def test_entry_points_default_to_cuda():
     spec = ExecutionSpec()
     assert spec.device == "cuda" and spec.backend == "device"
+    engine_device = inspect.signature(Engine).parameters["device"]
+    assert engine_device.default == "cuda"
+    assert serve.build_parser().parse_args([]).device == "cuda"
 
 
 def test_no_silent_cpu_fallback(monkeypatch):
@@ -76,6 +86,22 @@ def test_no_silent_cpu_fallback(monkeypatch):
         ClusterPlan(ClusterSpec(k=3, seeder="fastkmeans++"),
                     ExecutionSpec(backend="device", device="cuda:0"))
     ClusterPlan(ClusterSpec(k=3), ExecutionSpec(device="cpu"))   # asked for
+
+
+def test_serving_entry_points_do_not_fall_back(monkeypatch):
+    """Without CUDA, the engine and the launcher on their default device
+    raise; asked for the CPU, they run there."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = reduce_for_smoke(get_config("yi-9b"))
+    params = init_params(param_specs(cfg), torch.Generator(), torch.float32,
+                         "cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Engine(params, cfg, ServeConfig())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--smoke", "--tokens", "1"])
+    eng = Engine(params, cfg, ServeConfig(max_new_tokens=1, max_seq=8),
+                 device="cpu")
+    assert eng.generate(np.ones((1, 4), np.int32)).shape == (1, 1)
 
 
 def test_wrappers_refuse_other_devices():
@@ -127,6 +153,10 @@ def _binding_call(which):
     if which == "lsh_min":
         return _accept_args()[:7], range(7), \
             lambda a: lba_binding.launch_min(*a)
+    if which == "flash":
+        q, kv = torch.zeros((1, 64, 4, 8)), torch.zeros((1, 64, 2, 8))
+        return [q, kv, kv.clone()], [0, 1, 2], \
+            lambda a: fa_binding.launch(*a, scale=1.0, causal=True)
     if which == "pairwise":
         return [torch.zeros((128, 5)), torch.zeros((128, 5))], [0, 1], \
             lambda a: pam_binding.launch(*a)
@@ -137,7 +167,7 @@ def _binding_call(which):
 
 
 @pytest.mark.parametrize("which", ["sweep", "tiles", "accept", "lsh_min",
-                                   "pairwise", "d2", "d2_tiles"])
+                                   "pairwise", "d2", "d2_tiles", "flash"])
 def test_bindings_check_arguments_before_launching(which):
     """The bindings refuse a CPU tensor passed as if it were on the card and
     every wrong dtype, shape or contiguity, before loading any library."""
@@ -178,6 +208,31 @@ def test_bindings_check_kernel_block_shapes():
     with pytest.raises(ValueError, match="tile must be"):
         d2u_binding.launch_tiles(torch.zeros((48, 3)), torch.zeros(3),
                                  torch.zeros(48), tile=32)
+
+
+def test_flash_binding_checks_heads_before_launching():
+    """A head dimension over 256, KV heads that do not divide the query
+    heads, mixed dtypes and a strided head dimension raise before any
+    library loads."""
+    def call(q, k, v=None):
+        return fa_binding.launch(q, k, k if v is None else v, scale=1.0,
+                                 causal=True)
+
+    with pytest.raises(ValueError, match="outside 1..256"):
+        call(torch.zeros((1, 8, 4, 264)), torch.zeros((1, 8, 2, 264)))
+    with pytest.raises(ValueError, match="do not divide"):
+        call(torch.zeros((1, 8, 6, 8)), torch.zeros((1, 8, 4, 8)))
+    with pytest.raises(TypeError, match="must be torch.bfloat16"):
+        call(torch.zeros((1, 8, 4, 8), dtype=torch.bfloat16),
+             torch.zeros((1, 8, 2, 8)))
+    with pytest.raises(TypeError, match="must be a tensor of one of"):
+        call(torch.zeros((1, 8, 4, 8), dtype=torch.float16),
+             torch.zeros((1, 8, 2, 8), dtype=torch.float16))
+    with pytest.raises(ValueError, match="head dimension must be contiguous"):
+        call(torch.zeros((1, 8, 4, 16))[..., ::2], torch.zeros((1, 8, 2, 8)))
+    with pytest.raises(ValueError, match="must have shape"):
+        call(torch.zeros((1, 8, 4, 8)), torch.zeros((1, 9, 2, 8)))
+    assert ops.launch_counts() == {name: 0 for name in ops.LAUNCHES}
 
 
 def test_prepare_uploads_only_where_asked():

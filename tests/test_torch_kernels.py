@@ -359,10 +359,14 @@ def test_cpu_wrappers_launch_nothing():
     ops.pairwise_argmin(x, x[:7])
     ops.d2_update(x, x[0], w)
     ops.d2_update_tiles(x, x[0], w, block_n=32)
+    q = torch.randn(2, 16, 4, 8)
+    ops.flash_attention(q[:, :, 0], q[:, :, 1], q[:, :, 2], scale=1.0)
+    ops.attention_bshd(q, q[:, :, :2], q[:, :, 2:], scale=1.0, causal=True)
     assert ops.launch_counts() == {"tree_sep_update": 0,
                                    "tree_sep_update_tiles": 0,
                                    "lsh_bucket_accept": 0,
                                    "lsh_bucket_min": 0,
                                    "pairwise_argmin": 0,
                                    "d2_update": 0,
-                                   "d2_update_tiles": 0}
+                                   "d2_update_tiles": 0,
+                                   "flash_attention": 0}
