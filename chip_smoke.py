@@ -23,13 +23,18 @@ against its plain PyTorch version on the card.  In order:
   3. each kernel against its plain version at the paths' shapes: the tree
      sweeps bit-identical at n = 311,029, their tile sums,
      `lsh_bucket_accept` and `lsh_bucket_min` to rtol 1e-5 over B in
-     32..512 and 0..1000 live centers (`LSH_MISS` lanes exactly),
+     32..512 and 0..1000 live centers (`LSH_MISS` lanes exactly, a second
+     launch bit-identical),
      `pairwise_argmin` at 311,029 x 8,000 x 74 (one k-means|| round's
      slots) and at a ragged small shape in f32 and bf16, `d2_update` and
      `d2_update_tiles` at n = 311,029;
   4. each kernel's time (CUDA events) beside its plain version's, a
      PyTorch library call's where one computes the same function, and the
-     least time the card could take for the same work;
+     least time the card could take for the same work; the kernels of a
+     few microseconds are timed as a CUDA graph of their launches (the
+     card's time; a loop of launches from Python times the host) with the
+     loop's time beside, `lsh_bucket_accept` at the path's most used block
+     and at B = 32;
   5. the paths: `fit` and `refit(seed=1)` of each, with the launch counts
      set to 0 just before and read just after (Algorithm 4: 2k, k and at
      least k - 1 launches; k-means||: exactly 5 `pairwise_argmin`), then
@@ -43,7 +48,9 @@ against its plain PyTorch version on the card.  In order:
   7. quality in float64 against exact k-means++ and uniform seeding
      (information only);
   8. the device's idle share over Algorithm 4's `refit(seed=1)` again,
-     traced with `torch.profiler`, beside the untraced one;
+     traced with `torch.profiler`, beside the untraced one, with
+     `lsh_bucket_accept`'s mean time per launch on the path beside its
+     timed one, and the same launch traced alone between idle gaps;
   9. the seeding paths' device tensors are freed;
  10. `flash_attention` against its plain version (the chunked
      online-softmax scan) at the serving path's shape, q (4, 2048, 32, 128)
@@ -52,7 +59,8 @@ against its plain PyTorch version on the card.  In order:
  11. its time (CUDA events) beside the plain version's, PyTorch's
      `scaled_dot_product_attention` on the (B, H, S, D) view (the table's
      yardstick; the port never calls it), and the bound: 2 S (S + 1) D
-     operations per head on the bf16 tensor cores;
+     operations per head on the bf16 tensor cores; the f32 route (the SIMT
+     kernel) at the same shape for information;
  12. the serving path: yi-9b's 17.7 GB of weights drawn on the card,
      a warm-up, then `generate` with the launch counts set to 0 just
      before and read just after (exactly 48 `flash_attention`, one per
@@ -183,6 +191,24 @@ def cuda_ms(torch, fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, iters: int, replays: int = 5) -> float:
+    """Mean device milliseconds of `fn(i)` over `iters` calls captured in
+    one CUDA graph and replayed: the card's time per launch, free of the
+    host's time per call (a kernel of a few microseconds launched from
+    Python in a loop times the host)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(3):
+            fn(i)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(i)
+    return cuda_ms(torch, lambda i: graph.replay(), replays) / iters
 
 
 def bound(nbytes: float, ops: float,
@@ -346,21 +372,20 @@ def seeding_paths(torch, t_start: float) -> list:
     pts_pad = ds._pad_axis(data.points, 0, ts.n_pad)
     klo = ds._pad_axis(data.keys_lo, 1, ts.n_pad)
     khi = ds._pad_axis(data.keys_hi, 1, ts.n_pad)
-    k_pad = -(-K // lsh_cuda.BLOCK_K) * lsh_cuda.BLOCK_K
     centers = torch.as_tensor(rng.choice(n, K, replace=False), device=dev)
     c2 = plan.cluster.c ** 2
 
     def center_slots(count):
-        """The seeder's center buffers with `count` slots opened."""
-        c = torch.full((k_pad, D), ds._FAR, device=dev)
-        ck_lo = torch.zeros((l, k_pad), dtype=torch.int32, device=dev)
+        """The seeder's center buffers (K slots) with `count` opened."""
+        c = torch.full((K, D), ds._FAR, device=dev)
+        ck_lo = torch.zeros((l, K), dtype=torch.int32, device=dev)
         ck_hi = torch.zeros_like(ck_lo)
         c[:count] = pts_pad[centers[:count]]
         ck_lo[:, :count] = klo[:, centers[:count]]
         ck_hi[:, :count] = khi[:, centers[:count]]
         return ck_lo, ck_hi, c
 
-    log(f"lsh_bucket_accept and lsh_bucket_min (L={l}, d={D}, {k_pad} "
+    log(f"lsh_bucket_accept and lsh_bucket_min (L={l}, d={D}, {K} "
         "slots): B count hits max|d2 err| max rel err")
     errs["lsh_bucket_accept"] = errs["lsh_bucket_min"] = 0.0
     for b in (32, 64, 128, 256, 512):
@@ -370,9 +395,15 @@ def seeding_paths(torch, t_start: float) -> list:
             args = q_args + center_slots(count) + (w[cand],)
             d2, p = ops.lsh_bucket_accept(*args, count, c2=c2)
             d2_only = ops.lsh_bucket_min(*args[:6], count)
+            again = ops.lsh_bucket_accept(*args, count, c2=c2) + (
+                ops.lsh_bucket_min(*args[:6], count),)
             pd2, pp = ref.lsh_bucket_accept_ref(*args, count, c2=c2)
             pd2_only = ref.lsh_bucket_min_ref(*args[:6], count)
             torch.cuda.synchronize()
+            if not all(torch.equal(x, y)
+                       for x, y in zip((d2, p, d2_only), again)):
+                raise AssertionError(f"LSH queries at B={b} count={count}: "
+                                     "a second launch differs")
             miss = pd2 == ref.LSH_MISS
             if not (torch.equal(d2 == ref.LSH_MISS, miss)
                     and torch.equal(d2_only == ref.LSH_MISS, miss)
@@ -645,14 +676,30 @@ def seeding_paths(torch, t_start: float) -> list:
     b_main = rounds.most_common(1)[0][0]
     count_main = K // 2                  # mean live centers over a fit
     centers_args = center_slots(count_main)
-    cand = ts.sample(coarse, w, gen, b_main)
-    lsh_args = (klo[:, cand], khi[:, cand], pts_pad[cand]) + \
-        centers_args[:2] + (centers_args[2],
-                            ops.penalty_row(k_pad, count_main, dev), w[cand])
-    collide = ((lsh_args[0][:, :, None] == lsh_args[3][:, None, :count_main])
-               & (lsh_args[1][:, :, None] == lsh_args[4][:, None, :count_main])
-               ).any(dim=0)
-    n_collide = int(collide.sum())
+    penalty = ops.penalty_row(K, count_main, dev)   # the plain version's
+
+    def lsh_inputs(b):
+        """B candidates of the path's law against `count_main` live of the
+        K slots: the kernel's seven inputs and the colliding pairs."""
+        cand = ts.sample(coarse, w, gen, b)
+        args = (klo[:, cand], khi[:, cand], pts_pad[cand]) + \
+            centers_args + (w[cand],)
+        collide = ((args[0][:, :, None] == args[3][:, None, :count_main])
+                   & (args[1][:, :, None] == args[4][:, None, :count_main])
+                   ).any(dim=0)
+        return args, int(collide.sum())
+
+    def lsh_bound(b, n_pairs, accept):
+        """Each live input read once (no slot past the count is an input
+        of the function), each output written once; key compares, q.c for
+        colliding pairs, |q|^2 and |c|^2, the epilogue."""
+        return bound(
+            4 * (2 * l * b + b * D + 2 * l * count_main + count_main * D
+                 + (3 if accept else 1) * b),
+            b * count_main * 2 * l + n_pairs * 2 * D
+            + (b + count_main) * 2 * D + (6 if accept else 1) * b)
+
+    lsh_args, n_collide = lsh_inputs(b_main)
     cols = [(lo[ti], hi[ti], lo[ti, :, x], hi[ti, :, x]) for ti in range(t)]
     times = {
         "tree_sep_update": (
@@ -665,11 +712,13 @@ def seeding_paths(torch, t_start: float) -> list:
                                                     block_n=tile,
                                                     **sweep_kw)),
         "lsh_bucket_accept": (
-            lambda i: lsh_cuda.launch(*lsh_args, c2=c2),
-            lambda i: ref.lsh_bucket_accept_penalty_ref(*lsh_args, c2=c2)),
+            lambda i: lsh_cuda.launch(*lsh_args, count=count_main, c2=c2),
+            lambda i: ref.lsh_bucket_accept_penalty_ref(
+                *lsh_args[:6], penalty, lsh_args[6], c2=c2)),
         "lsh_bucket_min": (
-            lambda i: lsh_cuda.launch_min(*lsh_args[:7]),
-            lambda i: ref.lsh_bucket_min_penalty_ref(*lsh_args[:7])),
+            lambda i: lsh_cuda.launch_min(*lsh_args[:6], count=count_main),
+            lambda i: ref.lsh_bucket_min_penalty_ref(*lsh_args[:6],
+                                                     penalty)),
         "pairwise_argmin": (
             lambda i: pam_cuda.launch(xp_km, slots_pad),
             lambda i: ref.pairwise_argmin_ref(xp_km, slots_pad)),
@@ -682,6 +731,11 @@ def seeding_paths(torch, t_start: float) -> list:
                                               block_n=tile)),
     }
     iters = {"pairwise_argmin": (10, 3)}     # (kernel, plain); else 300, 100
+    # Kernels of a few microseconds: their `ms` is a CUDA graph of 100
+    # launches replayed (the card's time), the loop's time printed beside.
+    graphed = {"tree_sep_update", "tree_sep_update_tiles",
+               "lsh_bucket_accept", "lsh_bucket_min", "d2_update",
+               "d2_update_tiles"}
 
     def cdist_min(i):
         """The closest library form: two calls, TF32 off."""
@@ -693,22 +747,14 @@ def seeding_paths(torch, t_start: float) -> list:
     xp_km = ops._pad_to(x_km, 0, pam_cuda.BLOCK_N, 0.0)
     slots_pad = ops._pad_to(slots, 0, pam_cuda.BLOCK_K, ops._PAD_FAR)
     sweep_bytes = 4 * (2 * h * ts.n_pad + 2 * h + 2 * ts.n_pad)
-    lsh_min_ops = (b_main * count_main * 2 * l + n_collide * 2 * D
-                   + (b_main + count_main) * 2 * D + b_main)
     n_x = x_pad.shape[0]
     sweep_ops = ts.n_pad * (4 * h + 6)
     bounds = {
         "tree_sep_update": bound(sweep_bytes, sweep_ops),
         "tree_sep_update_tiles": bound(sweep_bytes + 4 * ts.num_tiles,
                                        sweep_ops + ts.n_pad),
-        "lsh_bucket_accept": bound(
-            4 * (2 * l * b_main + b_main * D + 2 * l * k_pad + k_pad * D
-                 + k_pad + 3 * b_main),
-            b_main * count_main * 2 * l + n_collide * 2 * D
-            + (b_main + count_main) * 2 * D + 6 * b_main),
-        "lsh_bucket_min": bound(
-            4 * (2 * l * b_main + b_main * D + 2 * l * k_pad + k_pad * D
-                 + k_pad + b_main), lsh_min_ops),
+        "lsh_bucket_accept": lsh_bound(b_main, n_collide, True),
+        "lsh_bucket_min": lsh_bound(b_main, n_collide, False),
         # The function's own work: n points against the round's 8,000
         # slots, not the kernel's padding.
         "pairwise_argmin": bound(4 * (N * D + KMP_CAP * D + 2 * N),
@@ -719,12 +765,18 @@ def seeding_paths(torch, t_start: float) -> list:
     }
     main_launches = dict(launches,
                          pairwise_argmin=km_launches["pairwise_argmin"])
-    rows = []
+    rows, loop_ms = [], {}
     for name, (kernel, plain_fn) in times.items():
         k_iters, p_iters = iters.get(name, (300, 100))
-        ms = cuda_ms(torch, kernel, k_iters)
-        plain_ms = cuda_ms(torch, plain_fn, p_iters)
-        ms_again = cuda_ms(torch, kernel, k_iters)
+        if name in graphed:
+            loop_ms[name] = cuda_ms(torch, kernel, k_iters)
+            ms = graph_ms(torch, kernel, 100)
+            plain_ms = cuda_ms(torch, plain_fn, p_iters)
+            ms_again = graph_ms(torch, kernel, 100)
+        else:
+            ms = cuda_ms(torch, kernel, k_iters)
+            plain_ms = cuda_ms(torch, plain_fn, p_iters)
+            ms_again = cuda_ms(torch, kernel, k_iters)
         lib_ms = None
         if name in library:
             lib_ms = cuda_ms(torch, *library[name])
@@ -735,14 +787,39 @@ def seeding_paths(torch, t_start: float) -> list:
                      "max_abs_err": errs[name], "ms": min(ms, ms_again),
                      "plain_ms": plain_ms, "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": lib_ms})
-        log(f"time {name}: kernel {ms:.6f} / {ms_again:.6f} ms, plain "
+        how = (f" as a CUDA graph ({loop_ms[name]:.6f} ms in a loop of "
+               f"launches from Python)" if name in graphed else "")
+        log(f"time {name}: kernel {ms:.6f} / {ms_again:.6f} ms{how}, plain "
             f"{plain_ms:.6f} ms, library "
             f"{'none' if lib_ms is None else f'{lib_ms:.6f} ms'}, bound "
             f"{b_ms:.6f} ms ({b_by}), {b_ms / min(ms, ms_again):.3f} of "
             "the bound")
+    # The ladder's lowest rung: the new kernel spreads the slots over the
+    # card, so B = 32 should take no longer than the path's block.
+    args32, pairs32 = lsh_inputs(32)
+    acc32 = lambda i: lsh_cuda.launch(*args32, count=count_main, c2=c2)
+    ms32 = min(graph_ms(torch, acc32, 100), graph_ms(torch, acc32, 100))
+    plain32 = cuda_ms(torch, lambda i: ref.lsh_bucket_accept_penalty_ref(
+        *args32[:6], penalty, args32[6], c2=c2), 100)
+    b32_ms, b32_by = lsh_bound(32, pairs32, True)
+    log(f"time lsh_bucket_accept at B=32 ({count_main} live of {K} slots, "
+        f"{pairs32} colliding pairs): kernel {ms32:.6f} ms as a CUDA graph "
+        f"({cuda_ms(torch, acc32, 300):.6f} ms in a loop of launches from "
+        f"Python), plain {plain32:.6f} ms, bound {b32_ms:.6f} ms ({b32_by})")
+    # The path's rounds see every live count from 0 to K: the kernel's time
+    # at the path's block over the counts, against its mean on the path
+    # (phase 8).
+    by_count = {}
+    for live in range(K // 10, K + 1, K // 10):
+        args_live = lsh_args[:3] + center_slots(live) + lsh_args[6:]
+        by_count[live] = graph_ms(torch, lambda i: lsh_cuda.launch(
+            *args_live, count=live, c2=c2), 50)
+    log(f"time lsh_bucket_accept at B={b_main} by live count (CUDA graph): "
+        + ", ".join(f"{live}: {ms:.6f}" for live, ms in by_count.items())
+        + f" ms; mean {sum(by_count.values()) / len(by_count):.6f} ms")
     log(f"  (sweeps: H-1={h}, n_pad={ts.n_pad}, trees in turn so the code "
         f"planes do not sit in L2; lsh_bucket_accept: B={b_main}, the main "
-        f"path's most used block, {count_main} live of {k_pad} slots, "
+        f"path's most used block, {count_main} live of {K} slots, "
         f"{n_collide} colliding pairs, and lsh_bucket_min on the same "
         f"inputs; pairwise_argmin: {N} x {KMP_CAP} x {D} padded to "
         f"{xp_km.shape[0]} x {slots_pad.shape[0]}, {live_slots} live "
@@ -759,12 +836,14 @@ def seeding_paths(torch, t_start: float) -> list:
     # draws, so both run the same rounds, and the untraced wall time shows
     # what the tracing costs.
     bare = refit
+    ops.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
         t0 = time.perf_counter()
         profiled = plan.refit(seed=1)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    traced_launches = ops.launch_counts()["lsh_bucket_accept"]
     if not torch.equal(bare.indices, profiled.indices):
         raise AssertionError("refit(seed=1) opened other centers when traced")
     busy, n_events, by_name = device_time(torch, prof)
@@ -776,6 +855,37 @@ def seeding_paths(torch, t_start: float) -> list:
         f"traced run's; cost "
         f"{float(profiled.cost):.9g}")
     log_top(by_name, 8)
+
+    def lsh_device_ms(names: dict) -> tuple:
+        """(device ms, kernels) of the LSH query's two kernels in a trace."""
+        hits = [v for name, v in names.items()
+                if "lsh_query_kernel" in name or "lsh_finish_kernel" in name]
+        return sum(v[0] for v in hits), sum(v[1] for v in hits)
+
+    path_ms, path_kernels = lsh_device_ms(by_name)
+    timed = next(r for r in rows if r["name"] == "lsh_bucket_accept")
+    log(f"lsh_bucket_accept on the traced path: {traced_launches} launches "
+        f"({path_kernels} kernels) took {path_ms:.3f} ms of device time, "
+        f"{path_ms / max(traced_launches, 1):.6f} ms per launch over the "
+        f"path's blocks and live counts; timed at B={b_main} with "
+        f"{count_main} live: {timed['ms']:.6f} ms as a CUDA graph, "
+        f"{loop_ms['lsh_bucket_accept']:.6f} ms in a loop of launches")
+    # The same launch traced back to back and alone between idle gaps, as
+    # the path issues it: whether an idle card runs it slower.
+    for label, gap in (("back to back", 0.0), ("between 2 ms gaps", 0.002)):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            for _ in range(50):
+                lsh_cuda.launch(*lsh_args, count=count_main, c2=c2)
+                if gap:
+                    torch.cuda.synchronize()
+                    time.sleep(gap)
+            torch.cuda.synchronize()
+        ms_50, kernels_50 = lsh_device_ms(device_time(torch, prof)[2])
+        log(f"  traced at B={b_main} with {count_main} live, 50 launches "
+            f"{label}: {ms_50 / 50:.6f} ms of device time per launch "
+            f"({kernels_50} kernels)")
     log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**20:.1f}"
         f" MiB; {time.perf_counter() - t_start:.1f} s so far")
     return rows
@@ -950,6 +1060,12 @@ def serving_path(torch, t_start: float) -> dict:
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     lib_ms = cuda_ms(torch, lambda i: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, scale=scale, enable_gqa=True), 20)
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    f32_ms = cuda_ms(torch, lambda i: fa_cuda.launch(qf, kf, vf, scale=scale,
+                                                     causal=True), 3)
+    log(f"time flash_attention, f32 route (the SIMT kernel; tests and the "
+        f"f32 checks only): {f32_ms:.6f} ms at the same shape in f32")
+    del qf, kf, vf
     ops_count = 2 * s * (s + 1) * hd * b * h
     nbytes = (q.element_size() * (q.numel() + k.numel() + v.numel())
               + 4 * q.numel())       # each input read once, f32 out

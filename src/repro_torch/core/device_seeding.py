@@ -285,12 +285,11 @@ def device_rejection_sampling(
     klo_pad = _pad_axis(keys_lo, 1, ts.n_pad)
     khi_pad = _pad_axis(keys_hi, 1, ts.n_pad)
 
-    # Center slots come in multiples of the accept kernel's center block,
-    # so the wrapper's padding of the center buffers is a no-op.
-    k_pad = -(-k // ops.BLOCK_K) * ops.BLOCK_K
-    ctr_pts = torch.full((k_pad, d), _FAR, dtype=torch.float32, device=dev)
-    ck_lo = torch.zeros((l, k_pad), dtype=torch.int32, device=dev)
-    ck_hi = torch.zeros((l, k_pad), dtype=torch.int32, device=dev)
+    # One slot per center; the accept kernel reads only the first i (the
+    # opened ones), so the buffers need no padding.
+    ctr_pts = torch.full((k, d), _FAR, dtype=torch.float32, device=dev)
+    ck_lo = torch.zeros((l, k), dtype=torch.int32, device=dev)
+    ck_hi = torch.zeros((l, k), dtype=torch.int32, device=dev)
     chosen, trials = [], []
     for i in range(k):
         x, t_i = None, 0

@@ -6,77 +6,119 @@
 // `_flash_attention` scan of src/repro/models/attention.py.  For every
 // query row i of every (batch, head):
 //
-//   s[i, j] = (scale * q[i]) . k[j]          (q widened to f32, then scaled)
+//   s[i, j] = scale * (q[i] . k[j])
 //   s[i, j] = -1e30 where causal and j > i   (not -inf, as the reference)
 //   out[i]  = sum_j exp(s[i, j] - m) v[j] / max(sum_j exp(s[i, j] - m), 1e-30)
 //
-// with the running max m and sum l carried over key tiles exactly as the
-// reference does (alpha = exp(m_prev - m_new)).  Inputs are f32 or bf16
-// (widened with `__bfloat162float`), the output is f32.  GQA: query head h
-// reads key/value head h / (H / Hk).  q, k and v are read through their
-// (batch, seq, head) strides with the head dimension contiguous, so both
-// the model's (B, S, H, D) layout and the TPU kernel's (BH, S, D) layout
+// with the running max m and sum l carried over key tiles as the reference
+// does (alpha = exp(m_prev - m_new)).  The output is f32.  GQA: query head
+// h reads key/value head h / (H / Hk).  q, k and v are read through their
+// (batch, seq, head) strides with the head dimension contiguous, so the
+// model's (B, S, H, D) layout and the TPU kernel's (BH, S, D) layout both
 // come in without a copy; the output is a contiguous (B, S, H, D) f32.
 //
 // What bounds it on the card: operations.  At the serving path's prefill
-// (B = 4, S = 2048, 32 query heads over 4 KV heads, D = 128, causal) the
-// work is 2 S (S + 1) D per head, 1.38e11 operations, against 218 MB of
-// q, k, v and the f32 output: 0.139 ms on the bf16 tensor cores, 2.05 ms
-// at the 67 TFLOP/s of f32 outside them, 0.065 ms for the bytes.  This
-// first kernel is plain SIMT f32, so its own floor is the 2.05 ms:
-//   - a block of 256 threads owns 64 query rows of one (batch, head); the
-//     scaled q tile stays in shared memory for the whole key loop;
-//   - key tiles of 64 rows: K goes into one shared buffer, each thread
-//     computes a 4 x 4 block of scores (rows ty*4+i, keys tx+16j), the
-//     row max and sum go through 16-lane shuffles, p goes to shared
-//     memory; then V replaces K in the same buffer and each thread
-//     updates a 4 x (D/16) block of the accumulator, kept in registers;
-//   - shared rows have a stride of D + 1 floats (no bank conflicts for
-//     even D), so with D = 128 a block takes 82.7 KB (two blocks per SM)
-//     and with D = 256 148 KB; above 48 KB the launcher raises the
-//     block's dynamic shared-memory limit first;
-//   - key tiles wholly above the causal diagonal are never loaded;
-//   - a ragged S is guarded: rows past S load zeros and are never
-//     written, keys past S get p = 0.
-// `mma.sync`/`wgmma` on the tensor cores, TMA and a pipelined K/V ring are
-// later work.
+// (B = 4, S = 2048, 32 query heads over 4 KV heads, D = 128, bf16, causal)
+// the work is 2 S (S + 1) D per head, 1.38e11 operations against 218 MB of
+// q, k, v and the f32 output: 0.139 ms on the bf16 tensor cores, 0.065 ms
+// for the bytes, 2.05 ms at the 67 TFLOP/s of f32 outside the tensor cores.
 //
-// Rounding: the sums run in another order than the reference's; results
-// agree with the plain versions to f32 rounding.  Key 0 is valid for every
-// query row, so after the first tile every row's max is a real score and
-// exp(-1e30 - m) is 0 on every masked key, as in the reference.
+// bf16 inputs (the serving path) run on the tensor cores, `mma.sync`
+// m16n8k16 bf16 -> f32 fed by `ldmatrix`, all as inline PTX (no header
+// beyond the toolkit's).  `mma.sync` rather than `wgmma`: it keeps the FA2
+// shape (one warp owns 16 query rows, the softmax runs on the accumulator
+// fragments in registers, no warpgroup descriptors or async fences) and
+// is the simpler kernel to get right; `wgmma` is the later step to the
+// full rate.
+//   - A block of 8 warps owns 128 query rows of one (batch, head), 16 per
+//     warp.  The bf16 Q tile stays bf16 in shared memory; for D <= 128 each
+//     warp keeps its Q fragments in registers for the whole key loop.
+//   - K and V have their own bf16 buffers in a two-stage ring filled by
+//     16-byte `cp.async`: V(j + 1) and K(j + 2) load while tile j is
+//     multiplied, behind one `__syncthreads` per tile.  Rows are padded by
+//     16 bytes, so the eight rows an `ldmatrix` reads fall in eight
+//     different bank groups.
+//   - Software-pipelined: one barrier per tile holds the block's warps in
+//     step, so they would all reach the softmax together and leave the
+//     tensor cores idle.  Instead each warp issues the products of the
+//     next tile's scores before the current tile's softmax and P V, in one
+//     straight-line block, and the compiler interleaves the two (the
+//     softmax arithmetic runs while the tensor cores work).
+//   - S = Q K^T on the tensor cores; the products of two bf16 values are
+//     exact in f32, so the scores differ from the reference's only by the
+//     order of the f32 sums and by where `scale` is applied (to s, after
+//     the product, with log2(e) folded in for `exp2f`).
+//   - P V without losing the f32 result: p is f32 in (0, 1], and rounding
+//     it to bf16 costs up to 2^-9 of each term, which the 1e-4 check of
+//     the serving path rejects.  So p = p_hi + p_lo, p_hi = bf16(p) and
+//     p_lo = bf16(p - p_hi), and two products run against the bf16 V tile
+//     (V is exact in bf16): p is carried to about 2^-17.  This costs 1.5x
+//     the tensor-core work of a pure-bf16 kernel.  The row sum l is taken
+//     from the unrounded f32 p.
+//   - The running max and sum live on the accumulator fragments (rows
+//     lane / 4 and lane / 4 + 8 of the warp's 16), reduced across the quad
+//     of lanes that share a row by two xor shuffles.
+//   - Causal: tiles wholly above the diagonal are never loaded, a warp
+//     skips the products of a tile that lies above all its rows, and only
+//     tiles that cross the diagonal (or the ragged end) are masked, with
+//     -1e30.  The longest query blocks, the last ones, are scheduled
+//     first, so that the grid's tail is short.
+//   - Any D in 1..256: the head dimension is zero-padded in shared memory
+//     to 64, 128 or 256 (zero columns add nothing to a score, and padded
+//     output columns are not written).  Any S: rows past S load as zeros
+//     and are never written; keys past S get p = 0.  Tiles load with
+//     16-byte `cp.async` when D and every stride are multiples of 8 and the
+//     pointers are 16-byte aligned, else element by element.
+// The block takes 102 KB of shared memory at D = 128 (one block of 8
+// warps per SM with the registers it needs, about 240 a thread), 135 KB at
+// D = 256 with 32-key tiles; the launcher raises the block's limit first.
+// What is left: `mma.sync` issues at well under the card's bf16 rate,
+// which only `wgmma` reaches (the next step).
+//
+// f32 inputs (tests and the reduced f32 checks only) keep the first
+// kernel, plain SIMT f32: a block of 256 threads owns 64 query rows, each
+// thread a 4 x 4 block of scores and a 4 x (D/16) slice of the
+// accumulator; 64-key tiles of K, then V, in one shared f32 buffer with a
+// row stride of D + 1.  Its floor is the 2.05 ms f32 figure.
+//
+// Rounding: key 0 is valid for every query row, so after the first tile
+// every row's max is a real score and exp(-1e30 - m) is 0 on every masked
+// key, as in the reference.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
+
+constexpr float kNegInf = -1.0e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+struct Strides {
+  long long b, s, h;
+};
+
+// ---------------------------------------------------------------------------
+// f32: plain SIMT
+// ---------------------------------------------------------------------------
 
 constexpr int kBQ = 64;        // query rows per block
 constexpr int kBK = 64;        // key rows per tile
 constexpr int kThreads = 256;  // 16 x 16: ty picks 4 rows, tx 4 keys
 constexpr int kPStride = kBK + 1;
-constexpr float kNegInf = -1.0e30f;
-
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 
 // rows [row0, row0 + 64) of a (seq, D) view with row stride `stride`,
-// widened and multiplied by `mul`, into dst[r * (D + 1) + d]; rows at or
-// past S are zero.
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
-                                          long long stride, int row0, int S,
-                                          int D, float mul) {
+// multiplied by `mul`, into dst[r * (D + 1) + d]; rows at or past S are 0.
+__device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
+                                              long long stride, int row0,
+                                              int S, int D, float mul) {
   const int ld = D + 1;
   for (int idx = threadIdx.x; idx < kBQ * D; idx += kThreads) {
     const int r = idx / D;
     const int d = idx - r * D;
     const int row = row0 + r;
     dst[r * ld + d] =
-        row < S ? widen(src[static_cast<long long>(row) * stride + d]) * mul
-                : 0.0f;
+        row < S ? src[static_cast<long long>(row) * stride + d] * mul : 0.0f;
   }
 }
 
@@ -92,17 +134,13 @@ __device__ __forceinline__ float half_warp_sum(float v) {
   return v;
 }
 
-struct Strides {
-  long long b, s, h;
-};
-
 // NC = columns of the accumulator per thread: D <= 16 * NC.
-template <typename T, int NC>
+template <int NC>
 __global__ void __launch_bounds__(kThreads)
-    flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, float* __restrict__ out,
-                           int S, int H, int Hk, int D, Strides qs_,
-                           Strides ks_, Strides vs_, float scale, int causal) {
+    simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, float* __restrict__ out, int S,
+                int H, int Hk, int D, Strides qs_, Strides ks_, Strides vs_,
+                float scale, int causal) {
   extern __shared__ float smem[];
   const int ld = D + 1;
   float* qs = smem;             // kBQ x ld, the scaled queries
@@ -116,11 +154,11 @@ __global__ void __launch_bounds__(kThreads)
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (H / Hk);
-  const T* qb = q + b * qs_.b + h * qs_.h;
-  const T* kb = k + b * ks_.b + hk * ks_.h;
-  const T* vb = v + b * vs_.b + hk * vs_.h;
+  const float* qb = q + b * qs_.b + h * qs_.h;
+  const float* kb = k + b * ks_.b + hk * ks_.h;
+  const float* vb = v + b * vs_.b + hk * vs_.h;
 
-  load_tile(qs, qb, qs_.s, q0, S, D, scale);
+  load_tile_f32(qs, qb, qs_.s, q0, S, D, scale);
 
   float m[4], l[4], acc[4][NC];
 #pragma unroll
@@ -136,7 +174,7 @@ __global__ void __launch_bounds__(kThreads)
   const int k_end = causal ? min(S, q0 + kBQ) : S;
   for (int k0 = 0; k0 < k_end; k0 += kBK) {
     __syncthreads();  // q is staged; the last tile's V and p are read
-    load_tile(kvs, kb, ks_.s, k0, S, D, 1.0f);
+    load_tile_f32(kvs, kb, ks_.s, k0, S, D, 1.0f);
     __syncthreads();
 
     float s[4][4];
@@ -184,7 +222,7 @@ __global__ void __launch_bounds__(kThreads)
     }
 
     __syncthreads();  // K is read and p is written
-    load_tile(kvs, vb, vs_.s, k0, S, D, 1.0f);
+    load_tile_f32(kvs, vb, vs_.s, k0, S, D, 1.0f);
     __syncthreads();
 
     for (int j = 0; j < kBK; ++j) {
@@ -217,39 +255,400 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int NC>
-int launch_nc(const T* q, const T* k, const T* v, float* out, int B, int S,
-              int H, int Hk, int D, Strides qs_, Strides ks_, Strides vs_,
-              float scale, int causal, cudaStream_t stream) {
+template <int NC>
+int launch_simt(const float* q, const float* k, const float* v, float* out,
+                int B, int S, int H, int Hk, int D, Strides qs_, Strides ks_,
+                Strides vs_, float scale, int causal, cudaStream_t stream) {
   const int smem = static_cast<int>(sizeof(float)) *
                    ((kBQ + kBK) * (D + 1) + kBQ * kPStride);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, NC>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      simt_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  flash_attention_kernel<T, NC><<<grid, kThreads, smem, stream>>>(
+  simt_kernel<NC><<<grid, kThreads, smem, stream>>>(
       q, k, v, out, S, H, Hk, D, qs_, ks_, vs_, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch(const T* q, const T* k, const T* v, float* out, int B, int S,
-           int H, int Hk, int D, const long long* strides, float scale,
-           int causal, void* stream) {
-  if (B <= 0 || S <= 0) return 0;
-  const Strides qs_{strides[0], strides[1], strides[2]};
-  const Strides ks_{strides[3], strides[4], strides[5]};
-  const Strides vs_{strides[6], strides[7], strides[8]};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D <= 64)
-    return launch_nc<T, 4>(q, k, v, out, B, S, H, Hk, D, qs_, ks_, vs_,
-                           scale, causal, st);
-  if (D <= 128)
-    return launch_nc<T, 8>(q, k, v, out, B, S, H, Hk, D, qs_, ks_, vs_,
-                           scale, causal, st);
-  return launch_nc<T, 16>(q, k, v, out, B, S, H, Hk, D, qs_, ks_, vs_, scale,
-                          causal, st);
+// ---------------------------------------------------------------------------
+// bf16: tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kTcWarps = 8;
+constexpr int kTcThreads = 32 * kTcWarps;
+constexpr int kTcBQ = 16 * kTcWarps;  // query rows per block, 16 per warp
+constexpr int kRowPad = 8;            // bf16 per row: 16 bytes
+
+template <int DP>  // the head dimension, zero-padded to 64, 128 or 256
+struct Tc {
+  static constexpr int kBK = DP > 128 ? 32 : 64;  // keys per tile
+  static constexpr int kLd = DP + kRowPad;        // shared row stride
+  static constexpr bool kQInRegs = DP <= 128;
+  static constexpr int kSmem = (kTcBQ + 4 * kBK) * kLd * 2;  // Q, 2 x (K, V)
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared; bytes past `src_bytes` (0 or 16) are zero.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// c += a b: a 16 x 16 bf16 (row), b 16 x 8 bf16 (col), c 16 x 8 f32.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// (x0, x1) as bf16 pairs hi = bf16(x) and lo = bf16(x - hi); the lower
+// 16 bits hold x0, the element of the smaller column.
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  hi = bf16x2_bits(h);
+  lo = bf16x2_bits(
+      __floats2bfloat162_rn(x0 - __low2float(h), x1 - __high2float(h)));
+}
+
+// Rows [row0, row0 + ROWS) of a (seq, D) bf16 view into a shared tile of
+// row stride LD, zero past S and past D.  `vec`: 16-byte cp.async (D and
+// the row stride multiples of 8, the base 16-byte aligned); else element by
+// element, synchronously.
+template <int ROWS, int DP, int LD>
+__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
+                                               const __nv_bfloat16* src,
+                                               long long stride, int row0,
+                                               int S, int D, bool vec) {
+  constexpr int kChunks = DP / 8;
+  for (int idx = threadIdx.x; idx < ROWS * kChunks; idx += kTcThreads) {
+    const int r = idx / kChunks;
+    const int c = (idx - r * kChunks) * 8;
+    const int row = row0 + r;
+    __nv_bfloat16* d = dst + r * LD + c;
+    if (vec) {
+      const bool ok = row < S && c < D;
+      const __nv_bfloat16* s =
+          ok ? src + static_cast<long long>(row) * stride + c : src;
+      cp_async16(smem_addr(d), s, ok ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int col = c + e;
+        d[e] = (row < S && col < D)
+                   ? src[static_cast<long long>(row) * stride + col]
+                   : __float2bfloat16(0.0f);
+      }
+    }
+  }
+}
+
+// S = Q K^T for one warp's 16 rows against a BK-key tile: f32 accumulators
+// on the tensor cores.  `q_lane` / `k_lane`: this lane's ldmatrix row
+// addresses in the Q tile and the K tile.
+template <int DP, int BK, int LD, bool kQInRegs, int QN>
+__device__ __forceinline__ void tile_scores(float (&s)[BK / 8][4],
+                                            const uint32_t (&qf)[QN][4],
+                                            uint32_t q_lane,
+                                            uint32_t k_lane) {
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    uint32_t a[4];
+    if constexpr (kQInRegs) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) a[e] = qf[kk][e];
+    } else {
+      ldmatrix_x4(a, q_lane + kk * 32);
+    }
+#pragma unroll
+    for (int jj = 0; jj < BK / 16; ++jj) {
+      uint32_t kb[4];
+      ldmatrix_x4(kb, k_lane + (jj * 16 * LD + kk * 16) * 2);
+      mma_bf16(s[2 * jj], a, kb[0], kb[1]);
+      mma_bf16(s[2 * jj + 1], a, kb[2], kb[3]);
+    }
+  }
+}
+
+// One key tile of one warp, software-pipelined: the products of the next
+// tile's scores (`sn`, from `k_next`) are issued first, and the online
+// softmax of this tile's scores (`s`) and its P V products (from `v_lane`)
+// follow in the same straight-line block, so the warp's softmax
+// arithmetic runs while the tensor cores work on the next tile.  kMask:
+// the tile crosses the causal diagonal or the ragged end.
+template <int DP, int BK, int LD, bool kQInRegs, bool kMask, int QN>
+__device__ __forceinline__ void tile_step(
+    float (&s)[BK / 8][4], float (&sn)[BK / 8][4], float (&acc)[DP / 8][4],
+    float (&m)[2], float (&l)[2], const uint32_t (&qf)[QN][4], uint32_t q_lane,
+    uint32_t k_next, uint32_t v_lane, float scale_log2, int k0, int S,
+    int causal, int row_a, int lane) {
+  constexpr int NS = BK / 8;
+  constexpr int NO = DP / 8;
+  tile_scores<DP, BK, LD, kQInRegs>(sn, qf, q_lane, k_next);
+
+  // Scale into the log2 domain, mask, and the row max over the quad.
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[j][e] * scale_log2;
+      if (kMask) {
+        const int key = k0 + j * 8 + (lane & 3) * 2 + (e & 1);
+        const int row = row_a + (e >> 1) * 8;
+        x = (key >= S || (causal && key > row)) ? kNegInf : x;
+      }
+      s[j][e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+  }
+  float alpha[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(~0u, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(~0u, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r]);
+    alpha[r] = exp2f(m[r] - m_new);
+    m[r] = m_new;
+  }
+  float sum[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = exp2f(s[j][e] - m[e >> 1]);
+      s[j][e] = p;
+      sum[e >> 1] += p;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];
+#pragma unroll
+  for (int j = 0; j < NO; ++j) {
+    acc[j][0] *= alpha[0];
+    acc[j][1] *= alpha[0];
+    acc[j][2] *= alpha[1];
+    acc[j][3] *= alpha[1];
+  }
+
+  // O += (P_hi + P_lo) V: the score fragments of keys 16 kk .. 16 kk + 15
+  // are the A fragment of this k-step.
+#pragma unroll
+  for (int kk = 0; kk < NS / 2; ++kk) {
+    uint32_t ph[4], pl[4];
+    split_bf16(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
+    split_bf16(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
+    split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
+    split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
+#pragma unroll
+    for (int dd = 0; dd < NO / 2; ++dd) {
+      uint32_t vb[4];
+      ldmatrix_x4_trans(vb, v_lane + (kk * 16 * LD + dd * 16) * 2);
+      mma_bf16(acc[2 * dd], ph, vb[0], vb[1]);
+      mma_bf16(acc[2 * dd], pl, vb[0], vb[1]);
+      mma_bf16(acc[2 * dd + 1], ph, vb[2], vb[3]);
+      mma_bf16(acc[2 * dd + 1], pl, vb[2], vb[3]);
+    }
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    tc_kernel(const __nv_bfloat16* __restrict__ q,
+              const __nv_bfloat16* __restrict__ k,
+              const __nv_bfloat16* __restrict__ v, float* __restrict__ out,
+              int B, int S, int H, int Hk, int D, Strides qs_, Strides ks_,
+              Strides vs_, float scale_log2, int causal, int vec_in) {
+  using C = Tc<DP>;
+  constexpr int BK = C::kBK;
+  constexpr int LD = C::kLd;
+  constexpr int NS = BK / 8;   // score n-tiles (8 keys each)
+  constexpr int NO = DP / 8;   // output n-tiles (8 columns each)
+  constexpr int KD = DP / 16;  // k-steps over the head dimension
+  constexpr bool kQReg = C::kQInRegs;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* ks = qs + kTcBQ * LD;   // [2][BK][LD]: K(j) in stage j % 2
+  __nv_bfloat16* vs = ks + 2 * BK * LD;  // [2][BK][LD]: V(j) in stage j % 2
+
+  const bool vec = vec_in != 0;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  // Longest query blocks first: the last block under causal masking.
+  const int bh = static_cast<int>(blockIdx.x % (H * B));
+  const int nqb = (S + kTcBQ - 1) / kTcBQ;
+  const int qb = nqb - 1 - static_cast<int>(blockIdx.x / (H * B));
+  const int h = bh % H;
+  const int b = bh / H;
+  const int q0 = qb * kTcBQ;
+  const int hk = h / (H / Hk);
+  const __nv_bfloat16* qg = q + b * qs_.b + h * qs_.h;
+  const __nv_bfloat16* kg = k + b * ks_.b + hk * ks_.h;
+  const __nv_bfloat16* vg = v + b * vs_.b + hk * vs_.h;
+
+  const int k_end = causal ? min(S, q0 + kTcBQ) : S;
+  const int n_tiles = (k_end + BK - 1) / BK;
+
+  // Q and K(0), then V(0) and K(1): tile j's V and tile j + 1's K arrive
+  // together, one iteration ahead of their use.
+  load_tile_bf16<kTcBQ, DP, LD>(qs, qg, qs_.s, q0, S, D, vec);
+  load_tile_bf16<BK, DP, LD>(ks, kg, ks_.s, 0, S, D, vec);
+  cp_async_commit();
+  load_tile_bf16<BK, DP, LD>(vs, vg, vs_.s, 0, S, D, vec);
+  if (n_tiles > 1)
+    load_tile_bf16<BK, DP, LD>(ks + BK * LD, kg, ks_.s, BK, S, D, vec);
+  cp_async_commit();
+  cp_async_wait<1>();  // Q and K(0) are in
+  __syncthreads();
+
+  // This warp's rows: r0 = lane / 4 and r0 + 8 of its 16.
+  const int wrow0 = q0 + warp * 16;
+  const int row_a = wrow0 + (lane >> 2);
+  // ldmatrix row addresses: A (Q) rows lane % 16, columns 8 (lane / 16);
+  // B (K) keys lane % 8 + 8 (lane / 16), columns 8 ((lane / 8) % 2);
+  // B (V, transposed) keys lane % 16, columns 8 (lane / 16).
+  const uint32_t q_lane =
+      smem_addr(qs + (warp * 16 + (lane & 15)) * LD + (lane >> 4) * 8);
+  const uint32_t k_lane = smem_addr(
+      ks + ((lane & 7) + ((lane >> 4) << 3)) * LD + ((lane >> 3) & 1) * 8);
+  const uint32_t v_lane = smem_addr(vs + (lane & 15) * LD + (lane >> 4) * 8);
+  constexpr uint32_t kStage = BK * LD * 2;  // bytes per ring stage
+
+  uint32_t qf[kQReg ? KD : 1][4];
+  if constexpr (kQReg) {
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) ldmatrix_x4(qf[kk], q_lane + kk * 32);
+  }
+
+  float acc[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.0f, 0.0f};
+  float s[NS][4], sn[NS][4];
+  tile_scores<DP, BK, LD, kQReg>(s, qf, q_lane, k_lane);  // tile 0
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<0>();  // V(t) and K(t + 1)
+    __syncthreads();     // ... for every warp; stages of t - 1 are free
+    if (t + 1 < n_tiles)
+      load_tile_bf16<BK, DP, LD>(vs + ((t + 1) & 1) * BK * LD, vg, vs_.s,
+                                 (t + 1) * BK, S, D, vec);
+    if (t + 2 < n_tiles)
+      load_tile_bf16<BK, DP, LD>(ks + (t & 1) * BK * LD, kg, ks_.s,
+                                 (t + 2) * BK, S, D, vec);
+    cp_async_commit();
+
+    const int k0 = t * BK;
+    // A warp whose last row comes before this tile's first key is done:
+    // every later tile is masked for it too.
+    if (causal && k0 > wrow0 + 15) continue;
+    const uint32_t k_next = k_lane + ((t + 1) & 1) * kStage;
+    const uint32_t v_cur = v_lane + (t & 1) * kStage;
+    // The next tile's scores are computed even past the last tile (on a
+    // stale stage, never read), so that the step is one straight block.
+    if (k0 + BK > S || (causal && k0 + BK - 1 > wrow0))
+      tile_step<DP, BK, LD, kQReg, true>(s, sn, acc, m, l, qf, q_lane,
+                                         k_next, v_cur, scale_log2, k0, S,
+                                         causal, row_a, lane);
+    else
+      tile_step<DP, BK, LD, kQReg, false>(s, sn, acc, m, l, qf, q_lane,
+                                          k_next, v_cur, scale_log2, k0, S,
+                                          causal, row_a, lane);
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = sn[j][e];
+  }
+
+  // l over the quad, then out = acc / max(l, 1e-30).
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(~0u, l[r], 1);
+    l[r] += __shfl_xor_sync(~0u, l[r], 2);
+    l[r] = 1.0f / fmaxf(l[r], 1e-30f);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_a + 8 * r;
+    if (row >= S) continue;
+    float* orow = out + ((static_cast<long long>(b) * S + row) * H + h) * D;
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      const int col = j * 8 + (lane & 3) * 2;
+      const float x0 = acc[j][2 * r] * l[r];
+      const float x1 = acc[j][2 * r + 1] * l[r];
+      if (col + 1 < D && (D & 1) == 0) {
+        *reinterpret_cast<float2*>(orow + col) = make_float2(x0, x1);
+      } else {
+        if (col < D) orow[col] = x0;
+        if (col + 1 < D) orow[col + 1] = x1;
+      }
+    }
+  }
+}
+
+template <int DP>
+int launch_tc(const __nv_bfloat16* q, const __nv_bfloat16* k,
+              const __nv_bfloat16* v, float* out, int B, int S, int H, int Hk,
+              int D, Strides qs_, Strides ks_, Strides vs_, float scale,
+              int causal, int vec, cudaStream_t stream) {
+  constexpr int smem = Tc<DP>::kSmem;
+  cudaError_t err = cudaFuncSetAttribute(
+      tc_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // One block per (query block, batch, head), query blocks slowest.
+  const long long nqb = (S + kTcBQ - 1) / kTcBQ;
+  const unsigned grid = static_cast<unsigned>(nqb * H * B);
+  tc_kernel<DP><<<grid, kTcThreads, smem, stream>>>(
+      q, k, v, out, B, S, H, Hk, D, qs_, ks_, vs_, scale * kLog2e, causal,
+      vec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -265,7 +664,19 @@ extern "C" int flash_attention_f32_launch(const float* q, const float* k,
                                           const long long* strides,
                                           float scale, int causal,
                                           void* stream) {
-  return launch(q, k, v, out, B, S, H, Hk, D, strides, scale, causal, stream);
+  if (B <= 0 || S <= 0) return 0;
+  const Strides qs_{strides[0], strides[1], strides[2]};
+  const Strides ks_{strides[3], strides[4], strides[5]};
+  const Strides vs_{strides[6], strides[7], strides[8]};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D <= 64)
+    return launch_simt<4>(q, k, v, out, B, S, H, Hk, D, qs_, ks_, vs_, scale,
+                          causal, st);
+  if (D <= 128)
+    return launch_simt<8>(q, k, v, out, B, S, H, Hk, D, qs_, ks_, vs_, scale,
+                          causal, st);
+  return launch_simt<16>(q, k, v, out, B, S, H, Hk, D, qs_, ks_, vs_, scale,
+                         causal, st);
 }
 
 extern "C" int flash_attention_bf16_launch(const void* q, const void* k,
@@ -274,8 +685,25 @@ extern "C" int flash_attention_bf16_launch(const void* q, const void* k,
                                            const long long* strides,
                                            float scale, int causal,
                                            void* stream) {
-  return launch(static_cast<const __nv_bfloat16*>(q),
-                static_cast<const __nv_bfloat16*>(k),
-                static_cast<const __nv_bfloat16*>(v), out, B, S, H, Hk, D,
-                strides, scale, causal, stream);
+  if (B <= 0 || S <= 0) return 0;
+  const Strides qs_{strides[0], strides[1], strides[2]};
+  const Strides ks_{strides[3], strides[4], strides[5]};
+  const Strides vs_{strides[6], strides[7], strides[8]};
+  bool vec = D % 8 == 0;
+  for (int i = 0; i < 9; ++i) vec = vec && strides[i] % 8 == 0;
+  vec = vec && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
+        reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+        reinterpret_cast<uintptr_t>(v) % 16 == 0;
+  const auto* qb = static_cast<const __nv_bfloat16*>(q);
+  const auto* kb = static_cast<const __nv_bfloat16*>(k);
+  const auto* vb = static_cast<const __nv_bfloat16*>(v);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D <= 64)
+    return launch_tc<64>(qb, kb, vb, out, B, S, H, Hk, D, qs_, ks_, vs_,
+                         scale, causal, vec, st);
+  if (D <= 128)
+    return launch_tc<128>(qb, kb, vb, out, B, S, H, Hk, D, qs_, ks_, vs_,
+                          scale, causal, vec, st);
+  return launch_tc<256>(qb, kb, vb, out, B, S, H, Hk, D, qs_, ks_, vs_, scale,
+                        causal, vec, st);
 }

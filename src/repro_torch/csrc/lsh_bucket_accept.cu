@@ -3,184 +3,226 @@
 //
 // Replaces the TPU kernels `lsh_bucket_accept_pallas` (`_kernel_accept`)
 // and `lsh_bucket_min_pallas` (`_kernel`, the same query without the
-// epilogue: d2_min only), both in src/repro/kernels/lsh_bucket_min.py.  One
-// kernel template serves both: `kAccept` adds the epilogue, and each has
-// its own `extern "C"` entry.  Per candidate b over the center slots c:
+// epilogue: d2_min only), both in src/repro/kernels/lsh_bucket_min.py.  Both
+// run the same query kernel; the finishing kernel's flag `kAccept` adds the
+// epilogue, and each has its own `extern "C"` entry.  Per candidate b over the live center slots
+// c < count:
 //
 //   collide[b,c] = OR_l (qlo[l,b] == clo[l,c] && qhi[l,b] == chi[l,c])
-//   val[b,c]     = max(collide ? max(|q|^2 - 2 q.c + |c|^2, 0) : MISS,
-//                      penalty[c])
-//   d2_min[b]    = min(MISS, min_c val[b,c])
+//   d2_min[b]    = min(MISS, min over colliding c of
+//                        max(|q|^2 - 2 q.c + |c|^2, 0))
 //   p[b]         = mtd2[b] > 0 ? d2_min[b] / max(c2 * mtd2[b], 1e-30) : 0
 //                  (kAccept only)
 //
-// The penalty row is 0 for live center slots and MISS for slots not yet
-// opened or padded, so a collision with a dead slot turns into a miss.
+// Slots at or past `count` (not yet opened, or padding) are never read:
+// the same function as the TPU kernel's penalty row (0 live, MISS dead,
+// max()ed into every colliding distance), without building the row.
 //
 // What bounds it on the card: at the main path's sizes (B <= 512
-// candidates, K = 1024 slots, d = 74, L = 15) the inputs are well under a
-// megabyte and the work is O(B K L) key compares plus 2d flops for each
-// colliding pair, so neither the memory rate nor the f32 rate binds: a
-// launch is bounded by its latency and by how few blocks B candidates make.
-// The design is the simple one: one block per 8 candidates (one warp
-// each), a loop over tiles of 32 center slots staged in shared memory
-// (coordinates with an odd row stride, so the 32 lanes read 32 different
-// banks), the key compare as an OR over the L tables, and the distance as
-// an f32 FMA loop over d, evaluated only for the slots whose keys collide:
-// a slot that shares no bucket yields MISS whatever its distance, as the
-// reference's where() does.  A warp-level min ends the sweep and lane 0
-// writes d2_min and, with kAccept, the acceptance probability.  No
-// library call computes q.c.
+// candidates, 1,000 slots of which about 500 are live on average, d = 74,
+// L = 15) the inputs are well under a megabyte, and the work is B count L
+// key compares plus 2d flops per colliding pair: neither the memory rate
+// nor the f32 rate binds.  A launch is bounded by its latency, that is by
+// how many dependent steps one thread takes and how much of the card the
+// grid reaches.  So the design spreads both axes over the card and keeps
+// each thread's chain short:
+//   - the grid covers candidates x slot chunks: a block of 4 warps takes 4
+//     candidates (one a warp) against one chunk of 32 x `per_lane` slots,
+//     with `per_lane` in 1..8 chosen at launch so that the grid holds at
+//     least 2 x 132 blocks where the live slots allow it; B = 32 and
+//     B = 512 both spread over the SMs;
+//   - lanes run over consecutive slots and the keys are (L, K) row-major,
+//     so each of a lane's 2L key reads coalesces across the warp (the
+//     block's 4 warps read the same lines, from L1); the candidate's 2L
+//     keys, coordinates and |q|^2 sit in the warp's shared memory;
+//   - the distance is computed only for colliding slots, by the whole warp
+//     at once (lanes over d, coalesced, reduced by xor shuffles), one
+//     colliding slot after another;
+//   - a warp-level min ends a chunk and goes to a (chunks, B) scratch; a
+//     second small kernel takes the min over the chunks in a fixed order
+//     and applies the epilogue.  Both are deterministic: the same inputs
+//     give bit-identical outputs from launch to launch.  With no live slot
+//     only the second runs (every lane a miss).
+// No library call computes q.c.
 //
 // The distance keeps the reference's expanded form and its order,
 // (|q|^2 - 2 q.c) + |c|^2; the sums over d run in another order than the
-// reference's, so results agree to f32 rounding (exactly for small
-// integer-valued coordinates).
-//
-// The wrappers (`ops.lsh_bucket_accept`, `ops.lsh_bucket_min`) pad B to a
-// multiple of kWarps and K to a multiple of kTile, so the kernel has no
-// ragged edge.
+// reference's, so results agree to f32 rounding.  Any B and any K: both
+// edges are guarded, so nothing is padded.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kWarps = 8;         // candidates per block, one warp each
-constexpr int kTile = 32;         // center slots per shared-memory tile
+constexpr int kWarps = 4;         // candidates per block, one warp each
+constexpr int kMaxPerLane = 8;    // slots per lane in a chunk, at most
+constexpr int kTargetBlocks = 264;  // 2 x 132 SMs
 constexpr float kMiss = 3.0e38f;  // LSH_MISS
 
-template <bool kAccept>
-__global__ void lsh_query_kernel(
-    const int* __restrict__ qlo, const int* __restrict__ qhi,
-    const float* __restrict__ q, const int* __restrict__ clo,
-    const int* __restrict__ chi, const float* __restrict__ c,
-    const float* __restrict__ penalty, const float* __restrict__ mtd2,
-    float* __restrict__ d2_out, float* __restrict__ p_out, int L, int B,
-    int K, int D, float c2) {
-  extern __shared__ float smem[];
-  const int dp = D | 1;                       // odd row stride: no conflicts
-  float* c_s = smem;                          // [kTile][dp]
-  float* pen_s = c_s + kTile * dp;            // [kTile]
-  float* q_s = pen_s + kTile;                 // [kWarps][D]
-  int* ck_s = reinterpret_cast<int*>(q_s + kWarps * D);  // [2][L][kTile]
-  int* qk_s = ck_s + 2 * L * kTile;           // [kWarps][2][L]
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
 
+__device__ __forceinline__ float accept_p(float d2, float m, float c2) {
+  return m > 0.0f ? d2 / fmaxf(c2 * m, 1e-30f) : 0.0f;
+}
+
+// Block (chunk, group): candidates 4 group .. 4 group + 3 against slots
+// [chunk * 32 * per_lane, ...) below `count`; each candidate's min over
+// the colliding ones goes to partial[chunk * B + b].
+__global__ void __launch_bounds__(kWarps * 32)
+    lsh_query_kernel(const int* __restrict__ qlo, const int* __restrict__ qhi,
+                     const float* __restrict__ q, const int* __restrict__ clo,
+                     const int* __restrict__ chi, const float* __restrict__ c,
+                     float* __restrict__ partial, int L, int B, int K, int D,
+                     int count, int per_lane) {
+  extern __shared__ float smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int b = blockIdx.x * kWarps + warp;   // B % kWarps == 0
+  const int b = blockIdx.y * kWarps + warp;
+  if (b >= B) return;  // whole warps only; no block-wide barrier follows
+  float* q_s = smem + warp * (D + 2 * L);               // [D]
+  int* qk_s = reinterpret_cast<int*>(q_s + D);          // [2][L]
 
-  // Stage this warp's candidate: coordinates, |q|^2 and bucket keys.
   float q_part = 0.0f;
   for (int e = lane; e < D; e += 32) {
-    const float v = q[static_cast<long long>(b) * D + e];
-    q_s[warp * D + e] = v;
-    q_part = fmaf(v, v, q_part);
+    const float x = q[static_cast<long long>(b) * D + e];
+    q_s[e] = x;
+    q_part = fmaf(x, x, q_part);
   }
   for (int l = lane; l < L; l += 32) {
-    qk_s[(warp * 2 + 0) * L + l] = qlo[static_cast<long long>(l) * B + b];
-    qk_s[(warp * 2 + 1) * L + l] = qhi[static_cast<long long>(l) * B + b];
+    qk_s[l] = qlo[static_cast<long long>(l) * B + b];
+    qk_s[L + l] = qhi[static_cast<long long>(l) * B + b];
   }
-  for (int o = 16; o > 0; o >>= 1)
-    q_part += __shfl_xor_sync(0xffffffffu, q_part, o);
-  const float q_sq = q_part;
+  __syncwarp();
+  const float q_sq = warp_sum(q_part);
 
+  const int chunk0 = blockIdx.x * 32 * per_lane;
   float best = kMiss;
-  for (int k0 = 0; k0 < K; k0 += kTile) {     // K % kTile == 0
-    __syncthreads();  // the previous tile is no longer read
-    for (int idx = threadIdx.x; idx < kTile * D; idx += blockDim.x) {
-      const int j = idx / D;
-      const int e = idx - j * D;
-      c_s[j * dp + e] = c[static_cast<long long>(k0 + j) * D + e];
-    }
-    for (int idx = threadIdx.x; idx < 2 * L * kTile; idx += blockDim.x) {
-      const int plane = idx / (L * kTile);
-      const int rest = idx - plane * L * kTile;
-      const int l = rest / kTile;
-      const int j = rest - l * kTile;
-      const int* keys = plane == 0 ? clo : chi;
-      ck_s[idx] = keys[static_cast<long long>(l) * K + k0 + j];
-    }
-    if (threadIdx.x < kTile) pen_s[threadIdx.x] = penalty[k0 + threadIdx.x];
-    __syncthreads();
-
-    const int* my_qk = qk_s + warp * 2 * L;
+  for (int i = 0; i < per_lane; ++i) {
+    const int base = chunk0 + 32 * i;
+    if (base >= count) break;
+    const int slot = base + lane;
     bool collide = false;
-    for (int l = 0; l < L; ++l) {
-      collide |= (my_qk[l] == ck_s[l * kTile + lane]) &
-                 (my_qk[L + l] == ck_s[(L + l) * kTile + lane]);
+    if (slot < count) {
+      for (int l = 0; l < L; ++l) {
+        const long long at = static_cast<long long>(l) * K + slot;
+        collide |= (__ldg(clo + at) == qk_s[l]) &
+                   (__ldg(chi + at) == qk_s[L + l]);
+      }
     }
-    float val = kMiss;
-    if (collide) {
-      const float* cj = c_s + lane * dp;
-      const float* qw = q_s + warp * D;
+    unsigned hits = __ballot_sync(0xffffffffu, collide);
+    while (hits) {
+      const int j = __ffs(hits) - 1;
+      hits &= hits - 1;
+      const float* cj = c + static_cast<long long>(base + j) * D;
       float dot = 0.0f;
       float c_sq = 0.0f;
-      for (int e = 0; e < D; ++e) {
-        dot = fmaf(qw[e], cj[e], dot);
-        c_sq = fmaf(cj[e], cj[e], c_sq);
+      for (int e = lane; e < D; e += 32) {
+        const float x = __ldg(cj + e);
+        dot = fmaf(q_s[e], x, dot);
+        c_sq = fmaf(x, x, c_sq);
       }
-      val = fmaxf((q_sq - 2.0f * dot) + c_sq, 0.0f);
+      dot = warp_sum(dot);
+      c_sq = warp_sum(c_sq);
+      best = fminf(best, fmaxf((q_sq - 2.0f * dot) + c_sq, 0.0f));
     }
-    best = fminf(best, fmaxf(val, pen_s[lane]));
   }
+  // Every lane holds the same best: the distances were warp-wide sums.
+  if (lane == 0) partial[static_cast<long long>(blockIdx.x) * B + b] = best;
+}
 
-  for (int o = 16; o > 0; o >>= 1)
-    best = fminf(best, __shfl_xor_sync(0xffffffffu, best, o));
-  if (lane == 0) {
-    d2_out[b] = best;
-    if (kAccept) {
-      const float m = mtd2[b];
-      p_out[b] = m > 0.0f ? best / fmaxf(c2 * m, 1e-30f) : 0.0f;
-    }
+// One thread per candidate: the min over the chunks' partial mins, in
+// chunk order, then the epilogue.  chunks == 0: every lane misses.
+template <bool kAccept>
+__global__ void lsh_finish_kernel(const float* __restrict__ partial,
+                                  const float* __restrict__ mtd2,
+                                  float* __restrict__ d2_out,
+                                  float* __restrict__ p_out, int B, int chunks,
+                                  float c2) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  float best = kMiss;
+  for (int ch = 0; ch < chunks; ++ch)
+    best = fminf(best, partial[static_cast<long long>(ch) * B + b]);
+  d2_out[b] = best;
+  if (kAccept) p_out[b] = accept_p(best, mtd2[b], c2);
+}
+
+// Slots per lane: the most (up to 8) that still leaves 264 blocks; 1 when
+// even that cannot reach it.
+int per_lane_for(int B, int count) {
+  const long long groups = (B + kWarps - 1) / kWarps;
+  int per = kMaxPerLane;
+  while (per > 1) {
+    const long long chunks = (count + 32LL * per - 1) / (32LL * per);
+    if (chunks * groups >= kTargetBlocks) break;
+    per >>= 1;
   }
+  return per;
+}
+
+// The number of slot chunks of a launch at (B, count), at most
+// ceil(count / 32): `partial` holds chunks x B floats.
+int num_chunks(int B, int count) {
+  if (B <= 0 || count <= 0) return 0;
+  const int per = per_lane_for(B, count);
+  return (count + 32 * per - 1) / (32 * per);
 }
 
 template <bool kAccept>
 int launch(const int* qlo, const int* qhi, const float* q, const int* clo,
-           const int* chi, const float* c, const float* penalty,
-           const float* mtd2, float* d2_out, float* p_out, int L, int B,
-           int K, int D, float c2, void* stream) {
-  const int dp = D | 1;
-  const size_t smem = sizeof(float) * (kTile * dp + kTile + kWarps * D) +
-                      sizeof(int) * (2 * L * kTile + kWarps * 2 * L);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        lsh_query_kernel<kAccept>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+           const int* chi, const float* c, const float* mtd2, float* partial,
+           float* d2_out, float* p_out, int L, int B, int K, int D, int count,
+           float c2, void* stream) {
+  if (B <= 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int chunks = num_chunks(B, count);
+  if (chunks >= 1) {
+    const size_t smem = sizeof(float) * kWarps * (D + 2 * L);
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          lsh_query_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    const dim3 grid(chunks, (B + kWarps - 1) / kWarps);
+    lsh_query_kernel<<<grid, kWarps * 32, smem, st>>>(
+        qlo, qhi, q, clo, chi, c, partial, L, B, K, D, count,
+        per_lane_for(B, count));
+    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const int blocks = B / kWarps;
-  if (blocks > 0) {
-    lsh_query_kernel<kAccept><<<blocks, kWarps * 32, smem,
-                                static_cast<cudaStream_t>(stream)>>>(
-        qlo, qhi, q, clo, chi, c, penalty, mtd2, d2_out, p_out, L, B, K, D,
-        c2);
-  }
+  lsh_finish_kernel<kAccept><<<(B + 127) / 128, 128, 0, st>>>(
+      partial, mtd2, d2_out, p_out, B, chunks, c2);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Layouts (row-major): qlo/qhi (L, B), q (B, D), clo/chi (L, K), c (K, D),
-// penalty (K,), mtd2 (B,); outputs d2_out, p_out (B,).  B % 8 == 0 and
-// K % 32 == 0 (the Python binding checks both).  Each returns the
-// cudaError_t of the attribute call or of the launch.
+// mtd2 (B,); outputs d2_out, p_out (B,); partial, scratch of at least
+// ceil(count / 32) x B floats.  0 <= count <= K (the Python binding checks
+// it).
+// Each returns the cudaError_t of the attribute call or of a launch.
 extern "C" int lsh_bucket_accept_launch(
     const int* qlo, const int* qhi, const float* q, const int* clo,
-    const int* chi, const float* c, const float* penalty, const float* mtd2,
-    float* d2_out, float* p_out, int L, int B, int K, int D, float c2,
-    void* stream) {
-  return launch<true>(qlo, qhi, q, clo, chi, c, penalty, mtd2, d2_out,
-                      p_out, L, B, K, D, c2, stream);
+    const int* chi, const float* c, const float* mtd2, float* partial,
+    float* d2_out, float* p_out, int L, int B, int K, int D, int count,
+    float c2, void* stream) {
+  return launch<true>(qlo, qhi, q, clo, chi, c, mtd2, partial, d2_out, p_out,
+                      L, B, K, D, count, c2, stream);
 }
 
 // The query alone (no mtd2, no p): d2_out (B,).
 extern "C" int lsh_bucket_min_launch(const int* qlo, const int* qhi,
                                      const float* q, const int* clo,
                                      const int* chi, const float* c,
-                                     const float* penalty, float* d2_out,
-                                     int L, int B, int K, int D,
+                                     float* partial, float* d2_out, int L,
+                                     int B, int K, int D, int count,
                                      void* stream) {
-  return launch<false>(qlo, qhi, q, clo, chi, c, penalty, nullptr, d2_out,
-                       nullptr, L, B, K, D, 0.0f, stream);
+  return launch<false>(qlo, qhi, q, clo, chi, c, nullptr, partial, d2_out,
+                       nullptr, L, B, K, D, count, 0.0f, stream);
 }

@@ -2,9 +2,12 @@
 
 `launch` takes CUDA tensors in the model's layout, q (B, S, H, D) and k, v
 (B, S, Hk, D), read through their strides (the head dimension must be
-contiguous), allocates the f32 output with `torch.empty`, launches on the
-current stream and raises on a CUDA error.  The wrappers that count
-launches are `ops.flash_attention` and `ops.attention_bshd`.
+contiguous, nothing else: any S, any D in 1..256, any alignment), allocates
+the f32 output with `torch.empty`, launches on the current stream and
+raises on a CUDA error.  bf16 runs on the tensor cores, f32 on the SIMT
+kernel; the source chooses 16-byte `cp.async` or element loads from the
+strides and pointers it is given.  The wrappers that count launches are
+`ops.flash_attention` and `ops.attention_bshd`.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ from repro_torch.kernels._check import check_cuda, check_tensor, raise_on_error
 
 __all__ = ["launch", "MAX_D", "DTYPES"]
 
-MAX_D = 256     # the TPU kernel's stated limit; the kernel's registers too
+MAX_D = 256     # the TPU kernel's stated limit; the bf16 route pads D to 256
 DTYPES = {torch.float32: "flash_attention_f32_launch",
           torch.bfloat16: "flash_attention_bf16_launch"}
 

@@ -7,15 +7,15 @@ There is no fallback from one to the other, and any other device raises.
 
 Padding is done before the dispatch, so the CPU tests run it too.  It
 follows the JAX package's wrappers: points pad with weight 0 (never
-sampled, nothing added to a tile sum), query-side codes and keys pad with
--1 and center-side keys with -2 (so a padded query lane never collides
-with a padded center slot), padded center coordinates sit at `_PAD_FAR`,
-and the penalty row turns every dead slot into a miss; `pairwise_argmin`
-pads points with zeros and center slots at `_PAD_FAR`, `d2_update_tiles`
-rows with zeros and w with 0.  The TPU also padded the heights H and the tables
-L to a multiple of 8 sublanes; the CUDA kernels loop over any count, so
-those axes are not padded.  On the Algorithm 4 path every pad is a no-op:
-the seeders keep their buffers at block multiples.
+sampled, nothing added to a tile sum) and query-side codes with -1;
+`pairwise_argmin` pads points with zeros and center slots at `_PAD_FAR`,
+`d2_update_tiles` rows with zeros and w with 0.  The LSH queries pad
+nothing: their kernel guards both edges and reads only the live center
+slots, and their plain version masks the dead ones with the penalty row.
+The TPU also padded the heights H and the tables L to a multiple of 8
+sublanes; the CUDA kernels loop over any count, so those axes are not
+padded.  On the Algorithm 4 path every pad is a no-op: the seeders keep
+their buffers at block multiples.
 
 Each wrapper adds one to its entry of `LAUNCHES` where it launches its
 kernel, and nowhere else: a run shows it went through the kernels by
@@ -29,7 +29,6 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import pairwise_argmin_cuda, ref
-from repro_torch.kernels.lsh_bucket_accept_cuda import BLOCK_B, BLOCK_K
 from repro_torch.kernels.ref import LSH_MISS
 
 __all__ = [
@@ -51,8 +50,7 @@ __all__ = [
 ]
 
 _PAD_FAR = 1.0e17      # per-coordinate "far away" (distance^2 stays f32-finite)
-_QUERY_CODE_PAD = -1   # query-side (points, candidates) code and key pad
-_CENTER_CODE_PAD = -2  # center-side key pad: never equals a query pad
+_QUERY_CODE_PAD = -1   # query-side (points) code pad
 
 LAUNCHES = {"tree_sep_update": 0, "tree_sep_update_tiles": 0,
             "lsh_bucket_accept": 0, "lsh_bucket_min": 0, "pairwise_argmin": 0,
@@ -193,21 +191,11 @@ def tree_sep_update_tiles(codes_lo, codes_hi, center_lo, center_hi, w, *,
     return out
 
 
-def _lsh_query_args(q_keys_lo, q_keys_hi, q, c_keys_lo, c_keys_hi, c,
-                    count) -> tuple:
-    """The LSH query's inputs padded to the kernel's blocks, plus the
-    penalty row that masks every slot past `count` (`None`: all K)."""
-    cp = _pad_to(c, 0, BLOCK_K, _PAD_FAR)
-    return (
-        _pad_to(q_keys_lo, 1, BLOCK_B, _QUERY_CODE_PAD),
-        _pad_to(q_keys_hi, 1, BLOCK_B, _QUERY_CODE_PAD),
-        _pad_to(q, 0, BLOCK_B, 0.0),
-        _pad_to(c_keys_lo, 1, BLOCK_K, _CENTER_CODE_PAD),
-        _pad_to(c_keys_hi, 1, BLOCK_K, _CENTER_CODE_PAD),
-        cp,
-        penalty_row(cp.shape[0], c.shape[0] if count is None else count,
-                    q.device),
-    )
+def _live_slots(c: torch.Tensor, count) -> int:
+    """The number of live center slots: the first `count` (`None`: all K),
+    clamped to 0..K as the plain version's mask clamps it."""
+    k = c.shape[0]
+    return k if count is None else min(max(int(count), 0), k)
 
 
 def lsh_bucket_min(q_keys_lo, q_keys_hi, q, c_keys_lo, c_keys_hi, c,
@@ -216,40 +204,39 @@ def lsh_bucket_min(q_keys_lo, q_keys_hi, q, c_keys_lo, c_keys_hi, c,
     `LSH_MISS` where no live center shares a bucket.
 
     Keys are (L, B) / (L, K) int32 planes of the uint64 bucket keys.  Only
-    the first `count` center slots are live (`None`: all K); the rest are
-    masked through the penalty row.  Candidates pad to a multiple of
-    `BLOCK_B` and center slots to one of `BLOCK_K`, the kernel's block
-    shapes.
+    the first `count` center slots are live (`None`: all K).  The kernel
+    takes the count and reads no slot past it; the plain version masks the
+    dead slots with the penalty row, the TPU kernel's interface.
     """
-    b = q.shape[0]
-    args = _lsh_query_args(q_keys_lo, q_keys_hi, q, c_keys_lo, c_keys_hi, c,
-                           count)
+    live = _live_slots(c, count)
     if not _on_card(q):
-        d2_min = ref.lsh_bucket_min_penalty_ref(*args)
-    else:
-        from repro_torch.kernels import lsh_bucket_accept_cuda as binding
+        return ref.lsh_bucket_min_penalty_ref(
+            q_keys_lo, q_keys_hi, q, c_keys_lo, c_keys_hi, c,
+            penalty_row(c.shape[0], live, q.device))
+    from repro_torch.kernels import lsh_bucket_accept_cuda as binding
 
-        d2_min = binding.launch_min(*args)
-        LAUNCHES["lsh_bucket_min"] += 1
-    return d2_min[:b]
+    d2_min = binding.launch_min(q_keys_lo, q_keys_hi, q, c_keys_lo,
+                                c_keys_hi, c, count=live)
+    LAUNCHES["lsh_bucket_min"] += 1
+    return d2_min
 
 
 def lsh_bucket_accept(q_keys_lo, q_keys_hi, q, c_keys_lo, c_keys_hi, c, mtd2,
                       count=None, *, c2: float):
     """`lsh_bucket_min` plus the Algorithm-4 acceptance probability, per
-    candidate: ``(d2_min (B,), p_accept (B,))``; padding as in
-    `lsh_bucket_min`, with mtd2 padded with zeros (p = 0 there)."""
-    b = q.shape[0]
-    args = _lsh_query_args(q_keys_lo, q_keys_hi, q, c_keys_lo, c_keys_hi, c,
-                           count) + (_pad_to(mtd2, 0, BLOCK_B, 0.0),)
+    candidate: ``(d2_min (B,), p_accept (B,))``, with p = 0 where
+    mtd2 = 0."""
+    live = _live_slots(c, count)
     if not _on_card(q):
-        d2_min, p = ref.lsh_bucket_accept_penalty_ref(*args, c2=c2)
-    else:
-        from repro_torch.kernels import lsh_bucket_accept_cuda as binding
+        return ref.lsh_bucket_accept_penalty_ref(
+            q_keys_lo, q_keys_hi, q, c_keys_lo, c_keys_hi, c,
+            penalty_row(c.shape[0], live, q.device), mtd2, c2=c2)
+    from repro_torch.kernels import lsh_bucket_accept_cuda as binding
 
-        d2_min, p = binding.launch(*args, c2=c2)
-        LAUNCHES["lsh_bucket_accept"] += 1
-    return d2_min[:b], p[:b]
+    d2_min, p = binding.launch(q_keys_lo, q_keys_hi, q, c_keys_lo, c_keys_hi,
+                               c, mtd2, count=live, c2=c2)
+    LAUNCHES["lsh_bucket_accept"] += 1
+    return d2_min, p
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

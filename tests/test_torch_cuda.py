@@ -9,7 +9,11 @@ machine with a card, from the repository root:
 Shapes are small and ragged on purpose (n not a multiple of the tile, B and
 K not multiples of the kernel's blocks, n and k not multiples of 128,
 L = 15 and L = 1, 59 code rows, f32 and bf16 points); `chip_smoke.py` makes
-the same comparison at the main paths' full shapes.
+the same comparison at the main paths' full shapes.  Two grids cover the
+redesigned kernels: `flash_attention` over D, S, GQA group, causality,
+dtype and both entries (strided and misaligned views included) within
+`ATTN_TOL`, and the LSH queries over B and the live count, with an
+all-miss case and two launches on the same inputs bit-identical.
 """
 
 import numpy as np
@@ -310,3 +314,101 @@ def test_serving_on_the_card_matches_the_cpu(cuda):
     np.testing.assert_array_equal(
         Engine(on_card, cfg, serve).generate(toks.numpy()),
         Engine(params, cfg, serve, device="cpu").generate(toks.numpy()))
+
+
+# The serving path's tolerance (chip_smoke.py): the bf16 route splits p into
+# two bf16 terms, so it is carried to about 2^-17 of each term.
+ATTN_TOL = 1e-4
+GRID_D = (64, 80, 128, 256)
+GRID_S = (1, 63, 64, 65, 1000, 2048)
+GRID = [(entry, d, s, g, causal, dtype)
+        for entry, groups in (("bshd", (1, 8)), ("flat", (1,)))
+        for d in GRID_D for s in GRID_S for g in groups
+        for causal in (True, False)
+        for dtype in (torch.bfloat16, torch.float32)]
+
+
+def _grid_id(case):
+    entry, d, s, g, causal, dtype = case
+    return (f"{entry}-d{d}-s{s}-g{g}-{'causal' if causal else 'full'}-"
+            f"{str(dtype)[6:]}")
+
+
+@pytest.mark.parametrize("case", GRID, ids=_grid_id)
+def test_flash_attention_grid(cuda, case):
+    """Both entries against their plain versions within `ATTN_TOL`.  The
+    (B, S, H, D) entry reads q, k and v as strided views of one packed qkv
+    tensor (2 KV heads, 2 g query heads); the (BH, S, D) entry reads views
+    at an odd column offset of a wider tensor, so the pointers are not
+    16-byte aligned and the tiles load element by element."""
+    entry, d, s, g, causal, dtype = case
+    gen = torch.Generator(device=cuda).manual_seed(d * 10_000 + s + g)
+    before = ops.launch_counts()["flash_attention"]
+    if entry == "bshd":
+        hk = 2
+        qkv = torch.randn((1, s, hk * (g + 2), d), generator=gen,
+                          device=cuda).to(dtype)
+        q, k, v = qkv[:, :, :hk * g], qkv[:, :, hk * g:hk * (g + 1)], \
+            qkv[:, :, hk * (g + 1):]
+        out = ops.attention_bshd(q, k, v, scale=d ** -0.5, causal=causal)
+        plain = ref.attention_bshd_ref(q, k, v, scale=d ** -0.5,
+                                       causal=causal)
+    else:
+        wide = torch.randn((3, 3, s, d + 9), generator=gen,
+                           device=cuda).to(dtype)
+        q, k, v = (wide[i, :, :, 1:d + 1] for i in range(3))
+        out = ops.flash_attention(q, k, v, scale=d ** -0.5, causal=causal)
+        plain = ref.flash_attention_ref(q, k, v, scale=d ** -0.5,
+                                        causal=causal)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    assert out.dtype == torch.float32 and out.shape == plain.shape
+    assert bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out, plain, rtol=ATTN_TOL, atol=ATTN_TOL)
+
+
+LSH_GRID = [(b, count, False) for b in (8, 32, 512)
+            for count in (1, 31, 32, 33, 500, 1024)] + \
+    [(b, 1024, True) for b in (8, 32, 512)]
+
+
+@pytest.mark.parametrize("which", ["accept", "min"])
+@pytest.mark.parametrize("b,count,miss", LSH_GRID)
+def test_lsh_query_grid(cuda, b, count, miss, which):
+    """The LSH queries against their plain versions (rtol 1e-5, `LSH_MISS`
+    lanes exactly) at K = 1024 slots, d = 74, L = 15, over B and the live
+    count, with an all-miss case; a second launch on the same inputs gives
+    bit-identical outputs (the min over slot chunks does not depend on the
+    order of evaluation)."""
+    k, l, d = 1024, 15, 74
+    rng = np.random.default_rng(b * 7 + count)
+    qk = rng.integers(-5, 5, size=(2, l, b)).astype(np.int32)
+    ck = rng.integers(-5, 5, size=(2, l, k)).astype(np.int32) + (
+        100 if miss else 0)
+    arrays = (qk[0], qk[1], rng.normal(size=(b, d)).astype(np.float32),
+              ck[0], ck[1], rng.normal(size=(k, d)).astype(np.float32),
+              rng.uniform(0, 3, size=b).astype(np.float32))
+    args = [torch.from_numpy(a).to(cuda) for a in arrays]
+    args[-1][::5] = 0.0
+    if which == "accept":
+        runs = [ops.lsh_bucket_accept(*args, count, c2=1.44)
+                for _ in range(2)]
+        plain = ref.lsh_bucket_accept_ref(*args, count, c2=1.44)
+    else:
+        runs = [(ops.lsh_bucket_min(*args[:6], count),) for _ in range(2)]
+        plain = (ref.lsh_bucket_min_ref(*args[:6], count),)
+    torch.cuda.synchronize()
+    for got, again in zip(*runs):
+        assert torch.equal(got, again)
+    miss_lanes = plain[0] == ref.LSH_MISS
+    assert torch.equal(runs[0][0] == ref.LSH_MISS, miss_lanes)
+    if miss:
+        assert miss_lanes.all()
+    else:
+        assert not miss_lanes.all() or count == 1
+    torch.testing.assert_close(runs[0][0][~miss_lanes],
+                               plain[0][~miss_lanes], rtol=1e-5, atol=1e-5)
+    if which == "accept":
+        torch.testing.assert_close(runs[0][1], plain[1], rtol=1e-5,
+                                   atol=1e-5)
+        assert (runs[0][1][::5] == 0.0).all()

@@ -15,6 +15,10 @@ those on the card by `tests/test_torch_cuda.py` and `chip_smoke.py`.
     held to 2e-5.
   * A ragged S (not a multiple of the key chunk) against exact softmax,
     and a property test of the chunked scan against exact softmax.
+  * The rounding of the kernel's bf16 route, modelled in plain torch: bf16
+    q and k with f32 products and the scale after, p split into bf16 hi
+    and lo against bf16 v, stays within a quarter of the card check's
+    1e-4 at the serving shape's S and D; p rounded to bf16 alone does not.
 """
 
 import jax.numpy as jnp
@@ -155,3 +159,52 @@ def test_prefix_attention_is_not_ported():
     q = torch.zeros((1, 8, 2, 4))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ops.attention_bshd(q, q, q, scale=1.0, causal=True, prefix_len=4)
+
+
+def _bf16_route_model(q, k, v, scale, *, split, tile=64):
+    """The CUDA kernel's bf16 route on one (S, D) head, causal, in plain
+    torch: s = (q k^T) * scale log2(e) in f32 (bf16 products are exact in
+    f32), online softmax over `tile`-key tiles with exp2, and P V with p
+    rounded to bf16 (p_hi) plus, with `split`, its bf16 remainder (p_lo),
+    each product summed in f32 against the bf16 v; l from the f32 p."""
+    n = q.shape[0]
+    t = (q.float() @ k.float().T) * (scale * 1.4426950408889634)
+    t = torch.where(torch.ones(n, n, dtype=torch.bool).tril(), t, -1.0e30)
+    vf = v.float()
+    m = torch.full((n, 1), -1.0e30)
+    l = torch.zeros((n, 1))
+    acc = torch.zeros((n, q.shape[1]))
+    for k0 in range(0, n, tile):
+        tk = t[:, k0:k0 + tile]
+        m_new = torch.maximum(m, tk.max(dim=1, keepdim=True).values)
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(tk - m_new)
+        hi = p.to(torch.bfloat16).float()
+        pv = hi @ vf[k0:k0 + tile]
+        if split:
+            pv = pv + (p - hi).to(torch.bfloat16).float() @ vf[k0:k0 + tile]
+        l = l * alpha + p.sum(dim=1, keepdim=True)
+        acc = acc * alpha + pv
+        m = m_new
+    return acc / l.clamp_min(1e-30)
+
+
+def test_bf16_route_rounding_keeps_the_card_tolerance():
+    """The argument for keeping `ATTN_TOL` = 1e-4 on the bf16 tensor-core
+    route, before any chip run: at S = 2048 and D = 128, causal, on
+    numpy-seeded bf16 inputs, the split p stays within 2.5e-5 (a quarter of
+    the tolerance) of the f32 reference, and p rounded to bf16 alone does
+    not."""
+    s, d = 2048, 128
+    rng = np.random.default_rng(2048)
+    q, k, v = (torch.from_numpy(_normal(rng, (1, s, n, d))).to(torch.bfloat16)
+               for n in (2, 1, 1))
+    want = ref.attention_bshd_ref(q, k, v, scale=d ** -0.5, causal=True)
+    for h in range(2):
+        args = (q[0, :, h], k[0, :, 0], v[0, :, 0], d ** -0.5)
+        split = _bf16_route_model(*args, split=True)
+        alone = _bf16_route_model(*args, split=False)
+        err_split = float((split - want[0, :, h]).abs().max())
+        err_alone = float((alone - want[0, :, h]).abs().max())
+        assert err_split <= 2.5e-5, err_split
+        assert err_alone > 2.5e-5, err_alone

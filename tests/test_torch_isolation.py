@@ -121,8 +121,7 @@ def _accept_args(b=8, k=32, l=15, d=6):
     keys_q = torch.zeros((l, b), dtype=torch.int32)
     keys_c = torch.zeros((l, k), dtype=torch.int32)
     return [keys_q, keys_q.clone(), torch.zeros((b, d)), keys_c,
-            keys_c.clone(), torch.zeros((k, d)), torch.zeros(k),
-            torch.zeros(b)]
+            keys_c.clone(), torch.zeros((k, d)), torch.zeros(b)]
 
 
 def _bad_variants(args, sizes):
@@ -148,11 +147,11 @@ def _binding_call(which):
         return _sweep_args(), [0, 1, 4], \
             lambda a: tsu_binding.launch_tiles(*a, tile=32, **kw)
     if which == "accept":
-        return _accept_args(), range(8), \
-            lambda a: lba_binding.launch(*a, c2=4.0)
+        return _accept_args(), range(7), \
+            lambda a: lba_binding.launch(*a, count=5, c2=4.0)
     if which == "lsh_min":
-        return _accept_args()[:7], range(7), \
-            lambda a: lba_binding.launch_min(*a)
+        return _accept_args()[:6], range(6), \
+            lambda a: lba_binding.launch_min(*a, count=5)
     if which == "flash":
         q, kv = torch.zeros((1, 64, 4, 8)), torch.zeros((1, 64, 2, 8))
         return [q, kv, kv.clone()], [0, 1, 2], \
@@ -189,16 +188,19 @@ def test_bindings_check_arguments_before_launching(which):
 
 
 def test_bindings_check_kernel_block_shapes():
+    # The LSH kernel guards both edges (any B, any K) but reads only the
+    # first `count` slots, so a count outside 0..K is what it refuses.
     a = _accept_args(b=12)
-    with pytest.raises(ValueError, match="multiple of 8"):
-        lba_binding.launch(*a, c2=1.0)
+    for count in (-1, 33):
+        with pytest.raises(ValueError, match="count must be in 0..32"):
+            lba_binding.launch(*a, count=count, c2=1.0)
     with pytest.raises(ValueError, match="tile must be"):
         tsu_binding.launch_tiles(*_sweep_args(n=48), scale=1.0, num_levels=5,
                                  tile=32)
     with pytest.raises(ValueError, match="at most 64 code rows"):
         tsu_binding.launch(*_sweep_args(h=65), scale=1.0, num_levels=66)
-    with pytest.raises(ValueError, match="multiple of 8"):
-        lba_binding.launch_min(*a[:7])
+    with pytest.raises(ValueError, match="count must be in 0..32"):
+        lba_binding.launch_min(*a[:6], count=40)
     for n, k in ((100, 128), (128, 100), (128, 0)):
         with pytest.raises(ValueError, match="multiple of 128"):
             pam_binding.launch(torch.zeros((n, 3)), torch.zeros((k, 3)))
