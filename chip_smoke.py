@@ -26,15 +26,19 @@ against its plain PyTorch version on the card.  In order:
      32..512 and 0..1000 live centers (`LSH_MISS` lanes exactly, a second
      launch bit-identical),
      `pairwise_argmin` at 311,029 x 8,000 x 74 (one k-means|| round's
-     slots) and at a ragged small shape in f32 and bf16, `d2_update` and
-     `d2_update_tiles` at n = 311,029;
+     slots; the sweep over its live slots bit-identical to the full one;
+     every slot live in f32 and bf16) and at a ragged small shape in f32
+     and bf16, `d2_update` and `d2_update_tiles` at n = 311,029;
   4. each kernel's time (CUDA events) beside its plain version's, a
      PyTorch library call's where one computes the same function, and the
      least time the card could take for the same work; the kernels of a
      few microseconds are timed as a CUDA graph of their launches (the
      card's time; a loop of launches from Python times the host) with the
      loop's time beside, `lsh_bucket_accept` at the path's most used block
-     and at B = 32;
+     and at B = 32; `pairwise_argmin` (a) in f32 with all 8,000 slots live
+     (its row), (b) as the path launches it, over one round's live slots,
+     and (c) on the bf16 route at (a)'s shape, its bound the work at f32
+     accuracy on the tensor cores (3xTF32 at 495 TFLOP/s; bf16 at 989);
   5. the paths: `fit` and `refit(seed=1)` of each, with the launch counts
      set to 0 just before and read just after (Algorithm 4: 2k, k and at
      least k - 1 launches; k-means||: exactly 5 `pairwise_argmin`), then
@@ -110,6 +114,7 @@ K = 1000
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12             # H100 SXM data sheet
 F32_OPS_PER_S = 67e12                 # f32 outside the tensor cores
+TF32_OPS_PER_S = 495e12               # TF32 on the tensor cores, dense
 BF16_OPS_PER_S = 989e12               # bf16 on the tensor cores, dense
 RTOL = 1e-5
 SMALL_SEEDS = 64
@@ -441,13 +446,35 @@ def seeding_paths(torch, t_start: float) -> list:
     x_km = km_prep.artifacts
     km_gen = torch.Generator(device=dev).manual_seed(SEED)
     d2_0 = ((x_km - x_km[int(rng.integers(n))]) ** 2).sum(dim=1)
-    _, slots = ds._kmeans_parallel_picks(x_km, d2_0, km_gen, KMP_ELL,
-                                         KMP_CAP)
-    live_slots = int((slots[:, 0] < ds._FAR).sum())
+    _, slots, live = ds._kmeans_parallel_picks(x_km, d2_0, km_gen, KMP_ELL,
+                                               KMP_CAP)
+    live_slots = int(live)
+    if live_slots != int((slots[:, 0] < ds._FAR).sum()):
+        raise AssertionError(f"the round's live count {live_slots} is not "
+                             "its number of picks")
     log(f"k-means|| prepare: {km_prep.prepare_seconds:.3f} s; one round's "
         f"{KMP_CAP} center slots hold {live_slots} picks")
     errs["pairwise_argmin"] = check_pairwise(
         torch, ops, ref, x_km, slots, f"{N} x {KMP_CAP} x {D} f32")
+    # The path's launch sweeps only the live slots and the first far one:
+    # bit for bit the full sweep's outputs.
+    full = ops.pairwise_argmin(x_km, slots)
+    swept = ops.pairwise_argmin(x_km, slots, live)
+    torch.cuda.synchronize()
+    if not (torch.equal(full[0], swept[0]) and torch.equal(full[1], swept[1])):
+        raise AssertionError("pairwise_argmin over the round's live slots "
+                             "differs from the full sweep")
+    log(f"pairwise_argmin over the round's {live_slots} live slots (the "
+        f"path's launch): bit-identical to the full sweep of {KMP_CAP}")
+    del full, swept
+    # All 8,000 slots live (timing (a) below), f32 and the bf16 route.
+    pick_all = np.random.default_rng(SEED + 1).choice(n, KMP_CAP,
+                                                      replace=False)
+    slots_all = x_km[torch.as_tensor(pick_all, device=dev)]
+    for dtype in (torch.float32, torch.bfloat16):
+        errs["pairwise_argmin"] = max(errs["pairwise_argmin"], check_pairwise(
+            torch, ops, ref, x_km.to(dtype), slots_all.to(dtype),
+            f"{N} x {KMP_CAP} x {D} {str(dtype)[6:]}, every slot live"))
     small_x = torch.randn(1001, D, generator=km_gen, device=dev)
     small_c = torch.randn(77, D, generator=km_gen, device=dev)
     for dtype in (torch.float32, torch.bfloat16):
@@ -720,8 +747,8 @@ def seeding_paths(torch, t_start: float) -> list:
             lambda i: ref.lsh_bucket_min_penalty_ref(*lsh_args[:6],
                                                      penalty)),
         "pairwise_argmin": (
-            lambda i: pam_cuda.launch(xp_km, slots_pad),
-            lambda i: ref.pairwise_argmin_ref(xp_km, slots_pad)),
+            lambda i: pam_cuda.launch(x_km, slots_all_pad),
+            lambda i: ref.pairwise_argmin_ref(x_km, slots_all_pad)),
         "d2_update": (
             lambda i: d2_cuda.launch(x_km, ctr_km, w_km),
             lambda i: ref.d2_update_ref(x_km, ctr_km, w_km)),
@@ -737,15 +764,16 @@ def seeding_paths(torch, t_start: float) -> list:
                "lsh_bucket_accept", "lsh_bucket_min", "d2_update",
                "d2_update_tiles"}
 
-    def cdist_min(i):
+    def cdist_min(centers):
         """The closest library form: two calls, TF32 off."""
-        with ref.full_f32_matmul():
-            return torch.cdist(x_km, slots, compute_mode=(
-                "use_mm_for_euclid_dist")).min(dim=1)
+        def call(i):
+            with ref.full_f32_matmul():
+                return torch.cdist(x_km, centers, compute_mode=(
+                    "use_mm_for_euclid_dist")).min(dim=1)
+        return call
 
-    library = {"pairwise_argmin": (cdist_min, 3)}
-    xp_km = ops._pad_to(x_km, 0, pam_cuda.BLOCK_N, 0.0)
-    slots_pad = ops._pad_to(slots, 0, pam_cuda.BLOCK_K, ops._PAD_FAR)
+    library = {"pairwise_argmin": (cdist_min(slots_all), 3)}
+    slots_all_pad = ops._pad_to(slots_all, 0, pam_cuda.BLOCK_K, ops._PAD_FAR)
     sweep_bytes = 4 * (2 * h * ts.n_pad + 2 * h + 2 * ts.n_pad)
     n_x = x_pad.shape[0]
     sweep_ops = ts.n_pad * (4 * h + 6)
@@ -755,10 +783,11 @@ def seeding_paths(torch, t_start: float) -> list:
                                        sweep_ops + ts.n_pad),
         "lsh_bucket_accept": lsh_bound(b_main, n_collide, True),
         "lsh_bucket_min": lsh_bound(b_main, n_collide, False),
-        # The function's own work: n points against the round's 8,000
-        # slots, not the kernel's padding.
+        # The function's own work at f32 accuracy on the tensor cores
+        # (3xTF32: three products): n points against 8,000 live slots, not
+        # the kernel's padding.
         "pairwise_argmin": bound(4 * (N * D + KMP_CAP * D + 2 * N),
-                                 2 * N * KMP_CAP * D),
+                                 3 * 2 * N * KMP_CAP * D, TF32_OPS_PER_S),
         "d2_update": bound(4 * (N * D + D + 2 * N), N * (3 * D + 1)),
         "d2_update_tiles": bound(4 * (n_x * D + D + 2 * n_x + n_x // tile),
                                  n_x * (3 * D + 2)),
@@ -794,6 +823,38 @@ def seeding_paths(torch, t_start: float) -> list:
             f"{'none' if lib_ms is None else f'{lib_ms:.6f} ms'}, bound "
             f"{b_ms:.6f} ms ({b_by}), {b_ms / min(ms, ms_again):.3f} of "
             "the bound")
+    # pairwise_argmin beyond row (a): (b) the path's launch, over one
+    # round's live slots, (c) the bf16 route at (a)'s shape.
+    slots_pad = ops._pad_to(slots, 0, pam_cuda.BLOCK_K, ops._PAD_FAR)
+    live_b = lambda i: pam_cuda.launch(x_km, slots_pad, live)
+    ms_b = min(cuda_ms(torch, live_b, 20), cuda_ms(torch, live_b, 20))
+    plain_b = cuda_ms(torch, lambda i: ref.pairwise_argmin_ref(
+        x_km, slots_pad, live), 3)
+    lib_b = cuda_ms(torch, cdist_min(slots[:live_slots]), 3)
+    b_b, b_b_by = bound(4 * (N * D + live_slots * D + 2 * N),
+                        3 * 2 * N * live_slots * D, TF32_OPS_PER_S)
+    x_bf, all_bf = x_km.bfloat16(), slots_all_pad.bfloat16()
+    bf16_c = lambda i: pam_cuda.launch(x_bf, all_bf)
+    ms_c = min(cuda_ms(torch, bf16_c, 10), cuda_ms(torch, bf16_c, 10))
+    b_c, b_c_by = bound(2 * (N * D + KMP_CAP * D) + 8 * N,
+                        2 * N * KMP_CAP * D, BF16_OPS_PER_S)
+    row_a = next(r for r in rows if r["name"] == "pairwise_argmin")
+    log(f"time pairwise_argmin (a) f32, all {KMP_CAP} slots live: kernel "
+        f"{row_a['ms']:.6f} ms, bound {row_a['bound_ms']:.6f} ms "
+        f"({row_a['bound_by']}: 3xTF32 at 495 TFLOP/s; "
+        f"{2 * N * KMP_CAP * D / F32_OPS_PER_S * 1e3:.6f} ms at the 67 "
+        f"TFLOP/s f32 rate, the basis before this kernel), "
+        f"{row_a['bound_ms'] / row_a['ms']:.4f} of the bound")
+    log(f"time pairwise_argmin (b) f32, the path's launch over the round's "
+        f"{live_slots} live slots of {KMP_CAP}: kernel {ms_b:.6f} ms, plain "
+        f"{plain_b:.6f} ms, library (cdist + min over the {live_slots} live "
+        f"slots, TF32 off) {lib_b:.6f} ms, bound {b_b:.6f} ms ({b_b_by}; "
+        f"{2 * N * live_slots * D / F32_OPS_PER_S * 1e3:.6f} ms at the f32 "
+        f"rate), {b_b / ms_b:.4f} of the bound")
+    log(f"time pairwise_argmin (c) the bf16 route at (a)'s shape: kernel "
+        f"{ms_c:.6f} ms, bound {b_c:.6f} ms ({b_c_by}: one product at 989 "
+        f"TFLOP/s), {b_c / ms_c:.4f} of the bound")
+    del x_bf, all_bf
     # The ladder's lowest rung: the new kernel spreads the slots over the
     # card, so B = 32 should take no longer than the path's block.
     args32, pairs32 = lsh_inputs(32)
@@ -821,10 +882,10 @@ def seeding_paths(torch, t_start: float) -> list:
         f"planes do not sit in L2; lsh_bucket_accept: B={b_main}, the main "
         f"path's most used block, {count_main} live of {K} slots, "
         f"{n_collide} colliding pairs, and lsh_bucket_min on the same "
-        f"inputs; pairwise_argmin: {N} x {KMP_CAP} x {D} padded to "
-        f"{xp_km.shape[0]} x {slots_pad.shape[0]}, {live_slots} live "
-        f"slots, library = torch.cdist(use_mm_for_euclid_dist) + min in "
-        f"full f32; d2_update: n={N}, d2_update_tiles: n_pad={n_x}, d={D})")
+        f"inputs; pairwise_argmin: {N} x {KMP_CAP} x {D}, the slots padded "
+        f"to {slots_all_pad.shape[0]}, every slot live, library = "
+        f"torch.cdist(use_mm_for_euclid_dist) + min in full f32; "
+        f"d2_update: n={N}, d2_update_tiles: n_pad={n_x}, d={D})")
     log("clocks/power after timing: " + smi(
         "clocks.sm,power.draw,power.limit,temperature.gpu"))
 

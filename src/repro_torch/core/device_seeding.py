@@ -386,9 +386,10 @@ def device_kmeans_parallel_rounds(
 
 
 def _kmeans_parallel_picks(points, d2, generator, ell: float, cap: int):
-    """One round's draws: ``(picked (n,) bool, center slots (cap, d))``,
-    one uniform per point; the slots hold the picks in index order and
-    `_FAR` past them."""
+    """One round's draws: ``(picked (n,) bool, center slots (cap, d), live
+    () int32)``, one uniform per point; the slots hold the `live` =
+    min(wanted, cap) picks in index order and `_FAR` past them.  `live`
+    stays on the device."""
     n = points.shape[0]
     dev = points.device
     phi = d2.sum()
@@ -400,16 +401,19 @@ def _kmeans_parallel_picks(points, d2, generator, ell: float, cap: int):
     # Slot `cap` collects the dropped and unwanted rows; it is cut off.
     idx = torch.zeros(cap + 1, dtype=torch.long, device=dev)
     idx[torch.where(picked, rank, cap)] = torch.arange(n, device=dev)
-    valid = torch.arange(cap, device=dev) < want.sum()
-    return picked, torch.where(valid[:, None], points[idx[:cap]], _FAR)
+    live = torch.clamp(want.sum(), max=cap).to(torch.int32)
+    valid = torch.arange(cap, device=dev) < live
+    return picked, torch.where(valid[:, None], points[idx[:cap]], _FAR), live
 
 
 def _kmeans_parallel_round(points, d2, generator, ell: float, cap: int):
     """One oversampling round of `device_kmeans_parallel_rounds`: the picks,
-    then one `pairwise_argmin` launch against the `cap` center slots.
+    then one `pairwise_argmin` launch over the live center slots (and the
+    first `_FAR` one, which gives the full sweep's result bit for bit).
     Returns ``(picked (n,) bool, d2' (n,) f32)``."""
-    picked, ctrs = _kmeans_parallel_picks(points, d2, generator, ell, cap)
-    dmin, _ = ops.pairwise_argmin(points, ctrs)
+    picked, ctrs, live = _kmeans_parallel_picks(points, d2, generator, ell,
+                                                cap)
+    dmin, _ = ops.pairwise_argmin(points, ctrs, live)
     return picked, torch.minimum(d2, dmin)
 
 

@@ -8,7 +8,7 @@ There is no fallback from one to the other, and any other device raises.
 Padding is done before the dispatch, so the CPU tests run it too.  It
 follows the JAX package's wrappers: points pad with weight 0 (never
 sampled, nothing added to a tile sum) and query-side codes with -1;
-`pairwise_argmin` pads points with zeros and center slots at `_PAD_FAR`,
+`pairwise_argmin` pads center slots at `_PAD_FAR` (not points),
 `d2_update_tiles` rows with zeros and w with 0.  The LSH queries pad
 nothing: their kernel guards both edges and reads only the live center
 slots, and their plain version masks the dead ones with the penalty row.
@@ -94,26 +94,31 @@ def penalty_row(k_pad: int, count, device) -> torch.Tensor:
     return torch.where(live, 0.0, LSH_MISS).to(torch.float32)
 
 
-def pairwise_argmin(x: torch.Tensor, c: torch.Tensor):
+def pairwise_argmin(x: torch.Tensor, c: torch.Tensor, count=None):
     """(min squared distance (n,) f32, argmin center index (n,) int32) per
     point, for any (n, d) x (k, d) with k >= 1, f32 or bf16.
 
-    Points pad to a multiple of the kernel's `BLOCK_N` with zeros; center
-    slots pad to one of `BLOCK_K` with every coordinate at `_PAD_FAR`, so a
-    padded slot never wins while a real one is nearer and its distance stays
-    f32-finite.  The outputs are cut back to n.
+    Center slots pad to a multiple of the kernel's `BLOCK_K` with every
+    coordinate at `_PAD_FAR`, so a padded slot never wins while a real one
+    is nearer and its distance stays f32-finite; points are not padded
+    (the kernel guards its ragged edge).  `count` (None, an int, or one
+    int32 on x's device) sweeps only slots 0 .. min(count, k_pad - 1): the
+    live slots and the first dead one.  Where every slot from `count` on
+    is the same far row, as the k-means|| picks leave them, that equals
+    the full sweep bit for bit.  The kernel reads a device count itself,
+    so nothing syncs.
     """
-    n, k = x.shape[0], c.shape[0]
-    if k == 0:
+    if c.shape[0] == 0:
         raise ValueError("pairwise_argmin needs at least one center")
-    xp = _pad_to(x, 0, pairwise_argmin_cuda.BLOCK_N, 0.0)
     cp = _pad_to(c, 0, pairwise_argmin_cuda.BLOCK_K, _PAD_FAR)
     if not _on_card(x):
-        d2, idx = ref.pairwise_argmin_ref(xp, cp)
-    else:
-        d2, idx = pairwise_argmin_cuda.launch(xp, cp)
-        LAUNCHES["pairwise_argmin"] += 1
-    return d2[:n], idx[:n]
+        return ref.pairwise_argmin_ref(x, cp, count)
+    if count is not None and not isinstance(count, torch.Tensor):
+        count = torch.full((), min(int(count), cp.shape[0]),
+                           dtype=torch.int32, device=x.device)
+    out = pairwise_argmin_cuda.launch(x, cp, count)
+    LAUNCHES["pairwise_argmin"] += 1
+    return out
 
 
 def d2_update(x: torch.Tensor, center: torch.Tensor,

@@ -61,16 +61,20 @@ def tile_sums_ref(w: torch.Tensor, block_n: int) -> torch.Tensor:
     return w.reshape(-1, block_n).sum(dim=1)
 
 
-def pairwise_argmin_ref(x: torch.Tensor, c: torch.Tensor, *,
+def pairwise_argmin_ref(x: torch.Tensor, c: torch.Tensor, count=None, *,
                         chunk: int = 16384):
     """argmin_c ||x - c||^2 per row of x: ``(min_d2 (n,) f32, argmin (n,)
     int32)``.
 
     The expanded form ``max((|x|^2 - 2 x.c) + |c|^2, 0)`` in f32 (f32 or
     bf16 inputs are widened first), ties to the smallest center index
-    (`torch.min` returns the first minimum).  Rows go in chunks of `chunk`
-    so the (rows, k) block stays bounded at any n.
+    (`torch.min` returns the first minimum).  With `count` (an int or a
+    one-element tensor) only the first ``min(count, K - 1) + 1`` slots
+    are swept, as the kernel does.  Rows go in chunks of `chunk` so the
+    (rows, k) block stays bounded at any n.
     """
+    if count is not None:
+        c = c[: min(max(int(count), 0), c.shape[0] - 1) + 1]
     xf = x.to(torch.float32)
     cf = c.to(torch.float32)
     c_sq = (cf * cf).sum(dim=1)

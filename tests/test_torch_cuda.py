@@ -19,6 +19,8 @@ all-miss case and two launches on the same inputs bit-identical.
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from repro_torch.core import device_seeding as ds
 from repro_torch.core.plan import ClusterPlan, ClusterSpec, ExecutionSpec
@@ -191,6 +193,171 @@ def test_pairwise_argmin_kernel(cuda, n, k, d, dtype):
                                full[rows, pidx[rows].long()], rtol=1e-5,
                                atol=1e-5)
     assert int(idx.max()) < k and (k == 1 or not (idx == k - 1).any())
+
+
+def _close_to_plain(x, c, d2, idx, count=None):
+    """`test_pairwise_argmin_kernel`'s check against the plain version on
+    the same inputs: distances to rtol 1e-5, argmins equal except at
+    near-ties, at most n/100 of them."""
+    pd2, pidx = ref.pairwise_argmin_ref(x, c, count)
+    torch.testing.assert_close(d2, pd2, rtol=1e-5, atol=1e-5)
+    rows = torch.nonzero(idx != pidx).flatten()
+    assert len(rows) <= max(1, x.shape[0] // 100)
+    xr, cd = x[rows].double(), c.double()
+    torch.testing.assert_close(((xr - cd[idx[rows].long()]) ** 2).sum(-1),
+                               ((xr - cd[pidx[rows].long()]) ** 2).sum(-1),
+                               rtol=1e-5, atol=1e-5)
+
+
+def _far_slots(c, count):
+    out = c.clone()
+    out[count:] = ds._FAR
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,k,d", [(1, 5, 3), (129, 128, 33),
+                                   (300, 300, 74), (1001, 400, 200)])
+def test_pairwise_argmin_integer_inputs_exact(cuda, n, k, d, dtype):
+    """|coordinate| <= 128 and d <= 200: every partial sum is an f32
+    integer, so 3xTF32 (and the bf16 product) is exact and the kernel
+    equals the plain version bit for bit.  A center copied into later
+    tiles, and points sitting on it, go to the first copy."""
+    rng = np.random.default_rng(n * k + d)
+    x = torch.tensor(rng.integers(-128, 129, size=(n, d)), dtype=dtype,
+                     device=cuda)
+    c = torch.tensor(rng.integers(-128, 129, size=(k, d)), dtype=dtype,
+                     device=cuda)
+    first = min(3, k - 1)
+    for j in (130, 260, k - 1):
+        if first < j < k:
+            c[j] = c[first]
+    x[0] = c[first]
+    d2, idx = ops.pairwise_argmin(x, c)
+    torch.cuda.synchronize()
+    pd2, pidx = ref.pairwise_argmin_ref(x, c)
+    assert torch.equal(d2, pd2) and torch.equal(idx, pidx)
+    assert float(d2[0]) == 0.0 and int(idx[0]) == first
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,k,count", [
+    (1001, 300, 0), (1001, 300, 1), (1001, 300, 127), (1001, 300, 128),
+    (1001, 300, 129), (1001, 300, 300), (4096, 8000, 1990),
+    (4096, 8000, 8000)])
+def test_pairwise_argmin_count_bitwise(cuda, n, k, count, dtype):
+    """Far-padded slots: the sweep over the live count (a device int32 and
+    a Python int) equals the kernel's full sweep bit for bit, launch after
+    launch, and the plain version at the same count."""
+    rng = np.random.default_rng(n + k + count)
+    x = torch.tensor(rng.normal(size=(n, 74)) * 12.0, dtype=dtype,
+                     device=cuda)
+    c = _far_slots(torch.tensor(rng.normal(size=(k, 74)) * 12.0,
+                                dtype=dtype, device=cuda), count)
+    before = ops.launch_counts()["pairwise_argmin"]
+    full = ops.pairwise_argmin(x, c)
+    live = torch.tensor(count, dtype=torch.int32, device=cuda)
+    runs = [ops.pairwise_argmin(x, c, live) for _ in range(2)]
+    runs.append(ops.pairwise_argmin(x, c, count))
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["pairwise_argmin"] == before + 4
+    for d2, idx in runs:
+        assert torch.equal(d2, full[0]) and torch.equal(idx, full[1])
+    _close_to_plain(x, ops._pad_to(c, 0, 128, ops._PAD_FAR), *runs[0],
+                    count=count)
+
+
+@pytest.mark.parametrize("n", [1, 127, 129, 1001])
+def test_pairwise_argmin_ragged_n_in_place(cuda, n, monkeypatch):
+    """Any n, read in place: only the center slots pad, and the points may
+    start at any row of a larger buffer (296-byte rows, 8-byte aligned)."""
+    padded = []
+    pad = ops._pad_to
+
+    def spy(a, axis, multiple, value):
+        padded.append(tuple(a.shape))
+        return pad(a, axis, multiple, value)
+
+    monkeypatch.setattr(ops, "_pad_to", spy)
+    rng = np.random.default_rng(n)
+    buf = torch.tensor(rng.normal(size=(n + 3, 74)), dtype=torch.float32,
+                       device=cuda)
+    x = buf[3:]
+    c = torch.tensor(rng.normal(size=(77, 74)), dtype=torch.float32,
+                     device=cuda)
+    d2, idx = ops.pairwise_argmin(x, c)
+    torch.cuda.synchronize()
+    assert padded == [(77, 74)] and d2.shape == idx.shape == (n,)
+    _close_to_plain(x, c, d2, idx)
+
+
+@pytest.mark.parametrize("dtype,d", [
+    (dtype, d) for dtype in (torch.float32, torch.bfloat16)
+    for d in (5, 33, 74, 200, 400 if dtype == torch.float32 else 1000,
+              "max")])
+def test_pairwise_argmin_widths(cuda, d, dtype):
+    """d from 5 to the widest the kernel takes (`MAX_D`: its point tile
+    of 32 rows), which runs each of its three tile heights; one past it
+    raises."""
+    from repro_torch.kernels import pairwise_argmin_cuda as binding
+
+    d = binding.MAX_D[dtype] if d == "max" else d
+    rng = np.random.default_rng(d)
+    x = torch.tensor(rng.normal(size=(700, d)), dtype=dtype, device=cuda)
+    c = torch.tensor(rng.normal(size=(300, d)), dtype=dtype, device=cuda)
+    d2, idx = ops.pairwise_argmin(x, c)
+    torch.cuda.synchronize()
+    _close_to_plain(x, c, d2, idx)
+    if d == binding.MAX_D[dtype]:
+        wide = torch.zeros((4, d + 1), dtype=dtype, device=cuda)
+        with pytest.raises(ValueError, match="d must be in"):
+            ops.pairwise_argmin(wide, wide)
+
+
+@settings(max_examples=30, deadline=None)
+@given(n=st.integers(1, 700), k=st.integers(1, 700), d=st.integers(1, 96),
+       frac=st.floats(0.0, 1.0), bf16=st.booleans(),
+       seed=st.integers(0, 2 ** 16))
+def test_pairwise_argmin_count_property(n, k, d, frac, bf16, seed):
+    """Any shape and live count: the count sweep equals the full sweep bit
+    for bit, and both agree with the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
+    dev = torch.device("cuda")
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    rng = np.random.default_rng(seed)
+    count = int(round(frac * (k + 3)))
+    x = torch.tensor(rng.normal(size=(n, d)), dtype=dtype, device=dev)
+    c = _far_slots(torch.tensor(rng.normal(size=(k, d)), dtype=dtype,
+                                device=dev), count)
+    got = ops.pairwise_argmin(x, c, count)
+    full = ops.pairwise_argmin(x, c)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], full[0]) and torch.equal(got[1], full[1])
+    _close_to_plain(x, ops._pad_to(c, 0, 128, ops._PAD_FAR), *got,
+                    count=count)
+
+
+def test_kmeans_parallel_rounds_count_equals_full_sweep(cuda, monkeypatch):
+    """The rounds on the card with each round's live count give the same
+    `sel` and `d2` as with every round sweeping all its slots."""
+    rng = np.random.default_rng(5)
+    ctr = rng.normal(size=(40, 74)) * 12
+    pts = torch.tensor(ctr[rng.integers(40, size=30_000)]
+                       + rng.normal(size=(30_000, 74)), dtype=torch.float32,
+                       device=cuda)
+
+    def run():
+        return ds.device_kmeans_parallel_rounds(
+            pts, torch.Generator(device=cuda).manual_seed(4), 256.0,
+            rounds=5, cap=1024)
+
+    sel, d2 = run()
+    full_sweep = ops.pairwise_argmin
+    monkeypatch.setattr(ds.ops, "pairwise_argmin",
+                        lambda x, c, count=None: full_sweep(x, c))
+    sel_full, d2_full = run()
+    assert torch.equal(sel, sel_full) and torch.equal(d2, d2_full)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
