@@ -28,7 +28,8 @@ against its plain PyTorch version on the card.  In order:
      `pairwise_argmin` at 311,029 x 8,000 x 74 (one k-means|| round's
      slots; the sweep over its live slots bit-identical to the full one;
      every slot live in f32 and bf16) and at a ragged small shape in f32
-     and bf16, `d2_update` and `d2_update_tiles` at n = 311,029;
+     and bf16, `d2_update` and `d2_update_tiles` at n = 311,029 (the
+     tiles entry on the unpadded rows; a second launch bit-identical);
   4. each kernel's time (CUDA events) beside its plain version's, a
      PyTorch library call's where one computes the same function, and the
      least time the card could take for the same work; the kernels of a
@@ -39,6 +40,9 @@ against its plain PyTorch version on the card.  In order:
      (its row), (b) as the path launches it, over one round's live slots,
      and (c) on the bf16 route at (a)'s shape, its bound the work at f32
      accuracy on the tensor cores (3xTF32 at 495 TFLOP/s; bf16 at 989);
+     `d2_update` and `d2_update_tiles` also at the paper's other shapes
+     (song 515,345 x 90 and census 2,458,285 x 68 in f32) and at KDD Cup's
+     in bf16, each checked first;
   5. the paths: `fit` and `refit(seed=1)` of each, with the launch counts
      set to 0 just before and read just after (Algorithm 4: 2k, k and at
      least k - 1 launches; k-means||: exactly 5 `pairwise_argmin`), then
@@ -260,6 +264,88 @@ def check_pairwise(torch, ops, ref, x, c, label):
         f"|x|^2+|c|^2 (tol {RTOL}); {len(rows)} of {x.shape[0]} argmins "
         f"differ, each a tie within {tie:.3g}")
     return err
+
+
+def check_d2_update(torch, ops, ref, x, ctr, w, tile, label):
+    """`d2_update` and `d2_update_tiles` (on the unpadded rows) against the
+    plain version on the same inputs: w' to `RTOL`, lanes past n exactly
+    0, tile sums to `RTOL` of the plain ones, a second launch of each
+    bit-identical.  Returns the two max abs errors."""
+    n = x.shape[0]
+    out = ops.d2_update(x, ctr, w)
+    tiles, sums = ops.d2_update_tiles(x, ctr, w, block_n=tile)
+    again = (ops.d2_update(x, ctr, w),
+             *ops.d2_update_tiles(x, ctr, w, block_n=tile))
+    plain, psums = ref.d2_update_tiles_ref(x, ctr, w, block_n=tile)
+    torch.cuda.synchronize()
+    errs = (float((out - plain[:n]).abs().max()),
+            max(float((tiles - plain).abs().max()),
+                float((sums - psums).abs().max())))
+    rel = float(((sums - psums).abs() / psums.abs().clamp_min(1e-30)).max())
+    same = all(torch.equal(a, b) for a, b in zip((out, tiles, sums), again))
+    if not (torch.allclose(out, plain[:n], rtol=RTOL, atol=RTOL)
+            and torch.allclose(tiles, plain, rtol=RTOL, atol=RTOL)
+            and rel <= RTOL and bool((tiles[n:] == 0).all()) and same):
+        raise AssertionError(f"d2_update {label}: errs {errs}, tile sums "
+                             f"rel {rel}, second launch equal {same}")
+    log(f"d2_update, d2_update_tiles {label}: n={n} d={x.shape[1]}: max|w' "
+        f"err| {errs[0]:.3g}, {errs[1]:.3g}; {sums.shape[0]} tile sums max "
+        f"rel err {rel:.3g} (rtol {RTOL}); w' past n exactly 0; a second "
+        "launch bit-identical")
+    return errs
+
+
+def d2_bound(n, d, elem, tile=None) -> tuple[float, str]:
+    """Least time of `d2_update` (tile None) or `d2_update_tiles` on n rows
+    of d elements of `elem` bytes: x, the center and w read once, w' (n,
+    or n_pad for the tiles entry with its n_pad / tile sums) written once;
+    3d + 1 operations a row, and a tile sum's add."""
+    if tile is None:
+        return bound(elem * (n * d + d) + 8 * n, n * (3 * d + 1))
+    n_pad = -(-n // tile) * tile
+    return bound(elem * (n * d + d) + 4 * n + 4 * (n_pad + n_pad // tile),
+                 n * (3 * d + 1) + n_pad)
+
+
+def d2_shapes(torch, ops, ref, d2_cuda, x_km, tile) -> None:
+    """`d2_update` and `d2_update_tiles` at the paper's three dataset
+    shapes (benchmarks/datasets.py) in f32, and KDD Cup's also in bf16:
+    each checked against the plain version, then its time as a CUDA graph
+    of 100 launches (best of two) beside the plain version's, the bound
+    and the share.  The tiles entry runs on the unpadded rows.  Random
+    rows from a seed: the time depends on the shape, not the values."""
+    dev = x_km.device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+    log(f"d2_update at the paper's shapes, on {smi('name,power.limit')}:")
+    for label, n, d, dtype in (("kddcup", N, D, torch.float32),
+                               ("kddcup", N, D, torch.bfloat16),
+                               ("song", 515_345, 90, torch.float32),
+                               ("census", 2_458_285, 68, torch.float32)):
+        if n == N:
+            x = x_km.to(dtype)
+        else:
+            x = torch.randn(n, d, generator=gen, device=dev).mul_(8.0)
+        ctr = x[n // 3].clone()
+        w = torch.rand(n, generator=gen, device=dev).mul_(16.0 * d)
+        name = f"{label} {str(dtype)[6:]}"
+        check_d2_update(torch, ops, ref, x, ctr, w, tile, name)
+        elem = x.element_size()
+        for entry, kernel, plain_fn, (b_ms, b_by) in (
+                ("d2_update", lambda i: d2_cuda.launch(x, ctr, w),
+                 lambda i: ref.d2_update_ref(x, ctr, w),
+                 d2_bound(n, d, elem)),
+                ("d2_update_tiles",
+                 lambda i: d2_cuda.launch_tiles(x, ctr, w, tile=tile),
+                 lambda i: ref.d2_update_tiles_ref(x, ctr, w, block_n=tile),
+                 d2_bound(n, d, elem, tile))):
+            ms = min(graph_ms(torch, kernel, 100),
+                     graph_ms(torch, kernel, 100))
+            plain_ms = cuda_ms(torch, plain_fn, 10)
+            log(f"time {entry} {name} {n} x {d}: kernel {ms:.6f} ms as a "
+                f"CUDA graph of 100 launches, plain {plain_ms:.6f} ms, bound "
+                f"{b_ms:.6f} ms ({b_by}), {b_ms / ms:.3f} of the bound")
+        del x, ctr, w
+    torch.cuda.empty_cache()
 
 
 def cost64(torch, pts, centers, chunk=16384) -> float:
@@ -484,26 +570,8 @@ def seeding_paths(torch, t_start: float) -> list:
 
     w_km = ((x_km - x_km[int(rng.integers(n))]) ** 2).sum(dim=1)
     ctr_km = x_km[int(rng.integers(n))]
-    out = ops.d2_update(x_km, ctr_km, w_km)
-    tiles, sums = ops.d2_update_tiles(x_km, ctr_km, w_km, block_n=tile)
-    x_pad = ops._pad_to(x_km, 0, tile, 0.0)
-    w_pad = ops._pad_to(w_km, 0, tile, 0.0)
-    plain, psums = ref.d2_update_tiles_ref(x_pad, ctr_km, w_pad,
-                                           block_n=tile)
-    torch.cuda.synchronize()
-    errs["d2_update"] = float((out - plain[:n]).abs().max())
-    errs["d2_update_tiles"] = max(float((tiles - plain).abs().max()),
-                                  float((sums - psums).abs().max()))
-    rel = float(((sums - psums).abs() / psums.abs().clamp_min(1e-30)).max())
-    if not (torch.allclose(out, plain[:n], rtol=RTOL, atol=RTOL)
-            and torch.allclose(tiles, plain, rtol=RTOL, atol=RTOL)
-            and rel <= RTOL and bool((tiles[n:] == 0).all())):
-        raise AssertionError(f"d2_update: errs {errs['d2_update']}, "
-                             f"{errs['d2_update_tiles']}, tile sums rel {rel}")
-    log(f"d2_update, d2_update_tiles: n={n} d={D}: max|w' err| "
-        f"{errs['d2_update']:.3g}, {errs['d2_update_tiles']:.3g}; "
-        f"{x_pad.shape[0] // tile} tile sums max rel err {rel:.3g} "
-        f"(rtol {RTOL})")
+    errs["d2_update"], errs["d2_update_tiles"] = check_d2_update(
+        torch, ops, ref, x_km, ctr_km, w_km, tile, "kddcup f32")
 
     # -- 5. the main path -------------------------------------------------------
     log(f"[{time.perf_counter() - t_start:.1f} s] the paths")
@@ -753,8 +821,8 @@ def seeding_paths(torch, t_start: float) -> list:
             lambda i: d2_cuda.launch(x_km, ctr_km, w_km),
             lambda i: ref.d2_update_ref(x_km, ctr_km, w_km)),
         "d2_update_tiles": (
-            lambda i: d2_cuda.launch_tiles(x_pad, ctr_km, w_pad, tile=tile),
-            lambda i: ref.d2_update_tiles_ref(x_pad, ctr_km, w_pad,
+            lambda i: d2_cuda.launch_tiles(x_km, ctr_km, w_km, tile=tile),
+            lambda i: ref.d2_update_tiles_ref(x_km, ctr_km, w_km,
                                               block_n=tile)),
     }
     iters = {"pairwise_argmin": (10, 3)}     # (kernel, plain); else 300, 100
@@ -775,7 +843,6 @@ def seeding_paths(torch, t_start: float) -> list:
     library = {"pairwise_argmin": (cdist_min(slots_all), 3)}
     slots_all_pad = ops._pad_to(slots_all, 0, pam_cuda.BLOCK_K, ops._PAD_FAR)
     sweep_bytes = 4 * (2 * h * ts.n_pad + 2 * h + 2 * ts.n_pad)
-    n_x = x_pad.shape[0]
     sweep_ops = ts.n_pad * (4 * h + 6)
     bounds = {
         "tree_sep_update": bound(sweep_bytes, sweep_ops),
@@ -788,9 +855,8 @@ def seeding_paths(torch, t_start: float) -> list:
         # the kernel's padding.
         "pairwise_argmin": bound(4 * (N * D + KMP_CAP * D + 2 * N),
                                  3 * 2 * N * KMP_CAP * D, TF32_OPS_PER_S),
-        "d2_update": bound(4 * (N * D + D + 2 * N), N * (3 * D + 1)),
-        "d2_update_tiles": bound(4 * (n_x * D + D + 2 * n_x + n_x // tile),
-                                 n_x * (3 * D + 2)),
+        "d2_update": d2_bound(N, D, 4),
+        "d2_update_tiles": d2_bound(N, D, 4, tile),
     }
     main_launches = dict(launches,
                          pairwise_argmin=km_launches["pairwise_argmin"])
@@ -855,6 +921,7 @@ def seeding_paths(torch, t_start: float) -> list:
         f"{ms_c:.6f} ms, bound {b_c:.6f} ms ({b_c_by}: one product at 989 "
         f"TFLOP/s), {b_c / ms_c:.4f} of the bound")
     del x_bf, all_bf
+    d2_shapes(torch, ops, ref, d2_cuda, x_km, tile)
     # The ladder's lowest rung: the new kernel spreads the slots over the
     # card, so B = 32 should take no longer than the path's block.
     args32, pairs32 = lsh_inputs(32)
@@ -885,7 +952,9 @@ def seeding_paths(torch, t_start: float) -> list:
         f"inputs; pairwise_argmin: {N} x {KMP_CAP} x {D}, the slots padded "
         f"to {slots_all_pad.shape[0]}, every slot live, library = "
         f"torch.cdist(use_mm_for_euclid_dist) + min in full f32; "
-        f"d2_update: n={N}, d2_update_tiles: n_pad={n_x}, d={D})")
+        f"d2_update and d2_update_tiles: n={N}, d={D}, f32, the tiles "
+        f"entry on the unpadded rows, its outputs padded to "
+        f"{-(-N // tile) * tile})")
     log("clocks/power after timing: " + smi(
         "clocks.sm,power.draw,power.limit,temperature.gpu"))
 

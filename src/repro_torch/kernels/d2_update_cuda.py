@@ -1,10 +1,12 @@
 """Binding of `csrc/d2_update.cu`: argument checks and launches.
 
 `launch` and `launch_tiles` take CUDA tensors only: they check device,
-dtype, shape and contiguity, allocate the outputs with `torch.empty`,
-launch on the current stream and raise when the launch returns a CUDA
-error.  The public wrappers, with padding, dispatch and launch counts, are
-`ops.d2_update` and `ops.d2_update_tiles`.
+dtype, shape and contiguity, allocate the outputs (and the tiles entry's
+scratch of one float per 32 rows) with `torch.empty`, launch on the
+current stream and raise when the launch returns a CUDA error.  Any n,
+any d and any alignment of x and w: the kernel guards them, and nothing
+here pads or copies x.  The public wrappers, with dispatch and launch
+counts, are `ops.d2_update` and `ops.d2_update_tiles`.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ def _fn(name: str):
     if fn is None:
         fn = getattr(_build.library("d2_update"), name)
         if "_tiles_" in name:
-            fn.argtypes = [_P] * 5 + [ctypes.c_int] * 3 + [_P]
+            fn.argtypes = [_P] * 6 + [ctypes.c_int] * 3 + [_P]
         else:
             fn.argtypes = [_P] * 4 + [ctypes.c_int] * 2 + [_P]
         fn.restype = ctypes.c_int
@@ -60,17 +62,20 @@ def launch(x, center, w) -> torch.Tensor:
 
 
 def launch_tiles(x, center, w, *, tile: int):
-    """(w' (n,), per-tile sums of w' (n // tile,)); n % tile == 0."""
+    """(w' (n_pad,) with zeros past n, per-tile sums of w' (n_pad // tile,))
+    for any n; n_pad = ceil(n / tile) * tile."""
     n, d = _check(x, center, w)
-    if tile % 32 or not 32 <= tile <= 1024 or n % tile:
-        raise ValueError(f"tile must be a multiple of 32 in [32, 1024] that "
-                         f"divides n; got tile={tile}, n={n}")
+    if tile % 32 or not 32 <= tile <= 1024:
+        raise ValueError(f"tile must be a multiple of 32 in [32, 1024]; got "
+                         f"tile={tile}")
     check_cuda(x, center, w)
-    out = torch.empty_like(w)
-    sums = torch.empty(n // tile, dtype=torch.float32, device=w.device)
+    n_pad = -(-n // tile) * tile
+    out = torch.empty(n_pad, dtype=torch.float32, device=w.device)
+    sums = torch.empty(n_pad // tile, dtype=torch.float32, device=w.device)
+    units = torch.empty(-(-n // 32), dtype=torch.float32, device=w.device)
     err = _fn(f"d2_update_tiles_{DTYPES[x.dtype]}_launch")(
         x.data_ptr(), center.data_ptr(), w.data_ptr(), out.data_ptr(),
-        sums.data_ptr(), n, d, tile,
+        units.data_ptr(), sums.data_ptr(), n, d, tile,
         torch.cuda.current_stream(w.device).cuda_stream)
     raise_on_error("d2_update_tiles", err)
     return out, sums

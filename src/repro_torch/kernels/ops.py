@@ -8,14 +8,16 @@ There is no fallback from one to the other, and any other device raises.
 Padding is done before the dispatch, so the CPU tests run it too.  It
 follows the JAX package's wrappers: points pad with weight 0 (never
 sampled, nothing added to a tile sum) and query-side codes with -1;
-`pairwise_argmin` pads center slots at `_PAD_FAR` (not points),
-`d2_update_tiles` rows with zeros and w with 0.  The LSH queries pad
-nothing: their kernel guards both edges and reads only the live center
-slots, and their plain version masks the dead ones with the penalty row.
-The TPU also padded the heights H and the tables L to a multiple of 8
-sublanes; the CUDA kernels loop over any count, so those axes are not
-padded.  On the Algorithm 4 path every pad is a no-op: the seeders keep
-their buffers at block multiples.
+`pairwise_argmin` pads center slots at `_PAD_FAR` (not points).  The LSH
+queries pad nothing: their kernel guards both edges and reads only the
+live center slots, and their plain version masks the dead ones with the
+penalty row.  The TPU also padded the heights H and the tables L to a
+multiple of 8 sublanes; the CUDA kernels loop over any count, so those
+axes are not padded.  `d2_update_tiles` pads no input either: its kernel
+treats rows at and past n as weight 0 without reading them, and it
+returns w' and the tile sums padded to a multiple of the tile, as the JAX
+package's does (w' = 0 past n).  On the Algorithm 4 path every pad is a
+no-op: the seeders keep their buffers at block multiples.
 
 Each wrapper adds one to its entry of `LAUNCHES` where it launches its
 kernel, and nowhere else: a run shows it went through the kernels by
@@ -136,20 +138,17 @@ def d2_update(x: torch.Tensor, center: torch.Tensor,
 
 def d2_update_tiles(x: torch.Tensor, center: torch.Tensor, w: torch.Tensor,
                     *, block_n: int = 512):
-    """`d2_update` plus per-tile sums; rows pad to `block_n` with zeros
-    and w with 0.
+    """`d2_update` plus per-tile sums, for any n; nothing pads x or w.
 
     Returns the *padded* ``(w' (n_pad,), tile_sums (n_pad // block_n,))``,
-    as `tree_sep_update_tiles` does: padded lanes carry w = 0, so they add
-    nothing to a tile sum.
+    as `tree_sep_update_tiles` does, n_pad = ceil(n / block_n) * block_n:
+    lanes past n hold w' = 0 and add nothing to a tile sum.
     """
-    xp = _pad_to(x, 0, block_n, 0.0)
-    wp = _pad_to(w, 0, block_n, 0.0)
     if not _on_card(w):
-        return ref.d2_update_tiles_ref(xp, center, wp, block_n=block_n)
+        return ref.d2_update_tiles_ref(x, center, w, block_n=block_n)
     from repro_torch.kernels import d2_update_cuda as binding
 
-    out = binding.launch_tiles(xp, center, wp, tile=block_n)
+    out = binding.launch_tiles(x, center, w, tile=block_n)
     LAUNCHES["d2_update_tiles"] += 1
     return out
 

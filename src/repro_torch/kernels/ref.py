@@ -100,8 +100,10 @@ def d2_update_ref(x: torch.Tensor, center: torch.Tensor,
 
 
 def d2_update_tiles_ref(x, center, w, *, block_n: int = 512):
-    """(w', per-tile sums of w') — the `d2_update_tiles` oracle."""
+    """(w' padded with zeros to a multiple of `block_n`, per-tile sums of
+    it) for any n — the `d2_update_tiles` oracle."""
     out = d2_update_ref(x, center, w)
+    out = torch.cat([out, out.new_zeros((-out.shape[0]) % block_n)])
     return out, tile_sums_ref(out, block_n)
 
 

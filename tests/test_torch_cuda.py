@@ -13,7 +13,10 @@ the same comparison at the main paths' full shapes.  Two grids cover the
 redesigned kernels: `flash_attention` over D, S, GQA group, causality,
 dtype and both entries (strided and misaligned views included) within
 `ATTN_TOL`, and the LSH queries over B and the live count, with an
-all-miss case and two launches on the same inputs bit-identical.
+all-miss case and two launches on the same inputs bit-identical.  A third
+covers `d2_update` and `d2_update_tiles` over n, d (1 to 4097), dtype,
+tile and an offset view of x, and the tiles wrapper is held to allocating
+nothing the size of x.
 """
 
 import numpy as np
@@ -360,25 +363,67 @@ def test_kmeans_parallel_rounds_count_equals_full_sweep(cuda, monkeypatch):
     assert torch.equal(sel, sel_full) and torch.equal(d2, d2_full)
 
 
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("block_n", [128, 512])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,d", [(5, 3), (1000, 74), (513, 128)])
-def test_d2_update_kernels(cuda, n, d, dtype):
+@pytest.mark.parametrize("n,d", [(5, 3), (1000, 74), (513, 128), (1001, 1),
+                                 (777, 3), (1300, 68), (2049, 90),
+                                 (300, 1000), (70, 4097)])
+def test_d2_update_kernels(cuda, n, d, dtype, block_n, offset):
+    """Both entries against the plain version at n that no tile divides,
+    d from 1 to 4097 (the wide rows streamed in pieces), on x and w in
+    place or as offset views (`big[1:]`, x 4 or 2 bytes and w 4 bytes off
+    16-byte alignment): w' to 1e-5, tile sums to rtol 1e-5 of the plain ones and of a float64 sum
+    of w', lanes past n exactly 0, and a second launch bit-identical."""
     rng = np.random.default_rng(n * d)
-    x = torch.tensor(rng.normal(size=(n, d)), dtype=dtype, device=cuda)
+    big = torch.tensor(rng.normal(size=n * d + offset), dtype=dtype,
+                       device=cuda)
+    x = big[offset:].view(n, d)
+    assert (x.data_ptr() % 16 != 0) == bool(offset)
     ctr = torch.tensor(rng.normal(size=(d,)), dtype=dtype, device=cuda)
-    w = torch.tensor(rng.uniform(0, 4 * d, size=n), dtype=torch.float32,
-                     device=cuda)
+    w = torch.tensor(rng.uniform(0, 4 * d, size=n + offset),
+                     dtype=torch.float32, device=cuda)[offset:]
     out = ops.d2_update(x, ctr, w)
-    tiles, sums = ops.d2_update_tiles(x, ctr, w, block_n=128)
+    tiles, sums = ops.d2_update_tiles(x, ctr, w, block_n=block_n)
+    again = ops.d2_update(x, ctr, w)
+    tiles2, sums2 = ops.d2_update_tiles(x, ctr, w, block_n=block_n)
     torch.cuda.synchronize()
     torch.testing.assert_close(out, ref.d2_update_ref(x, ctr, w), rtol=1e-5,
                                atol=1e-5)
-    pw, psums = ref.d2_update_tiles_ref(ops._pad_to(x, 0, 128, 0.0), ctr,
-                                        ops._pad_to(w, 0, 128, 0.0),
-                                        block_n=128)
+    n_pad = -(-n // block_n) * block_n
+    assert tiles.shape == (n_pad,) and sums.shape == (n_pad // block_n,)
+    pw, psums = ref.d2_update_tiles_ref(ops._pad_to(x, 0, block_n, 0.0), ctr,
+                                        ops._pad_to(w, 0, block_n, 0.0),
+                                        block_n=block_n)
     torch.testing.assert_close(tiles, pw, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(sums, psums, rtol=1e-5, atol=0.0)
+    torch.testing.assert_close(
+        sums.double(), tiles.double().reshape(-1, block_n).sum(dim=1),
+        rtol=1e-5, atol=0.0)
     assert (tiles[n:] == 0.0).all()
+    assert torch.equal(out, again)
+    assert torch.equal(tiles, tiles2) and torch.equal(sums, sums2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block_n", [128, 512])
+def test_d2_update_tiles_copies_no_x(cuda, dtype, block_n):
+    """The tiles wrapper pads nothing on the card: at a ragged n, the call
+    allocates only its outputs and scratch, far less than x's bytes."""
+    n, d = 100_003, 74
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(n, d, generator=gen, device=cuda).to(dtype)
+    w = torch.rand(n, generator=gen, device=cuda) * d
+    ctr = x[11].clone()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    before = torch.cuda.memory_allocated(cuda)
+    tiles, sums = ops.d2_update_tiles(x, ctr, w, block_n=block_n)
+    torch.cuda.synchronize()
+    grew = torch.cuda.max_memory_allocated(cuda) - before
+    n_pad = -(-n // block_n) * block_n
+    assert tiles.shape == (n_pad,) and sums.shape == (n_pad // block_n,)
+    assert grew < x.numel() * x.element_size() // 8, grew
 
 
 def test_kmeans_parallel_plan_runs_through_the_kernel(cuda):

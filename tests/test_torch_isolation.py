@@ -209,7 +209,14 @@ def test_bindings_check_kernel_block_shapes():
     with pytest.raises(TypeError, match="must be one of"):
         pam_binding.launch(torch.zeros((128, 3), dtype=torch.float16),
                            torch.zeros((128, 3), dtype=torch.float16))
-    with pytest.raises(ValueError, match="tile must be"):
+    # `d2_update_tiles` guards its ragged edge (any n) but sums whole
+    # 32-row units, so a tile that is not a multiple of 32 in [32, 1024] is
+    # what it refuses; n = 48 at tile 32 passes the shape checks.
+    for tile in (48, 2048):
+        with pytest.raises(ValueError, match="tile must be"):
+            d2u_binding.launch_tiles(torch.zeros((48, 3)), torch.zeros(3),
+                                     torch.zeros(48), tile=tile)
+    with pytest.raises(ValueError, match="CPU tensors take the plain"):
         d2u_binding.launch_tiles(torch.zeros((48, 3)), torch.zeros(3),
                                  torch.zeros(48), tile=32)
 

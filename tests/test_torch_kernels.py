@@ -291,27 +291,32 @@ def test_d2_update_matches(n, d, dtype):
     assert (out <= w).all()
 
 
-@pytest.mark.parametrize("n,d", [(5, 3), (512, 16), (1300, 7), (1000, 74)])
+@pytest.mark.parametrize("n,d,block_n", [(5, 3, 512), (512, 16, 512),
+                                         (1300, 7, 512), (1000, 74, 512),
+                                         (1000, 74, 128)])
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_d2_update_tiles_matches(n, d, dtype):
+def test_d2_update_tiles_matches(n, d, block_n, dtype):
     """w' as the JAX package's, padded lanes at 0, and tile sums to rtol
-    1e-5 of both the JAX package's and a float64 sum of w'."""
+    1e-5 of both the JAX package's and a float64 sum of w'.  The port pads
+    neither x nor w (its outputs are padded), the JAX package pads both."""
     rng = np.random.default_rng(n + d)
     (x, jx), (ctr, jctr) = (_both(rng.normal(size=s), dtype)
                             for s in ((n, d), (d,)))
     w = rng.uniform(0.1, 4, size=n).astype(np.float32)
-    out, sums = ops.d2_update_tiles(x, ctr, torch.from_numpy(w))
+    out, sums = ops.d2_update_tiles(x, ctr, torch.from_numpy(w),
+                                    block_n=block_n)
     jout, jsums = jops.d2_update_tiles(jx, jctr, jnp.asarray(w),
-                                       interpret=True)
-    n_pad = -(-n // 512) * 512
-    assert out.shape == (n_pad,) and sums.shape == (n_pad // 512,)
+                                       block_n=block_n, interpret=True)
+    n_pad = -(-n // block_n) * block_n
+    assert out.shape == (n_pad,) and sums.shape == (n_pad // block_n,)
     tol = 1e-5 if dtype == "float32" else 3e-2
     np.testing.assert_allclose(out.numpy(), np.asarray(jout), rtol=tol,
                                atol=tol)
     assert (out[n:] == 0.0).all()
     np.testing.assert_allclose(sums.numpy(), np.asarray(jsums), rtol=1e-5)
     np.testing.assert_allclose(
-        sums.numpy(), out.numpy().astype(np.float64).reshape(-1, 512).sum(1),
+        sums.numpy(),
+        out.numpy().astype(np.float64).reshape(-1, block_n).sum(1),
         rtol=1e-5)
 
 
