@@ -59,6 +59,15 @@ against its plain PyTorch version on the card.  In order:
      traced with `torch.profiler`, beside the untraced one, with
      `lsh_bucket_accept`'s mean time per launch on the path beside its
      timed one, and the same launch traced alone between idle gaps;
+ 8b. the plan's other entry points on the same data: the legacy
+     `fit(points, KMeansConfig(seeder=...))` of the three device seeders,
+     each with the same indices as `ClusterPlan.fit` on the same seed and
+     its launch counts; `fit_batch(seeds=[0, 1, 2, 3])` on the rejection
+     plan, each lane bit-identical to `refit(seed=s)` and its launches
+     the four refits' sum; `no_retrace()` around two more refits; and the
+     cpu backend's six NumPy seeders on the host at n = 31,102 (the first
+     tenth of the rows), their host times and float64 cost ratios to
+     exact k-means++ (information only);
   9. the seeding paths' device tensors are freed;
  10. `flash_attention` against its plain version (the chunked
      online-softmax scan) at the serving path's shape, q (4, 2048, 32, 128)
@@ -1018,7 +1027,127 @@ def seeding_paths(torch, t_start: float) -> list:
             f"({kernels_50} kernels)")
     log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**20:.1f}"
         f" MiB; {time.perf_counter() - t_start:.1f} s so far")
+    other_entry_points(torch, t_start, points, plan, fit, km_fit, t)
     return rows
+
+
+def other_entry_points(torch, t_start, points, plan, fit, km_fit, t) -> None:
+    """Phase 8b on the same data: the legacy `fit` of the three device
+    seeders against `ClusterPlan.fit` on the same seed, `fit_batch` over
+    four seeds against solo refits, `no_retrace` around two refits, and
+    the cpu backend's six seeders on the host at a tenth of n."""
+    import warnings
+
+    from repro_torch.core import (TRACE_COUNTS, ClusterPlan, ClusterSpec,
+                                  ExecutionSpec, KMeansConfig, no_retrace,
+                                  seeding)
+    from repro_torch.core import fit as legacy_fit
+    from repro_torch.kernels import ops
+
+    log(f"[{time.perf_counter() - t_start:.1f} s] the legacy fit")
+    sweeps = {"tree_sep_update": (t - 1) * K, "tree_sep_update_tiles": K}
+    fast_fit = ClusterPlan(ClusterSpec(k=K, seeder="fastkmeans++", seed=SEED),
+                           ExecutionSpec(backend="device")).fit(points)
+    plan_idx = {"rejection": fit.indices, "fastkmeans++": fast_fit.indices,
+                "kmeans||": km_fit.indices}
+    for seeder, want in plan_idx.items():
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            km = legacy_fit(points, KMeansConfig(k=K, seeder=seeder,
+                                                 seed=SEED))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        expect = ({"pairwise_argmin": KMP_ROUNDS} if seeder == "kmeans||"
+                  else dict(sweeps))
+        if seeder == "rejection":
+            expect["lsh_bucket_accept"] = max(counts["lsh_bucket_accept"],
+                                              K - 1)
+        if counts != dict({name: 0 for name in counts}, **expect):
+            raise AssertionError(f"legacy fit {seeder}: launches {counts}, "
+                                 f"expected {expect}")
+        if not np.array_equal(km.seeding.indices, want.cpu().numpy()):
+            raise AssertionError(f"legacy fit {seeder}: other indices than "
+                                 "ClusterPlan.fit on the same seed")
+        if km.centers.shape != (K, D) or not math.isfinite(km.cost):
+            raise AssertionError(f"legacy fit {seeder}: cost {km.cost}")
+        log(f"  legacy fit {seeder}: {seconds:.3f} s (prepare "
+            f"{km.seeding.prepare_seconds:.3f} s, solve "
+            f"{km.seeding.solve_seconds:.3f} s, the rest the host's "
+            f"quantisation and float64 cost {km.cost:.10g}); "
+            f"launches={counts}; the same {K} indices as ClusterPlan.fit")
+
+    log(f"[{time.perf_counter() - t_start:.1f} s] fit_batch and no_retrace")
+    seeds = [0, 1, 2, 3]
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    batch = plan.fit_batch(seeds=seeds)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    batch_counts = ops.launch_counts()
+    solo, lane_lsh = collections.Counter(), []
+    for i, s in enumerate(seeds):
+        ops.reset_launch_counts()
+        lane = plan.refit(seed=s)
+        torch.cuda.synchronize()
+        solo.update(ops.launch_counts())
+        lane_lsh.append(ops.launch_counts()["lsh_bucket_accept"])
+        if not (torch.equal(batch.indices[i], lane.indices)
+                and torch.equal(batch.centers[i], lane.centers)
+                and torch.equal(batch.cost[i], lane.cost)):
+            raise AssertionError(f"fit_batch lane {i} differs from "
+                                 f"refit(seed={s})")
+    if not torch.equal(batch.indices[0], fit.indices):
+        raise AssertionError("fit_batch lane 0 (the spec's seed) differs "
+                             "from the fit")
+    four = {name: len(seeds) * v for name, v in sweeps.items()}
+    if batch_counts != dict(solo) or any(batch_counts[name] != v
+                                         for name, v in four.items()):
+        raise AssertionError(f"fit_batch launches {batch_counts}, four "
+                             f"refits {dict(solo)}, sweeps expected {four}")
+    log(f"  fit_batch(seeds={seeds}) on the rejection plan: "
+        f"{batch_s:.3f} s (solve_seconds {batch.solve_seconds:.3f}); "
+        f"launches={batch_counts}, the sum of four refits' (lsh_bucket_accept"
+        f" {lane_lsh} a lane); each lane "
+        f"bit-identical to refit(seed=s), lane 0 to the fit; costs "
+        f"{[round(float(c), 1) for c in batch.cost]}")
+    builds = {name: v for name, v in TRACE_COUNTS.items()
+              if name.startswith("build/")}
+    with no_retrace():
+        for s in (5, 6):
+            plan.refit(seed=s)
+        torch.cuda.synchronize()
+    log(f"  no_retrace() held around refit(seed=5) and refit(seed=6); "
+        f"builds counted in this process: {builds}")
+
+    # The cpu backend: host NumPy seeders, as in the JAX package; only the
+    # gather and the f32 cost of each FitResult run on the card.
+    n_cpu = N // 10
+    sub = points[:n_cpu]
+    log(f"[{time.perf_counter() - t_start:.1f} s] the cpu backend at n="
+        f"{n_cpu} (the first tenth of the rows), d={D}, k={K}; host times")
+    costs = {}
+    for seeder in ("kmeans++", "fastkmeans++", "rejection", "kmeans||",
+                   "afkmc2", "uniform"):
+        ops.reset_launch_counts()
+        res = ClusterPlan(ClusterSpec(k=K, seeder=seeder, seed=SEED),
+                          ExecutionSpec(backend="cpu")).fit(sub)
+        idx = res.indices.cpu().numpy()
+        costs[seeder] = seeding.clustering_cost(sub, sub[idx])
+        rel = abs(float(res.cost) - costs[seeder]) / costs[seeder]
+        if not (res.indices.is_cuda and len(np.unique(idx)) == K
+                and idx.min() >= 0 and idx.max() < n_cpu and rel < 1e-3
+                and sum(ops.launch_counts().values()) == 0):
+            raise AssertionError(f"cpu backend {seeder}: indices, cost "
+                                 f"{float(res.cost)} against {costs[seeder]}"
+                                 f" or launches {ops.launch_counts()}")
+        log(f"  cpu {seeder}: host prepare {res.prepare_seconds:.3f} s, "
+            f"solve {res.solve_seconds:.3f} s (the host seeder, then the "
+            f"card's gather and f32 cost), float64 cost "
+            f"{costs[seeder]:.10g} ({costs[seeder] / costs['kmeans++']:.4f} "
+            "of exact kmeans++); no kernel launched")
 
 
 def check_attention(torch, ops, ref, q, k, v, causal: bool, label: str,

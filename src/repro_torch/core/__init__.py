@@ -1,21 +1,80 @@
-"""Core of the port: the plan API, the device seeders and the host prepare
-(tree embedding, LSH keys, quantisation, sample structures)."""
+"""Core of the port: the plan API and the legacy facade, the seeder
+registry with its two backends (the seeders on the card and the faithful
+NumPy seeders on the host), and the host structures (tree embedding, LSH,
+multi-tree sampler, quantisation, sample structures).
 
-from repro_torch.core.batch_schedule import BatchSchedule, shape_bucket
-from repro_torch.core.plan import (
+Exports the names of the JAX package's `repro.core.__all__` that are
+ported; the rest (the engine, resilience and streaming) are ROADMAP
+Queue 1 items 7 and 8.
+"""
+
+from repro_torch.core.api import (
+    BACKENDS,
     ClusterPlan,
     ClusterSpec,
     ExecutionSpec,
     FitResult,
+    KMeans,
+    KMeansConfig,
     PreparedData,
+    SEEDER_SPECS,
+    SeederSpec,
+    capability_table,
+    data_fingerprint,
+    ensure_host_f64,
+    fit,
+    resolve_seeder,
 )
+from repro_torch.core.batch_schedule import BatchSchedule, shape_bucket
+from repro_torch.core.lloyd import assign, lloyd
+from repro_torch.core.multitree import MultiTreeSampler
+from repro_torch.core.seeding import (
+    SEEDERS,
+    SeedingResult,
+    afkmc2,
+    clustering_cost,
+    fast_kmeanspp,
+    kmeans_parallel,
+    kmeanspp,
+    rejection_sampling,
+    uniform_sampling,
+)
+from repro_torch.core.tracing import RetraceError, TRACE_COUNTS, no_retrace
+from repro_torch.core.tree_embedding import MultiTreeEmbedding, build_multitree
 
 __all__ = [
+    "BACKENDS",
     "BatchSchedule",
-    "shape_bucket",
     "ClusterPlan",
     "ClusterSpec",
     "ExecutionSpec",
     "FitResult",
+    "KMeans",
+    "KMeansConfig",
     "PreparedData",
+    "shape_bucket",
+    "SEEDER_SPECS",
+    "SeederSpec",
+    "RetraceError",
+    "TRACE_COUNTS",
+    "no_retrace",
+    "capability_table",
+    "data_fingerprint",
+    "ensure_host_f64",
+    "fit",
+    "resolve_seeder",
+    "assign",
+    "lloyd",
+    "kmeans_parallel",
+    "MultiTreeSampler",
+    "SEEDERS",
+    "SeedingResult",
+    "afkmc2",
+    "clustering_cost",
+    "fast_kmeanspp",
+    "kmeanspp",
+    "rejection_sampling",
+    "uniform_sampling",
+    "MultiTreeEmbedding",
+    "build_multitree",
 ]

@@ -20,6 +20,8 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
+
 __all__ = ["BatchSchedule", "shape_bucket"]
 
 
@@ -92,6 +94,18 @@ class BatchSchedule:
         b = (self.safety / p) * (1.0 + overhead / 8.0)
         b = min(b, float(max(n, 1)))
         return self._snap(b)
+
+    def propose(self, prev_batch: int, acc_rate: float) -> int:
+        """The CPU rejection seeder's next block: one geometric step toward
+        ``safety / p``; a bucket value, never above ``max_batch``, monotone
+        non-increasing in ``acc_rate``.  ``safety / p`` is computed in
+        float32, as the JAX package's traced `_ideal` is, so both packages'
+        CPU seeders take the same blocks."""
+        p = max(np.float32(acc_rate), np.float32(1.0 / (4.0 * self.max_batch)))
+        ideal = float(np.float32(self.safety) / p)
+        lo = max(prev_batch / 2.0, float(self.min_batch))
+        hi = min(prev_batch * 2.0, float(self.max_batch))
+        return self._snap(min(max(ideal, lo), hi))
 
     def target_index(self, acc_rate: float) -> int:
         """Index of the smallest bucket >= ``safety / p``; monotone

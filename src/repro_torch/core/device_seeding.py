@@ -47,6 +47,7 @@ from repro_torch.core.lsh import MonotoneLSH
 from repro_torch.core.plan import ExecutionSpec
 from repro_torch.core.sample_tree import TiledSampleTree
 from repro_torch.core.seeding import (
+    SEEDERS,
     SeedingResult,
     _candidate_pool_to_centers,
     _estimate_scale,
@@ -483,29 +484,6 @@ def _solve_kmeans_parallel(points_dev, pts, k, rng, *, c, schedule, options,
              "oversample": ell})
 
 
-def _register():
-    # Algorithm 3 (D^2 sampling in the multi-tree metric) and Algorithm 4
-    # (multi-tree proposal, LSH-corrected accept) run in the quantised space;
-    # k-means|| runs on the points as given.
-    for name in ("fastkmeans++", "rejection"):
-        registry.register_seeder(name,
-                                 registry.SeederCaps(needs_quantize=True))
-    registry.register_seeder("kmeans||", registry.SeederCaps())
-    registry.register_backend("fastkmeans++", "device", registry.BackendImpl(
-        prepare=_prep_fastkmeanspp, solve=_solve_fastkmeanspp,
-        device_native=True))
-    registry.register_backend("rejection", "device", registry.BackendImpl(
-        prepare=_prep_rejection, solve=_solve_rejection, device_native=True))
-    # Not device-native: the rounds run on the card, the weighted recluster
-    # on the host per fit.
-    registry.register_backend("kmeans||", "device", registry.BackendImpl(
-        prepare=_prep_kmeans_parallel, solve=_solve_kmeans_parallel,
-        device_native=False))
-
-
-_register()
-
-
 # ---------------------------------------------------------------------------
 # seed_fn facades: `(points, k, rng, **kw) -> SeedingResult` with NumPy
 # indices, as the JAX package's `DEVICE_SEEDERS`, each running its seeder's
@@ -547,3 +525,26 @@ DEVICE_SEEDERS = {
     "rejection": device_rejection_seeder,
     "kmeans||": device_kmeans_parallel_seeder,
 }
+
+
+def _register():
+    # The algorithms' capabilities, docs and fallbacks are declared in
+    # `core.seeding`; this attaches the card's backend, the facades above
+    # as its `run` (``"<name>/device"`` in the legacy `SEEDERS`).
+    registry.register_backend("fastkmeans++", "device", registry.BackendImpl(
+        run=device_fast_kmeanspp_seeder, prepare=_prep_fastkmeanspp,
+        solve=_solve_fastkmeanspp, device_native=True),
+        legacy_registry=SEEDERS)
+    registry.register_backend("rejection", "device", registry.BackendImpl(
+        run=device_rejection_seeder, prepare=_prep_rejection,
+        solve=_solve_rejection, device_native=True),
+        legacy_registry=SEEDERS)
+    # Not device-native: the rounds run on the card, the weighted recluster
+    # on the host per fit.
+    registry.register_backend("kmeans||", "device", registry.BackendImpl(
+        run=device_kmeans_parallel_seeder, prepare=_prep_kmeans_parallel,
+        solve=_solve_kmeans_parallel, device_native=False),
+        legacy_registry=SEEDERS)
+
+
+_register()

@@ -4,6 +4,7 @@
     plan = ClusterPlan(spec, ExecutionSpec(backend="device"))   # on cuda
     res  = plan.fit(points)       # prepare (cached by fingerprint) + solve
     res2 = plan.refit(seed=7)     # solve stage only: no re-prepare
+    batch = plan.fit_batch([0, 1, 2, 3])   # lane i == refit(seed=i)
 
 Three stages, as in the JAX package's `core/plan.py`:
 
@@ -14,13 +15,18 @@ Three stages, as in the JAX package's `core/plan.py`:
     LSH keys, device upload) runs once per data fingerprint and is cached.
     The rng draws it consumes are snapshotted, and they are the JAX
     package's draws in its order, so the artifacts are bit-identical.
-  * **execute** — `fit` / `refit` / `fit_prepared` run only the sampling
-    stage against the cached artifacts.
+  * **execute** — `fit` / `refit` / `fit_prepared` / `fit_batch` run only
+    the sampling stage against the cached artifacts.
 
-The device is explicit: `ExecutionSpec.device` defaults to ``"cuda"`` and a
-plan raises when CUDA is absent, unless the caller asked for ``"cpu"`` —
-then every kernel wrapper runs its plain PyTorch version.  Results are
-`FitResult`s holding tensors on that device.
+Two backends: ``"device"`` (the default) runs the seeders on
+`ExecutionSpec.device` through the hand-written kernels; ``"cpu"`` runs
+the faithful NumPy seeders of `core.seeding` on the host, which build
+their structures and sample in one pass, so only the quantisation is
+cached for them.  The device is explicit: `ExecutionSpec.device` defaults
+to ``"cuda"`` and a plan raises when CUDA is absent, unless the caller
+asked for ``"cpu"`` — then every kernel wrapper runs its plain PyTorch
+version.  Results are `FitResult`s holding tensors on that device (the
+cpu backend's gather and cost run there too).
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ import dataclasses
 import hashlib
 import threading
 import time
-from typing import Any, Optional
+from typing import Any, Optional, Sequence
 
 import numpy as np
 import torch
@@ -108,6 +114,10 @@ class ClusterSpec:
         """The extra seeder options as a fresh dict."""
         return dict(self.options)
 
+    def replace(self, **changes) -> "ClusterSpec":
+        """A copy of the spec with `changes` applied."""
+        return dataclasses.replace(self, **changes)
+
 
 @dataclasses.dataclass(frozen=True)
 class ExecutionSpec:
@@ -125,6 +135,10 @@ class ExecutionSpec:
     tile: int = 512
 
     def __post_init__(self):
+        if self.backend == "sharded":
+            raise ValueError("the sharded backend is not ported yet "
+                             "(ROADMAP Queue 1 item 10); expected one of "
+                             f"{registry.BACKENDS}")
         if self.backend not in registry.BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r}; expected "
                              f"{registry.BACKENDS}")
@@ -135,26 +149,40 @@ class FitResult:
     """Clustering result: tensors on the device the solve ran on.
 
     `centers` are in original coordinates regardless of the quantised
-    seeding space; `cost` is a 0-d f32 tensor.
+    seeding space; `cost` is a 0-d f32 tensor.  `fit_batch` stacks a
+    leading batch axis on all three.
     """
 
-    indices: Any                  # (k,) int32
-    centers: Any                  # (k, d)
-    cost: Any                     # scalar f32
+    indices: Any                  # (k,) int32 — or (B, k) from fit_batch
+    centers: Any                  # (k, d)     — or (B, k, d)
+    cost: Any                     # scalar f32 — or (B,)
     k: int = 0
     prepare_seconds: float = 0.0  # of the (cached) prepare this fit used
     solve_seconds: float = 0.0
     extras: dict = dataclasses.field(default_factory=dict)
 
+    def block_until_ready(self) -> "FitResult":
+        """Wait for the card's work behind the result (a no-op on the
+        CPU); returns self."""
+        if self.indices.is_cuda:
+            torch.cuda.synchronize(self.indices.device)
+        return self
+
     def to_numpy(self) -> "FitResult":
-        """Host copy: the same FitResult with NumPy arrays and a float."""
+        """Host copy: the same FitResult with NumPy arrays, and a float
+        cost for a single problem."""
+        cost = self.cost.cpu().numpy()
         return dataclasses.replace(
             self, indices=self.indices.cpu().numpy().astype(np.int64),
-            centers=self.centers.cpu().numpy(), cost=float(self.cost))
+            centers=self.centers.cpu().numpy(),
+            cost=float(cost) if cost.ndim == 0 else cost)
 
     def predict(self, points) -> torch.Tensor:
         """Nearest-center index per point, (n,) int32 on the centers'
         device (expanded BLAS form in the centers' dtype)."""
+        if self.centers.dim() != 2:
+            raise ValueError("predict() needs a single-problem FitResult "
+                             "(index into a fit_batch result first)")
         pts = torch.as_tensor(points, dtype=self.centers.dtype,
                               device=self.centers.device)
         return torch.argmin(_pairwise_d2(pts, self.centers),
@@ -189,7 +217,7 @@ class PreparedData:
     pts: np.ndarray                   # original coords, host float64
     seed_pts: np.ndarray              # seeding-space coords (maybe quantised)
     resolution: Optional[float]       # quantisation grid passed to seeders
-    artifacts: Any                    # BackendImpl.prepare output
+    artifacts: Any                    # BackendImpl.prepare output (or None)
     rng_state: dict                   # np.Generator state after prep draws
     prepare_seconds: float
     points_dev: Any = None            # device copy for gather/cost
@@ -199,6 +227,8 @@ def _load_backend(backend: str) -> None:
     """Importing a backend module registers its impls (idempotent)."""
     if backend == "device":
         import repro_torch.core.device_seeding  # noqa: F401
+    else:
+        import repro_torch.core.seeding  # noqa: F401
 
 
 class ClusterPlan:
@@ -238,6 +268,15 @@ class ClusterPlan:
             self._active = prep
         return self
 
+    def prepare_stacked(self, points) -> PreparedData:
+        """The stacked-lane prepare of `fit_batch(datasets=...)`.  No port
+        impl has stacked lanes yet (ROADMAP Queue 1 item 6), so this raises
+        the JAX package's error for an impl without the capability."""
+        raise ValueError(
+            f"{self.cluster.seeder!r} on backend {self.execution.backend!r} "
+            "has no stacked lanes; use prepare_data + "
+            "fit_batch(datasets=...) (solo loop)")
+
     def prepare_data(self, points) -> PreparedData:
         """Thread-safe prepare returning an explicit `PreparedData` handle
         (the plan's active data is left alone).  Re-preparing the same data
@@ -268,9 +307,11 @@ class ClusterPlan:
         if self.caps.needs_quantize and self.cluster.quantize:
             seed_pts = quantize(pts, rng).points
             resolution = options.get("resolution", 1.0)
-        artifacts = self.impl.prepare(seed_pts, rng, resolution=resolution,
-                                      options=options,
-                                      execution=self.execution)
+        artifacts = None
+        if self.impl.preparable:
+            artifacts = self.impl.prepare(
+                seed_pts, rng, resolution=resolution, options=options,
+                execution=self.execution)
         return PreparedData(
             fingerprint=fp, pts=pts, seed_pts=seed_pts,
             resolution=resolution, artifacts=artifacts,
@@ -283,6 +324,18 @@ class ClusterPlan:
         """Prepare-cache statistics (hits, builds, solves, entries)."""
         with self._lock:
             return dict(self.stats, entries=len(self._prepared))
+
+    def forget(self, prepared: PreparedData) -> bool:
+        """Evict one `PreparedData` from the prepare cache (thread-safe).
+        The handle stays valid for callers holding it; only the cache entry
+        (and the plan's active slot, if it points here) is dropped.
+        Returns True when an entry was removed."""
+        with self._lock:
+            removed = self._prepared.pop(prepared.fingerprint,
+                                         None) is not None
+            if self._active is prepared:
+                self._active = None
+        return removed
 
     def _require(self, points) -> PreparedData:
         if points is not None:
@@ -308,7 +361,9 @@ class ClusterPlan:
     def refit(self, *, k: Optional[int] = None,
               seed: Optional[int] = None) -> FitResult:
         """Re-run the solve stage on the already-prepared data: no host
-        re-preparation."""
+        re-preparation.  The cpu backend's seeders build their tree and
+        LSH structures and sample in one pass, so for them only the
+        quantisation is cached and each refit rebuilds the rest."""
         with self._lock:
             active = self._active
         if active is None:
@@ -335,12 +390,29 @@ class ClusterPlan:
         t0 = time.perf_counter()
         with self._lock:
             self.stats["solves"] += 1
+        rng = self._solve_rng(prep, seed)
         options = self.cluster.options_dict()
         options.pop("resolution", None)
-        idx, extras = self.impl.solve(
-            prep.artifacts, prep.seed_pts, k, self._solve_rng(prep, seed),
-            c=self.cluster.c, schedule=self.cluster.schedule,
-            options=options, execution=self.execution)
+        if self.impl.preparable:
+            idx, extras = self.impl.solve(
+                prep.artifacts, prep.seed_pts, k, rng, c=self.cluster.c,
+                schedule=self.cluster.schedule, options=options,
+                execution=self.execution)
+        else:
+            # No cached split (the cpu seeders): the seed_fn with
+            # capability-driven kwargs, as the legacy `fit` calls it.
+            if prep.resolution is not None:
+                options.setdefault("resolution", prep.resolution)
+            if self.caps.accepts_c:
+                options.setdefault("c", self.cluster.c)
+            if self.caps.accepts_schedule and \
+                    self.cluster.schedule is not None:
+                options.setdefault("schedule", self.cluster.schedule)
+            res = self.impl.run(prep.seed_pts, k, rng, **options)
+            idx = torch.as_tensor(res.indices, dtype=torch.int32,
+                                  device=self.device)
+            extras = dict(res.extras)
+            extras.setdefault("num_candidates", res.num_candidates)
         centers = prep.points_dev[idx.long()]
         if self.cluster.lloyd_iters > 0:
             host_idx = idx.cpu().numpy().astype(np.int64)
@@ -360,3 +432,60 @@ class ClusterPlan:
                          prepare_seconds=prep.prepare_seconds,
                          solve_seconds=time.perf_counter() - t0,
                          extras=extras)
+
+    # -- multi-problem execution --------------------------------------------
+
+    def fit_batch(self, seeds: Optional[Sequence[int]] = None, points=None,
+                  *, datasets: Optional[Sequence[Any]] = None) -> FitResult:
+        """Solve B independent seeding problems; a `FitResult` with a
+        leading batch axis on indices, centers and cost.
+
+        * ``fit_batch(seeds)`` — B seeds on ONE prepared dataset: lane i is
+          bit-identical to `refit(seed=seeds[i])`, because it is that
+          refit (``extras["vmapped"]`` False).  Nothing is re-prepared.
+          The JAX package runs its device-native seeders' lanes as one
+          vmapped program; the port's lane-batched solve is ROADMAP
+          Queue 1 item 6.
+        * ``fit_batch(datasets=[...], seeds=None|[...])`` — B different
+          datasets (one optional seed each, default the spec's), each
+          prepared (fingerprint-cached) and fitted in turn, as the JAX
+          package does for impls without stacked lanes
+          (``extras["stacked"]`` False); no port impl has them yet.
+        """
+        if datasets is not None:
+            if points is not None:
+                raise ValueError("pass either points= or datasets=, not both")
+            return self._fit_batch_datasets(list(datasets), seeds)
+        if seeds is None:
+            raise ValueError("fit_batch() needs seeds (or datasets=...)")
+        self._require(points)
+        seeds = [int(s) for s in seeds]
+        if not seeds:
+            raise ValueError("fit_batch() needs at least one seed")
+        return _stack_results([self.refit(seed=s) for s in seeds], seeds)
+
+    def _fit_batch_datasets(self, datasets: list,
+                            seeds: Optional[Sequence[int]]) -> FitResult:
+        if not datasets:
+            raise ValueError("fit_batch(datasets=...) needs >= 1 dataset")
+        b = len(datasets)
+        seeds = ([int(s) for s in seeds] if seeds is not None
+                 else [self.cluster.seed] * b)
+        if len(seeds) != b:
+            raise ValueError(f"got {len(seeds)} seeds for {b} datasets")
+        results = [self.fit_prepared(self.prepare_data(pts_i), seed=s)
+                   for pts_i, s in zip(datasets, seeds)]
+        out = _stack_results(results, seeds)
+        out.extras["stacked"] = False
+        return out
+
+
+def _stack_results(results: list[FitResult], seeds: list[int]) -> FitResult:
+    return FitResult(
+        indices=torch.stack([r.indices for r in results]),
+        centers=torch.stack([r.centers for r in results]),
+        cost=torch.stack([r.cost for r in results]),
+        k=results[0].k,
+        prepare_seconds=results[0].prepare_seconds,
+        solve_seconds=float(sum(r.solve_seconds for r in results)),
+        extras={"seeds": tuple(seeds), "vmapped": False})

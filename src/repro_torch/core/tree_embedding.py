@@ -27,6 +27,9 @@ __all__ = [
     "MultiTreeEmbedding",
     "build_multitree",
     "compute_max_dist",
+    "sep_levels",
+    "tree_dist_from_sep",
+    "multitree_dist_sq_points",
     "NUM_TREES",
 ]
 
@@ -140,3 +143,37 @@ def build_multitree(points: np.ndarray, *, seed: int = 0,
                                    origin=origin, hash_mults=mults))
     return MultiTreeEmbedding(trees=tuple(trees), max_dist=max_dist,
                               num_levels=levels, dim=d, num_points=n)
+
+
+# --------------------------------------------------------------------------
+# Separation levels and tree distances (the CPU seeders' closed form).
+# --------------------------------------------------------------------------
+
+def sep_levels(codes_a: np.ndarray, codes_b: np.ndarray) -> np.ndarray:
+    """Number of agreeing heights between code columns.
+
+    codes_a: (H, ...) vs codes_b: (H, ...) broadcastable; returns int32 (...).
+    Because grids nest, equality is prefix-closed, so the count equals the
+    index of the first disagreement.
+    """
+    eq = codes_a == codes_b
+    return eq.sum(axis=0).astype(np.int32)
+
+
+def tree_dist_from_sep(sep: np.ndarray, max_dist: float, num_levels: int,
+                       dim: int) -> np.ndarray:
+    """Closed-form TreeDist given separation level (App. A geometry)."""
+    sep = np.asarray(sep)
+    scale = 2.0 * np.sqrt(dim) * max_dist
+    return scale * (np.exp2(1.0 - sep) - np.exp2(1.0 - num_levels))
+
+
+def multitree_dist_sq_points(emb: MultiTreeEmbedding, i: np.ndarray,
+                             j: np.ndarray) -> np.ndarray:
+    """MULTITREEDIST(p_i, p_j)^2 for index arrays i, j (broadcastable)."""
+    best = None
+    for t in emb.trees:
+        sep = sep_levels(t.codes[:, i], t.codes[:, j])
+        dist = tree_dist_from_sep(sep, emb.max_dist, emb.num_levels, emb.dim)
+        best = dist if best is None else np.minimum(best, dist)
+    return best ** 2

@@ -9,6 +9,8 @@ of the source and the flags, so an edited source rebuilds.  Set
 ``REPRO_TORCH_BUILD_DIR`` to build elsewhere.
 
 Nothing here runs at import time: the CPU tests import every module.
+Each library built or loaded counts one ``"build/<name>"`` event in
+`repro_torch.core.tracing.TRACE_COUNTS`, which `no_retrace()` watches.
 """
 
 from __future__ import annotations
@@ -92,8 +94,12 @@ def build_all() -> dict[str, dict]:
             path.with_suffix(".log").write_text(out)
             os.replace(tmp, path)
         seconds = time.perf_counter() - t0
+        # Imported here: `repro_torch.core` imports this package.
+        from repro_torch.core.tracing import count_trace
+
         for name, path in todo.items():
             _libs[name] = ctypes.CDLL(str(path))
+            count_trace(f"build/{name}")
             log = path.with_suffix(".log")
             _report[name] = {
                 "path": str(path),

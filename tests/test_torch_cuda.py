@@ -16,7 +16,10 @@ dtype and both entries (strided and misaligned views included) within
 all-miss case and two launches on the same inputs bit-identical.  A third
 covers `d2_update` and `d2_update_tiles` over n, d (1 to 4097), dtype,
 tile and an offset view of x, and the tiles wrapper is held to allocating
-nothing the size of x.
+nothing the size of x.  The last three tests drive the plan's other entry
+points on the card: the legacy `fit` against `ClusterPlan.fit` for the
+three device seeders, `fit_batch(seeds)` lanes against solo refits, and
+`no_retrace()` around refits after a warm-up.
 """
 
 import numpy as np
@@ -624,3 +627,69 @@ def test_lsh_query_grid(cuda, b, count, miss, which):
         torch.testing.assert_close(runs[0][1], plain[1], rtol=1e-5,
                                    atol=1e-5)
         assert (runs[0][1][::5] == 0.0).all()
+
+
+def _card_mixture(seed, n=20_000, d=8, k_true=40):
+    rng = np.random.default_rng(seed)
+    ctr = rng.normal(size=(k_true, d)) * 40
+    return ctr[rng.integers(k_true, size=n)] + rng.normal(size=(n, d))
+
+
+@pytest.mark.parametrize("seeder", ["rejection", "fastkmeans++", "kmeans||"])
+def test_legacy_fit_matches_the_plan_on_the_card(cuda, seeder):
+    """The legacy `fit` on the device backend opens the plan's centers for
+    the same seed, through the same kernels."""
+    import warnings
+
+    from repro_torch.core import KMeansConfig, fit
+
+    pts = _card_mixture(4)
+    plan = ClusterPlan(ClusterSpec(k=48, seeder=seeder, seed=3),
+                       ExecutionSpec(backend="device"))
+    new = plan.fit(pts)
+    ops.reset_launch_counts()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        old = fit(pts, KMeansConfig(k=48, seeder=seeder, seed=3))
+    counts = ops.launch_counts()
+    np.testing.assert_array_equal(new.indices.cpu().numpy().astype(np.int64),
+                                  old.seeding.indices)
+    if seeder == "kmeans||":
+        assert counts["pairwise_argmin"] == 5
+    else:
+        assert counts["tree_sep_update"] == 2 * 48
+        assert counts["tree_sep_update_tiles"] == 48
+    assert (counts["lsh_bucket_accept"] >= 47) == (seeder == "rejection")
+
+
+@pytest.mark.parametrize("seeder", ["rejection", "kmeans||"])
+def test_fit_batch_lanes_equal_refits_on_the_card(cuda, seeder):
+    pts = _card_mixture(5)
+    plan = ClusterPlan(ClusterSpec(k=32, seeder=seeder),
+                       ExecutionSpec(backend="device"))
+    plan.prepare(pts)
+    ops.reset_launch_counts()
+    b = plan.fit_batch([0, 1, 2, 3])
+    batch_counts = ops.launch_counts()
+    assert b.indices.is_cuda and tuple(b.indices.shape) == (4, 32)
+    ops.reset_launch_counts()
+    for i in range(4):
+        lane = plan.refit(seed=i)
+        assert torch.equal(b.indices[i], lane.indices)
+        assert torch.equal(b.cost[i], lane.cost)
+    assert ops.launch_counts() == batch_counts
+    if seeder == "rejection":
+        assert batch_counts["tree_sep_update_tiles"] == 4 * 32
+
+
+def test_no_retrace_holds_around_refits_on_the_card(cuda):
+    """After a warm-up fit has built and loaded every kernel library,
+    refits and `fit_batch` count no build."""
+    from repro_torch.core import no_retrace
+
+    plan = ClusterPlan(ClusterSpec(k=16), ExecutionSpec(backend="device"))
+    plan.fit(_card_mixture(6, n=5000))
+    with no_retrace():
+        plan.refit(seed=1)
+        plan.refit(seed=2)
+        plan.fit_batch([3, 4])

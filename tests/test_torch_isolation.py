@@ -69,6 +69,52 @@ def test_importing_the_port_loads_no_jax():
     assert bad == "[]"
 
 
+@pytest.mark.parametrize("module", [
+    "repro_torch.core.api", "repro_torch.core.multitree",
+    "repro_torch.core.tracing", "repro_torch.core.registry",
+    "repro_torch.core.seeding", "repro_torch.core.lsh",
+    "repro_torch.core.tree_embedding", "repro_torch.kernels._build"])
+def test_the_cpu_backend_and_legacy_modules_load_no_jax(module):
+    """Each module of the CPU backend, the legacy facade and the build
+    accounting, imported alone in a fresh interpreter, loads no JAX and
+    no reference package."""
+    code = (
+        f"import importlib, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "print(sorted(n for n in sys.modules if n == 'jax' or"
+        " n.startswith(('jax.', 'jaxlib')) or n == 'repro'"
+        " or n.startswith('repro.')))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True,
+                         env={"PYTHONPATH": str(PACKAGE.parent),
+                              "PATH": "/usr/bin:/bin"})
+    assert out.stdout.strip() == "[]"
+    assert (PACKAGE.parent / (module.replace(".", "/") + ".py")).exists()
+
+
+def test_legacy_entry_points_do_not_fall_back(monkeypatch):
+    """Without CUDA, the legacy `fit` on its default backend and device, a
+    cpu-backend plan on its default device and `fit_batch` raise; asked
+    for the CPU, they run there."""
+    from repro_torch.core import KMeansConfig, fit
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pts = np.random.default_rng(0).normal(size=(60, 3))
+    with pytest.warns(DeprecationWarning):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            fit(pts, KMeansConfig(k=3))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ClusterPlan(ClusterSpec(k=3, seeder="kmeans++"),
+                    ExecutionSpec(backend="cpu"))
+    with pytest.warns(DeprecationWarning):
+        assert fit(pts, KMeansConfig(k=3, device="cpu")).centers.shape == (3, 3)
+        assert fit(pts, KMeansConfig(k=3, backend="cpu")).cost > 0
+    plan = ClusterPlan(ClusterSpec(k=3, seeder="kmeans++"),
+                       ExecutionSpec(backend="cpu", device="cpu"))
+    assert plan.fit_batch([0, 1], pts).indices.device.type == "cpu"
+
+
 def test_entry_points_default_to_cuda():
     spec = ExecutionSpec()
     assert spec.device == "cuda" and spec.backend == "device"
