@@ -24,7 +24,9 @@ against its plain PyTorch version on the card.  In order:
      sweeps bit-identical at n = 311,029, their tile sums,
      `lsh_bucket_accept` and `lsh_bucket_min` to rtol 1e-5 over B in
      32..512 and 0..1000 live centers (`LSH_MISS` lanes exactly, a second
-     launch bit-identical),
+     launch bit-identical); the sweeps and the accept in the call form a
+     fit launches (one lane of the lane axis), the solo call forms held
+     bit for bit to it,
      `pairwise_argmin` at 311,029 x 8,000 x 74 (one k-means|| round's
      slots; the sweep over its live slots bit-identical to the full one;
      every slot live in f32 and bf16) and at a ragged small shape in f32
@@ -35,7 +37,8 @@ against its plain PyTorch version on the card.  In order:
      least time the card could take for the same work; the kernels of a
      few microseconds are timed as a CUDA graph of their launches (the
      card's time; a loop of launches from Python times the host) with the
-     loop's time beside, `lsh_bucket_accept` at the path's most used block
+     loop's time beside, the sweeps and the accept in a fit's one-lane
+     call form, `lsh_bucket_accept` at the path's most used block
      and at B = 32; `pairwise_argmin` (a) in f32 with all 8,000 slots live
      (its row), (b) as the path launches it, over one round's live slots,
      and (c) on the bf16 route at (a)'s shape, its bound the work at f32
@@ -63,8 +66,24 @@ against its plain PyTorch version on the card.  In order:
      `fit(points, KMeansConfig(seeder=...))` of the three device seeders,
      each with the same indices as `ClusterPlan.fit` on the same seed and
      its launch counts; `fit_batch(seeds=[0, 1, 2, 3])` on the rejection
-     plan, each lane bit-identical to `refit(seed=s)` and its launches
-     the four refits' sum; `no_retrace()` around two more refits; and the
+     and the fastkmeans++ plans, each one lane-batched solve (2k
+     `tree_sep_update` and k `tree_sep_update_tiles` launches for the four
+     lanes; `lsh_bucket_accept` between the largest lane's refit count
+     and the four refits' sum), each lane bit-identical to `refit(seed=s)`
+     and lane 0 to the fit, its time beside the four refits';
+     `no_retrace()` around two more refits;
+ 8c. stacked lanes: `fit_batch(datasets=...)` of the rejection seeder at
+     full width on `kddcup_shaped(0)`, `kddcup_shaped(1)` and the first
+     150,000 rows of `kddcup_shaped(2)` (two shape buckets, 524,288 and
+     262,144 rows), the canonical prepares and the solve timed, its
+     launches (one solve a bucket), each lane bit-identical to its
+     one-lane stacked fit, with indices below its row count and its cost
+     in original coordinates; then the lane axis of the three kernels at
+     B = 4 lanes of that bucket (H = 12, d = 74) with per-lane and shared
+     (stride-0) codes, against their plain versions and, lane by lane,
+     the solo launch bit for bit, and at B = 1 against the plain
+     versions, and their times as CUDA graphs
+     beside the bound from the bytes (shared codes read once); and the
      cpu backend's six NumPy seeders on the host at n = 31,102 (the first
      tenth of the rows), their host times and float64 cost ratios to
      exact k-means++ (information only);
@@ -149,6 +168,7 @@ KERNELS = {
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:94"),
 }
+STACK_SMALL = 150_000                   # the third stacked lane's rows
 KMP_ROUNDS = 5                          # the k-means|| defaults
 KMP_ELL = 2.0 * K
 KMP_CAP = int(min(N, max(8, 4 * KMP_ELL)))
@@ -441,33 +461,48 @@ def seeding_paths(torch, t_start: float) -> list:
                                         hi[ti, :, x], w, **sweep_kw)
     coarse = ts.init(w)
     x = int(rng.integers(n))
+    # The sweeps as a fit launches them: the lane form with one lane, codes
+    # (1, T, H-1, n_pad), the opened point x on the card, weights (1, n_pad).
+    lo1, hi1, w1 = lo[None], hi[None], w[None]
+    x1 = torch.tensor([x], dtype=torch.int64, device=dev)
     errs = {}
-    out = ops.tree_sep_update(lo[0], hi[0], lo[0, :, x], hi[0, :, x], w,
-                              **sweep_kw)
+    out = ops.tree_sep_update_lanes(lo1[:, 0], hi1[:, 0], x1, w1,
+                                    **sweep_kw)[0]
     plain = ref.tree_sep_update_ref(lo[0], hi[0], lo[0, :, x], hi[0, :, x], w,
                                     **sweep_kw)
+    solo = ops.tree_sep_update(lo[0], hi[0], lo[0, :, x], hi[0, :, x], w,
+                               **sweep_kw)
     torch.cuda.synchronize()
     errs["tree_sep_update"] = float((out - plain).abs().max())
-    if not torch.equal(out, plain):
+    if not torch.equal(out, plain) or not torch.equal(solo, plain):
         raise AssertionError(f"tree_sep_update differs from its plain version"
-                             f": max abs {errs['tree_sep_update']}")
-    log(f"tree_sep_update: H-1={h} n_pad={ts.n_pad}: bit-identical to the "
-        "plain version")
-    out, sums = ops.tree_sep_update_tiles(lo[t - 1], hi[t - 1],
-                                          lo[t - 1, :, x], hi[t - 1, :, x],
-                                          w, block_n=tile, **sweep_kw)
+                             f": max abs {errs['tree_sep_update']}, the solo "
+                             f"call form equal {torch.equal(solo, plain)}")
+    log(f"tree_sep_update: H-1={h} n_pad={ts.n_pad}, one lane as a fit "
+        "launches it: bit-identical to the plain version; the solo call form "
+        "too")
+    out, sums = (v[0] for v in ops.tree_sep_update_tiles_lanes(
+        lo1[:, t - 1], hi1[:, t - 1], x1, w1, block_n=tile, **sweep_kw))
     plain, psums = ref.tree_sep_update_tiles_ref(
         lo[t - 1], hi[t - 1], lo[t - 1, :, x], hi[t - 1, :, x], w,
         block_n=tile, **sweep_kw)
+    solo, ssums = ops.tree_sep_update_tiles(lo[t - 1], hi[t - 1],
+                                            lo[t - 1, :, x], hi[t - 1, :, x],
+                                            w, block_n=tile, **sweep_kw)
     torch.cuda.synchronize()
     rel = float(((sums - psums).abs() / psums.abs().clamp_min(1e-30)).max())
     errs["tree_sep_update_tiles"] = max(float((out - plain).abs().max()),
                                         float((sums - psums).abs().max()))
-    if not torch.equal(out, plain) or rel > RTOL:
+    if not torch.equal(out, plain) or rel > RTOL or \
+            not (torch.equal(solo, out) and torch.equal(ssums, sums)):
         raise AssertionError(f"tree_sep_update_tiles: w' equal "
-                             f"{torch.equal(out, plain)}, tile sums rel {rel}")
-    log(f"tree_sep_update_tiles: w' bit-identical; {ts.num_tiles} tile sums "
-        f"max rel err {rel:.3g} (rtol {RTOL})")
+                             f"{torch.equal(out, plain)}, tile sums rel {rel}"
+                             f", the solo call form equal "
+                             f"{torch.equal(solo, out)}, "
+                             f"{torch.equal(ssums, sums)}")
+    log(f"tree_sep_update_tiles, one lane as a fit launches it: w' "
+        f"bit-identical; {ts.num_tiles} tile sums max rel err {rel:.3g} "
+        f"(rtol {RTOL}); the solo call form bit-identical to it")
 
     pts_pad = ds._pad_axis(data.points, 0, ts.n_pad)
     klo = ds._pad_axis(data.keys_lo, 1, ts.n_pad)
@@ -485,18 +520,28 @@ def seeding_paths(torch, t_start: float) -> list:
         ck_hi[:, :count] = khi[:, centers[:count]]
         return ck_lo, ck_hi, c
 
-    log(f"lsh_bucket_accept and lsh_bucket_min (L={l}, d={D}, {K} "
-        "slots): B count hits max|d2 err| max rel err")
+    def one_lane(args):
+        """The accept's inputs as a fit passes them: every candidate in
+        lane 0, the center buffers (1, L, K) and (1, K, D)."""
+        lanes = torch.zeros(args[2].shape[0], dtype=torch.int64, device=dev)
+        return args[:3] + (lanes,) + tuple(a[None] for a in args[3:6]) + \
+            args[6:]
+
+    log(f"lsh_bucket_accept (one lane as a fit launches it) and "
+        f"lsh_bucket_min (L={l}, d={D}, {K} slots): B count hits max|d2 err| "
+        "max rel err")
     errs["lsh_bucket_accept"] = errs["lsh_bucket_min"] = 0.0
     for b in (32, 64, 128, 256, 512):
         cand = ts.sample(coarse, w, gen, b)
         q_args = (klo[:, cand], khi[:, cand], pts_pad[cand])
         for count in (0, 1, K // 2, K):
             args = q_args + center_slots(count) + (w[cand],)
-            d2, p = ops.lsh_bucket_accept(*args, count, c2=c2)
+            d2, p = ops.lsh_bucket_accept_lanes(*one_lane(args), count, c2=c2)
             d2_only = ops.lsh_bucket_min(*args[:6], count)
-            again = ops.lsh_bucket_accept(*args, count, c2=c2) + (
+            again = ops.lsh_bucket_accept_lanes(
+                *one_lane(args), count, c2=c2) + (
                 ops.lsh_bucket_min(*args[:6], count),)
+            solo = ops.lsh_bucket_accept(*args, count, c2=c2)
             pd2, pp = ref.lsh_bucket_accept_ref(*args, count, c2=c2)
             pd2_only = ref.lsh_bucket_min_ref(*args[:6], count)
             torch.cuda.synchronize()
@@ -504,6 +549,10 @@ def seeding_paths(torch, t_start: float) -> list:
                        for x, y in zip((d2, p, d2_only), again)):
                 raise AssertionError(f"LSH queries at B={b} count={count}: "
                                      "a second launch differs")
+            if not (torch.equal(solo[0], d2) and torch.equal(solo[1], p)):
+                raise AssertionError(f"lsh_bucket_accept at B={b} count="
+                                     f"{count}: the solo call form differs "
+                                     "from the one-lane launch")
             miss = pd2 == ref.LSH_MISS
             if not (torch.equal(d2 == ref.LSH_MISS, miss)
                     and torch.equal(d2_only == ref.LSH_MISS, miss)
@@ -694,22 +743,30 @@ def seeding_paths(torch, t_start: float) -> list:
 
     log(f"[{time.perf_counter() - t_start:.1f} s] references")
     # -- 6. the result against references ---------------------------------------
-    def replay(sweep, sweep_tiles):
+    def replay(open_center):
         weights = torch.zeros(ts.n_pad, device=dev)
         weights[:n] = data.m_init
         heap = ts.init(weights)
         for x in fit.indices.tolist():
-            for ti in range(t - 1):
-                weights = sweep(lo[ti], hi[ti], lo[ti, :, x], hi[ti, :, x],
-                                weights, **sweep_kw)
-            weights, tsums = sweep_tiles(lo[t - 1], hi[t - 1],
-                                         lo[t - 1, :, x], hi[t - 1, :, x],
-                                         weights, block_n=tile, **sweep_kw)
+            weights, tsums = open_center(weights, x)
             heap = ts.refresh(heap, tsums)
         return weights, heap
 
-    w_k, heap_k = replay(ops.tree_sep_update, ops.tree_sep_update_tiles)
-    w_p, heap_p = replay(ref.tree_sep_update_ref, ref.tree_sep_update_tiles_ref)
+    def open_plain(weights, x):
+        for ti in range(t - 1):
+            weights = ref.tree_sep_update_ref(lo[ti], hi[ti], lo[ti, :, x],
+                                              hi[ti, :, x], weights,
+                                              **sweep_kw)
+        return ref.tree_sep_update_tiles_ref(
+            lo[t - 1], hi[t - 1], lo[t - 1, :, x], hi[t - 1, :, x], weights,
+            block_n=tile, **sweep_kw)
+
+    # The kernels as the fit opens a center: one lane-form launch a tree.
+    _, open_kernel, _, _ = ds._initial_state(
+        data.codes_lo, data.codes_hi, scale=data.scale,
+        num_levels=data.num_levels, m_init=data.m_init, tile=tile)
+    w_k, heap_k = replay(open_kernel)
+    w_p, heap_p = replay(open_plain)
     torch.cuda.synchronize()
     leaves = slice(ts.coarse.cap, ts.coarse.cap + ts.num_tiles)
     leaf_rel = float(((heap_k[leaves] - heap_p[leaves]).abs()
@@ -795,28 +852,34 @@ def seeding_paths(torch, t_start: float) -> list:
 
     def lsh_bound(b, n_pairs, accept):
         """Each live input read once (no slot past the count is an input
-        of the function), each output written once; key compares, q.c for
+        of the function; the accept's lane form also reads an int64 lane
+        a candidate), each output written once; key compares, q.c for
         colliding pairs, |q|^2 and |c|^2, the epilogue."""
         return bound(
             4 * (2 * l * b + b * D + 2 * l * count_main + count_main * D
-                 + (3 if accept else 1) * b),
+                 + (5 if accept else 1) * b),
             b * count_main * 2 * l + n_pairs * 2 * D
             + (b + count_main) * 2 * D + (6 if accept else 1) * b)
 
     lsh_args, n_collide = lsh_inputs(b_main)
+    lane_lsh_args = one_lane(lsh_args)
+    # Rows 1 to 3 time the call forms a fit launches (one lane of the lane
+    # axis); the plain version of one lane is the solo plain version.
     cols = [(lo[ti], hi[ti], lo[ti, :, x], hi[ti, :, x]) for ti in range(t)]
     times = {
         "tree_sep_update": (
-            lambda i: sweep_cuda.launch(*cols[i % t], w, **sweep_kw),
+            lambda i: sweep_cuda.launch_lanes(lo1[:, i % t], hi1[:, i % t],
+                                              x1, w1, **sweep_kw),
             lambda i: ref.tree_sep_update_ref(*cols[i % t], w, **sweep_kw)),
         "tree_sep_update_tiles": (
-            lambda i: sweep_cuda.launch_tiles(*cols[i % t], w, tile=tile,
-                                              **sweep_kw),
+            lambda i: sweep_cuda.launch_tiles_lanes(
+                lo1[:, i % t], hi1[:, i % t], x1, w1, tile=tile, **sweep_kw),
             lambda i: ref.tree_sep_update_tiles_ref(*cols[i % t], w,
                                                     block_n=tile,
                                                     **sweep_kw)),
         "lsh_bucket_accept": (
-            lambda i: lsh_cuda.launch(*lsh_args, count=count_main, c2=c2),
+            lambda i: lsh_cuda.launch_lanes(*lane_lsh_args, count=count_main,
+                                            c2=c2),
             lambda i: ref.lsh_bucket_accept_penalty_ref(
                 *lsh_args[:6], penalty, lsh_args[6], c2=c2)),
         "lsh_bucket_min": (
@@ -851,7 +914,9 @@ def seeding_paths(torch, t_start: float) -> list:
 
     library = {"pairwise_argmin": (cdist_min(slots_all), 3)}
     slots_all_pad = ops._pad_to(slots_all, 0, pam_cuda.BLOCK_K, ops._PAD_FAR)
-    sweep_bytes = 4 * (2 * h * ts.n_pad + 2 * h + 2 * ts.n_pad)
+    # The lane form reads the codes, the center column within them, the
+    # weights and the int64 point; it writes w'.
+    sweep_bytes = 4 * (2 * h * ts.n_pad + 2 * h + 2 * ts.n_pad) + 8
     sweep_ops = ts.n_pad * (4 * h + 6)
     bounds = {
         "tree_sep_update": bound(sweep_bytes, sweep_ops),
@@ -934,7 +999,8 @@ def seeding_paths(torch, t_start: float) -> list:
     # The ladder's lowest rung: the new kernel spreads the slots over the
     # card, so B = 32 should take no longer than the path's block.
     args32, pairs32 = lsh_inputs(32)
-    acc32 = lambda i: lsh_cuda.launch(*args32, count=count_main, c2=c2)
+    lane32 = one_lane(args32)
+    acc32 = lambda i: lsh_cuda.launch_lanes(*lane32, count=count_main, c2=c2)
     ms32 = min(graph_ms(torch, acc32, 100), graph_ms(torch, acc32, 100))
     plain32 = cuda_ms(torch, lambda i: ref.lsh_bucket_accept_penalty_ref(
         *args32[:6], penalty, args32[6], c2=c2), 100)
@@ -948,14 +1014,17 @@ def seeding_paths(torch, t_start: float) -> list:
     # (phase 8).
     by_count = {}
     for live in range(K // 10, K + 1, K // 10):
-        args_live = lsh_args[:3] + center_slots(live) + lsh_args[6:]
-        by_count[live] = graph_ms(torch, lambda i: lsh_cuda.launch(
+        args_live = one_lane(lsh_args[:3] + center_slots(live)
+                             + lsh_args[6:])
+        by_count[live] = graph_ms(torch, lambda i: lsh_cuda.launch_lanes(
             *args_live, count=live, c2=c2), 50)
     log(f"time lsh_bucket_accept at B={b_main} by live count (CUDA graph): "
         + ", ".join(f"{live}: {ms:.6f}" for live, ms in by_count.items())
         + f" ms; mean {sum(by_count.values()) / len(by_count):.6f} ms")
-    log(f"  (sweeps: H-1={h}, n_pad={ts.n_pad}, trees in turn so the code "
-        f"planes do not sit in L2; lsh_bucket_accept: B={b_main}, the main "
+    log(f"  (sweeps: one lane as a fit launches them, H-1={h}, "
+        f"n_pad={ts.n_pad}, trees in turn so the code planes do not sit in "
+        f"L2; lsh_bucket_accept: one lane as a fit launches it, B={b_main}, "
+        f"the main "
         f"path's most used block, {count_main} live of {K} slots, "
         f"{n_collide} colliding pairs, and lsh_bucket_min on the same "
         f"inputs; pairwise_argmin: {N} x {KMP_CAP} x {D}, the slots padded "
@@ -1016,7 +1085,7 @@ def seeding_paths(torch, t_start: float) -> list:
                                  ProfilerActivity.CUDA],
                      acc_events=True) as prof:
             for _ in range(50):
-                lsh_cuda.launch(*lsh_args, count=count_main, c2=c2)
+                lsh_cuda.launch_lanes(*lane_lsh_args, count=count_main, c2=c2)
                 if gap:
                     torch.cuda.synchronize()
                     time.sleep(gap)
@@ -1046,8 +1115,10 @@ def other_entry_points(torch, t_start, points, plan, fit, km_fit, t) -> None:
 
     log(f"[{time.perf_counter() - t_start:.1f} s] the legacy fit")
     sweeps = {"tree_sep_update": (t - 1) * K, "tree_sep_update_tiles": K}
-    fast_fit = ClusterPlan(ClusterSpec(k=K, seeder="fastkmeans++", seed=SEED),
-                           ExecutionSpec(backend="device")).fit(points)
+    plan_fast = ClusterPlan(ClusterSpec(k=K, seeder="fastkmeans++",
+                                        seed=SEED),
+                            ExecutionSpec(backend="device"))
+    fast_fit = plan_fast.fit(points)
     plan_idx = {"rejection": fit.indices, "fastkmeans++": fast_fit.indices,
                 "kmeans||": km_fit.indices}
     for seeder, want in plan_idx.items():
@@ -1079,40 +1150,11 @@ def other_entry_points(torch, t_start, points, plan, fit, km_fit, t) -> None:
             f"quantisation and float64 cost {km.cost:.10g}); "
             f"launches={counts}; the same {K} indices as ClusterPlan.fit")
 
-    log(f"[{time.perf_counter() - t_start:.1f} s] fit_batch and no_retrace")
-    seeds = [0, 1, 2, 3]
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    batch = plan.fit_batch(seeds=seeds)
-    torch.cuda.synchronize()
-    batch_s = time.perf_counter() - t0
-    batch_counts = ops.launch_counts()
-    solo, lane_lsh = collections.Counter(), []
-    for i, s in enumerate(seeds):
-        ops.reset_launch_counts()
-        lane = plan.refit(seed=s)
-        torch.cuda.synchronize()
-        solo.update(ops.launch_counts())
-        lane_lsh.append(ops.launch_counts()["lsh_bucket_accept"])
-        if not (torch.equal(batch.indices[i], lane.indices)
-                and torch.equal(batch.centers[i], lane.centers)
-                and torch.equal(batch.cost[i], lane.cost)):
-            raise AssertionError(f"fit_batch lane {i} differs from "
-                                 f"refit(seed={s})")
-    if not torch.equal(batch.indices[0], fit.indices):
-        raise AssertionError("fit_batch lane 0 (the spec's seed) differs "
-                             "from the fit")
-    four = {name: len(seeds) * v for name, v in sweeps.items()}
-    if batch_counts != dict(solo) or any(batch_counts[name] != v
-                                         for name, v in four.items()):
-        raise AssertionError(f"fit_batch launches {batch_counts}, four "
-                             f"refits {dict(solo)}, sweeps expected {four}")
-    log(f"  fit_batch(seeds={seeds}) on the rejection plan: "
-        f"{batch_s:.3f} s (solve_seconds {batch.solve_seconds:.3f}); "
-        f"launches={batch_counts}, the sum of four refits' (lsh_bucket_accept"
-        f" {lane_lsh} a lane); each lane "
-        f"bit-identical to refit(seed=s), lane 0 to the fit; costs "
-        f"{[round(float(c), 1) for c in batch.cost]}")
+    log(f"[{time.perf_counter() - t_start:.1f} s] fit_batch(seeds) and "
+        "no_retrace")
+    for seeder, p, first in (("rejection", plan, fit),
+                             ("fastkmeans++", plan_fast, fast_fit)):
+        fit_batch_seeds(torch, ops, seeder, p, first, sweeps)
     builds = {name: v for name, v in TRACE_COUNTS.items()
               if name.startswith("build/")}
     with no_retrace():
@@ -1121,6 +1163,7 @@ def other_entry_points(torch, t_start, points, plan, fit, km_fit, t) -> None:
         torch.cuda.synchronize()
     log(f"  no_retrace() held around refit(seed=5) and refit(seed=6); "
         f"builds counted in this process: {builds}")
+    stacked_lanes(torch, t_start)
 
     # The cpu backend: host NumPy seeders, as in the JAX package; only the
     # gather and the f32 cost of each FitResult run on the card.
@@ -1148,6 +1191,342 @@ def other_entry_points(torch, t_start, points, plan, fit, km_fit, t) -> None:
             f"card's gather and f32 cost), float64 cost "
             f"{costs[seeder]:.10g} ({costs[seeder] / costs['kmeans++']:.4f} "
             "of exact kmeans++); no kernel launched")
+
+
+def fit_batch_seeds(torch, ops, seeder, plan, first, sweeps) -> None:
+    """`fit_batch(seeds=[0, 1, 2, 3])` on a prepared full-width plan: one
+    lane-batched solve (each sweep launched once a center for the four
+    lanes, the accept kernel once a round for the lanes still drawing),
+    each lane bit-identical to `refit(seed=s)` and lane 0 to the fit; its
+    time beside the four refits'."""
+    seeds = [0, 1, 2, 3]
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    batch = plan.fit_batch(seeds=seeds)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    batch_counts = ops.launch_counts()
+    lane_lsh, refit_s = [], 0.0
+    for i, s in enumerate(seeds):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        lane = plan.refit(seed=s)
+        torch.cuda.synchronize()
+        refit_s += time.perf_counter() - t0
+        lane_lsh.append(ops.launch_counts()["lsh_bucket_accept"])
+        same = (torch.equal(batch.indices[i], lane.indices)
+                and torch.equal(batch.centers[i], lane.centers)
+                and torch.equal(batch.cost[i], lane.cost))
+        if seeder == "rejection":
+            same = same and torch.equal(batch.extras["trials"][i],
+                                        lane.extras["trials"])
+        if not same:
+            raise AssertionError(f"fit_batch {seeder} lane {i} differs from "
+                                 f"refit(seed={s})")
+    if not torch.equal(batch.indices[0], first.indices):
+        raise AssertionError(f"fit_batch {seeder} lane 0 (the spec's seed) "
+                             "differs from the fit")
+    want = dict({name: 0 for name in batch_counts}, **sweeps)
+    lsh = batch_counts["lsh_bucket_accept"]
+    want["lsh_bucket_accept"] = lsh
+    if batch_counts != want or batch.extras.get("vmapped") is not True or (
+            seeder == "rejection"
+            and not max(lane_lsh) <= lsh <= sum(lane_lsh)) or (
+            seeder != "rejection" and lsh != 0):
+        raise AssertionError(f"fit_batch {seeder} launches {batch_counts}, "
+                             f"expected the sweeps {sweeps} and "
+                             f"lsh_bucket_accept in [{max(lane_lsh)}, "
+                             f"{sum(lane_lsh)}] (the refits' {lane_lsh})")
+    log(f"  fit_batch(seeds={seeds}) on the {seeder} plan, one lane-batched "
+        f"solve: {batch_s:.3f} s (solve_seconds {batch.solve_seconds:.3f}); "
+        f"the four refits {refit_s:.3f} s in all, "
+        f"{refit_s / batch_s:.3f} times the batch; launches={batch_counts} "
+        f"(the refits' lsh_bucket_accept {lane_lsh}, sum "
+        f"{sum(lane_lsh)}); each lane bit-identical to refit(seed=s), lane 0 "
+        f"to the fit; costs {[round(float(c), 1) for c in batch.cost]}")
+
+
+def stacked_lanes(torch, t_start) -> None:
+    """Phase 8c: `fit_batch(datasets=...)` of the rejection seeder at full
+    width, then the lane axis of the three kernels on its lanes."""
+    from repro_torch.core.batch_schedule import shape_bucket
+    from repro_torch.core.plan import ClusterPlan, ClusterSpec, ExecutionSpec
+    from repro_torch.core.sample_tree import TiledSampleTree
+    from repro_torch.kernels import lsh_bucket_accept_cuda as lsh_cuda
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import tree_sep_update_cuda as sweep_cuda
+
+    dev = torch.device("cuda")
+    log(f"[{time.perf_counter() - t_start:.1f} s] fit_batch(datasets=...) "
+        f"at full width, d={D}, k={K}, rejection")
+    datasets = [kddcup_shaped(SEED), kddcup_shaped(SEED + 1),
+                kddcup_shaped(SEED + 2)[:STACK_SMALL]]
+    plan = ClusterPlan(ClusterSpec(k=K, seeder="rejection", seed=SEED),
+                       ExecutionSpec(backend="device"))
+    preps = [plan.prepare_stacked(x) for x in datasets]
+    log("  prepare_stacked (the canonical lanes): " + ", ".join(
+        f"n={p.artifacts.n_real} in {p.artifacts.arrays[0].shape[-1]} rows "
+        f"{p.prepare_seconds:.3f} s" for p in preps)
+        + f"; statics (scale, num_levels, m_init) {preps[0].artifacts.statics}")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    batch = plan.fit_batch(datasets=datasets)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    ex = batch.extras
+    tile = plan.execution.tile
+    rows = [shape_bucket(r, min_bucket=max(1024, tile))
+            for r in (N, N, STACK_SMALL)]          # 524,288 and 262,144
+    want = {"stacked": True, "vmapped": True, "shape_buckets": 2,
+            "lane_rows": (N, N, STACK_SMALL), "bucket_rows": tuple(rows)}
+    if any(ex[key] != v for key, v in want.items()):
+        raise AssertionError(f"fit_batch(datasets=...) extras {ex}")
+    t = preps[0].artifacts.arrays[0].shape[0]
+    solo_lsh, solo_s = [], []
+    for i, x in enumerate(datasets):
+        ops.reset_launch_counts()
+        solo = plan.fit_batch(datasets=[x])
+        torch.cuda.synchronize()
+        solo_lsh.append(ops.launch_counts()["lsh_bucket_accept"])
+        solo_s.append(solo.solve_seconds)
+        idx = batch.indices[i]
+        pts64 = torch.as_tensor(x, device=dev)
+        exact = cost64(torch, pts64, pts64[idx.long()])
+        rel = abs(float(batch.cost[i]) - exact) / exact
+        if not (torch.equal(idx, solo.indices[0])
+                and torch.equal(batch.cost[i], solo.cost[0])
+                and torch.equal(ex["trials"][i], solo.extras["trials"][0])):
+            raise AssertionError(f"fit_batch(datasets=...) lane {i} differs "
+                                 "from its one-lane stacked fit")
+        if int(idx.min()) < 0 or int(idx.max()) >= len(x) or \
+                len(torch.unique(idx)) != K or rel > 1e-4:
+            raise AssertionError(f"fit_batch(datasets=...) lane {i}: "
+                                 f"indices or cost {float(batch.cost[i])} "
+                                 f"against {exact} in float64")
+        del pts64
+    lsh = counts["lsh_bucket_accept"]
+    groups = (max(solo_lsh[:2]) + solo_lsh[2], sum(solo_lsh))
+    if counts != dict({name: 0 for name in counts},
+                      tree_sep_update=2 * (t - 1) * K,
+                      tree_sep_update_tiles=2 * K, lsh_bucket_accept=lsh) \
+            or not groups[0] <= lsh <= groups[1]:
+        raise AssertionError(f"fit_batch(datasets=...) launches {counts}, "
+                             f"expected two solves of {(t - 1) * K} and {K} "
+                             f"sweeps and lsh_bucket_accept in {groups}")
+    log(f"  fit_batch(datasets=[kddcup_shaped(0), kddcup_shaped(1), "
+        f"kddcup_shaped(2)[:{STACK_SMALL}]]): solve {batch_s:.3f} s "
+        f"(solve_seconds {batch.solve_seconds:.3f}) in {ex['shape_buckets']}"
+        f" shape buckets, lane_rows {ex['lane_rows']}, bucket_rows "
+        f"{ex['bucket_rows']}; launches={counts} (the one-lane fits' "
+        f"lsh_bucket_accept {solo_lsh}, their solves "
+        f"{[round(v, 3) for v in solo_s]} s, {sum(solo_s):.3f} s in all, "
+        f"{sum(solo_s) / batch_s:.3f} times the batch); trials per center "
+        f"{[round(float(v.sum()) / K, 3) for v in ex['trials']]}; each "
+        "lane bit-identical to its "
+        "one-lane stacked fit, indices below its n_real, cost in original "
+        f"coordinates within 1e-4 of float64: "
+        f"{[round(float(c), 1) for c in batch.cost]}")
+
+    # -- the lane axis: B = 4 lanes (the two KDD-Cup-shaped lanes twice) in
+    # the 524,288 bucket, H = 12, d = 74, mid-solve weights.
+    log(f"[{time.perf_counter() - t_start:.1f} s] the lane axis of the "
+        f"kernels, B=4 in the {rows[0]} bucket")
+    lanes4 = [preps[j % 2].artifacts for j in range(4)]
+    lo4, hi4, pts4, klo4, khi4 = (torch.stack([a.arrays[m] for a in lanes4])
+                                  for m in range(5))
+    scale, num_levels, m_init = lanes4[0].statics
+    kw = dict(scale=scale, num_levels=num_levels)
+    b, t, h, n = lo4.shape
+    l = klo4.shape[1]
+    ts = TiledSampleTree(n, tile=tile)
+    rng = np.random.default_rng(SEED + 21)
+    w4 = torch.zeros(b, n, device=dev)
+    w4[:, :N] = m_init
+    for _ in range(8):                       # weights mid-solve
+        xr = torch.as_tensor(rng.integers(0, N, b), device=dev)
+        for ti in range(t):
+            w4 = ref.tree_sep_update_lanes_ref(lo4[:, ti], hi4[:, ti], xr, w4,
+                                               **kw)
+    x4 = torch.as_tensor(rng.integers(0, N, b), device=dev)
+    codes = {"per-lane codes": (lo4, hi4),
+             "shared codes (stride 0)": (lo4[0].expand(b, t, h, n),
+                                         hi4[0].expand(b, t, h, n))}
+    for label, (lo, hi) in codes.items():
+        out = ops.tree_sep_update_lanes(lo[:, 0], hi[:, 0], x4, w4, **kw)
+        tout, tsums = ops.tree_sep_update_tiles_lanes(
+            lo[:, t - 1], hi[:, t - 1], x4, w4, block_n=tile, **kw)
+        plain = ref.tree_sep_update_lanes_ref(lo[:, 0], hi[:, 0], x4, w4,
+                                              **kw)
+        pout, psums = ref.tree_sep_update_tiles_lanes_ref(
+            lo[:, t - 1], hi[:, t - 1], x4, w4, block_n=tile, **kw)
+        same = []
+        for j, xj in enumerate(x4.tolist()):
+            one = ops.tree_sep_update(lo[j, 0], hi[j, 0], lo[j, 0, :, xj],
+                                      hi[j, 0, :, xj], w4[j], **kw)
+            one_t, one_s = ops.tree_sep_update_tiles(
+                lo[j, t - 1], hi[j, t - 1], lo[j, t - 1, :, xj],
+                hi[j, t - 1, :, xj], w4[j], block_n=tile, **kw)
+            same.append(torch.equal(out[j], one) and torch.equal(tout[j], one_t)
+                        and torch.equal(tsums[j], one_s))
+        # B = 1, timed below: lane 0 alone against the plain version.
+        same.append(torch.equal(ops.tree_sep_update_lanes(
+            lo[:1, 0], hi[:1, 0], x4[:1], w4[:1], **kw), plain[:1]))
+        torch.cuda.synchronize()
+        rel = float(((tsums - psums).abs()
+                     / psums.abs().clamp_min(1e-30)).max())
+        if not (torch.equal(out, plain) and torch.equal(tout, pout)
+                and rel <= RTOL and all(same)):
+            raise AssertionError(f"lane-axis sweeps, {label}: plain equal "
+                                 f"{torch.equal(out, plain)}, "
+                                 f"{torch.equal(tout, pout)}, tile sums rel "
+                                 f"{rel}, lanes equal to solo launches and "
+                                 f"B=1 to the plain version {same}")
+        log(f"  tree_sep_update and _tiles, lane axis, {label}: w' "
+            f"bit-identical to the plain version and, lane by lane, to the "
+            f"solo launch, and at B=1 to the plain version; tile sums max "
+            f"rel err {rel:.3g} of the plain "
+            f"ones (rtol {RTOL}), bit-identical to the one-lane launch")
+
+    count = K // 2
+    c2 = plan.cluster.c ** 2
+    every = torch.arange(b, device=dev)
+    heaps = torch.stack([ts.init(w4[j].clone()) for j in range(b)])
+    cidx = torch.as_tensor(rng.integers(0, N, (b, count)), device=dev)
+    ctr = torch.full((b, K, D), 1.0e17, device=dev)
+    ctr[:, :count] = pts4[every[:, None], cidx]
+    ck_lo = torch.zeros((b, l, K), dtype=torch.int32, device=dev)
+    ck_hi = torch.zeros_like(ck_lo)
+    ck_lo[:, :, :count] = torch.gather(klo4, 2, cidx[:, None].expand(
+        b, l, count))
+    ck_hi[:, :, :count] = torch.gather(khi4, 2, cidx[:, None].expand(
+        b, l, count))
+    penalty = ops.penalty_row(K, count, dev)
+
+    def lsh_lane_inputs(sizes):
+        lanes = torch.as_tensor(np.repeat(np.arange(b), sizes), device=dev)
+        gens = [torch.Generator(device=dev).manual_seed(SEED + j)
+                for j in range(b)]
+        cand = ts.sample_lanes(heaps, w4, gens, list(sizes), lanes)
+        args = (klo4.transpose(0, 1)[:, lanes, cand],
+                khi4.transpose(0, 1)[:, lanes, cand], pts4[lanes, cand],
+                lanes, ck_lo, ck_hi, ctr, w4[lanes, cand])
+        pairs = [int(((args[0][:, lanes == j][:, :, None]
+                       == ck_lo[j, :, None, :count])
+                      & (args[1][:, lanes == j][:, :, None]
+                         == ck_hi[j, :, None, :count])).any(dim=0).sum())
+                 for j in range(b)]
+        return args, pairs
+
+    lsh_err = 0.0
+    for sizes in ((512,) * b, (32, 512, 128, 256)):
+        args, pairs = lsh_lane_inputs(sizes)
+        d2, p = ops.lsh_bucket_accept_lanes(*args, count, c2=c2)
+        pd2, pp = ref.lsh_bucket_accept_lanes_penalty_ref(
+            *args[:7], penalty, args[7], c2=c2)
+        same, start = [], 0
+        for j, size in enumerate(sizes):
+            seg = slice(start, start + size)
+            one = ops.lsh_bucket_accept(
+                args[0][:, seg].contiguous(), args[1][:, seg].contiguous(),
+                args[2][seg], ck_lo[j], ck_hi[j], ctr[j], args[7][seg],
+                count, c2=c2)
+            same.append(torch.equal(d2[seg], one[0])
+                        and torch.equal(p[seg], one[1]))
+            start += size
+        torch.cuda.synchronize()
+        miss = pd2 == ref.LSH_MISS
+        hit = ~miss
+        err = max(float((d2 - pd2)[hit].abs().max()) if hit.any() else 0.0,
+                  float((p - pp).abs().max()))
+        lsh_err = max(lsh_err, err)
+        if not (torch.equal(d2 == ref.LSH_MISS, miss) and all(same)
+                and torch.allclose(d2[hit], pd2[hit], rtol=RTOL, atol=RTOL)
+                and torch.allclose(p, pp, rtol=RTOL, atol=RTOL)):
+            raise AssertionError(f"lane-axis lsh_bucket_accept at {sizes}: "
+                                 f"err {err}, lanes equal to one-lane "
+                                 f"launches {same}")
+        log(f"  lsh_bucket_accept, lane axis, blocks {sizes} against "
+            f"{count} live of {K} slots a lane ({sum(pairs)} colliding "
+            f"pairs): max abs err {err:.3g} against the plain version (rtol "
+            f"{RTOL}), {int(hit.sum())} hits; each lane bit-identical to "
+            "its one-lane launch")
+
+    # Times: a CUDA graph of 100 launches, best of two, beside the plain
+    # version and the bound from the bytes (shared codes read once).
+    def sweep_bound(lanes, shared, tiles):
+        nbytes = 4 * 2 * h * n * (1 if shared else lanes) \
+            + lanes * (4 * (2 * h + 2 * n) + 8)
+        ops_ = lanes * n * (4 * h + 6)
+        if tiles:
+            nbytes += 4 * lanes * (n // tile)
+            ops_ += lanes * n
+        return bound(nbytes, ops_)
+
+    def lsh_lanes_bound(sizes, pairs):
+        nbytes = sum(4 * (2 * l * bj + bj * D + 3 * bj) + 8 * bj
+                     for bj in sizes) + 4 * b * (2 * l * count + count * D)
+        ops_ = sum(bj * count * 2 * l + pj * 2 * D + (bj + count) * 2 * D
+                   + 6 * bj for bj, pj in zip(sizes, pairs))
+        return bound(nbytes, ops_)
+
+    args, pairs = lsh_lane_inputs((512,) * b)
+    one = torch.zeros(512, dtype=torch.int64, device=dev)
+    args1 = (args[0][:, :512].contiguous(), args[1][:, :512].contiguous(),
+             args[2][:512], one, ck_lo[:1], ck_hi[:1], ctr[:1], args[7][:512])
+    # B = 1, timed below: lane 0 alone against the plain version.
+    d2, p = ops.lsh_bucket_accept_lanes(*args1, count, c2=c2)
+    pd2, pp = ref.lsh_bucket_accept_lanes_penalty_ref(*args1[:7], penalty,
+                                                      args1[7], c2=c2)
+    hit = pd2 != ref.LSH_MISS
+    if not (torch.equal(d2 != ref.LSH_MISS, hit)
+            and torch.allclose(d2[hit], pd2[hit], rtol=RTOL, atol=RTOL)
+            and torch.allclose(p, pp, rtol=RTOL, atol=RTOL)):
+        raise AssertionError("lane-axis lsh_bucket_accept at B=1 x 512 "
+                             "differs from the plain version")
+    cases = []
+    for label, (lo, hi) in codes.items():
+        shared = label.startswith("shared")
+        cases += [
+            (f"tree_sep_update, B={b}, {label}",
+             lambda i, lo=lo, hi=hi: sweep_cuda.launch_lanes(
+                 lo[:, i % t], hi[:, i % t], x4, w4, **kw),
+             lambda i, lo=lo, hi=hi: ref.tree_sep_update_lanes_ref(
+                 lo[:, i % t], hi[:, i % t], x4, w4, **kw),
+             sweep_bound(b, shared, False)),
+            (f"tree_sep_update_tiles, B={b}, {label}",
+             lambda i, lo=lo, hi=hi: sweep_cuda.launch_tiles_lanes(
+                 lo[:, i % t], hi[:, i % t], x4, w4, tile=tile, **kw),
+             lambda i, lo=lo, hi=hi: ref.tree_sep_update_tiles_lanes_ref(
+                 lo[:, i % t], hi[:, i % t], x4, w4, block_n=tile, **kw),
+             sweep_bound(b, shared, True))]
+    cases += [
+        ("tree_sep_update, B=1 (a solve of one dataset)",
+         lambda i: sweep_cuda.launch_lanes(lo4[:1, i % t], hi4[:1, i % t],
+                                           x4[:1], w4[:1], **kw),
+         lambda i: ref.tree_sep_update_lanes_ref(
+             lo4[:1, i % t], hi4[:1, i % t], x4[:1], w4[:1], **kw),
+         sweep_bound(1, False, False)),
+        (f"lsh_bucket_accept, B={b} x 512",
+         lambda i: lsh_cuda.launch_lanes(*args, count=count, c2=c2),
+         lambda i: ref.lsh_bucket_accept_lanes_penalty_ref(
+             *args[:7], penalty, args[7], c2=c2),
+         lsh_lanes_bound((512,) * b, pairs)),
+        ("lsh_bucket_accept, B=1 x 512",
+         lambda i: lsh_cuda.launch_lanes(*args1, count=count, c2=c2),
+         lambda i: ref.lsh_bucket_accept_lanes_penalty_ref(
+             *args1[:7], penalty, args1[7], c2=c2),
+         lsh_lanes_bound((512,), pairs[:1]))]
+    log(f"  lane-axis times on {smi('name,power.limit')}, n={n} rows a "
+        f"lane, H-1={h}, d={D}, {count} live of {K} slots:")
+    for label, kernel, plain_fn, (b_ms, b_by) in cases:
+        ms = min(graph_ms(torch, kernel, 100), graph_ms(torch, kernel, 100))
+        plain_ms = cuda_ms(torch, plain_fn, 5)
+        log(f"time lane axis {label}: kernel {ms:.6f} ms as a CUDA graph of "
+            f"100 launches, plain {plain_ms:.6f} ms, bound {b_ms:.6f} ms "
+            f"({b_by}), {b_ms / ms:.3f} of the bound")
+    log(f"  lane-axis max abs err against the plain versions: sweeps 0.0 "
+        f"(bit-identical), lsh_bucket_accept {lsh_err:.3g}")
 
 
 def check_attention(torch, ops, ref, q, k, v, causal: bool, label: str,

@@ -25,16 +25,25 @@ and how many accepted, in one transfer.  The block size follows the same
 adaptive `BatchSchedule` ladder; the rate EMA and the bucket index are
 Python numbers carried across rounds and centers.
 
-Draws come from one explicit `torch.Generator` on the tensors' device,
-seeded from the solve stage's NumPy rng where the JAX package built its
-`jax.random.key`; Philox cannot replay threefry, so the port matches the
-reference in law, not in indices.
+The loop is lane-batched: B solves of one shape (B seeds of one dataset,
+or B datasets of one shape bucket) advance in lockstep, center i of every
+lane in the same step, through the lane axis of the three kernels -- where
+the JAX package `jax.vmap`s its programs.  A solve of one dataset is the
+one-lane case.  Each lane keeps its own schedule state and its own
+generator, drawn in the one-lane order, so a lane's result does not depend
+on the others.
+
+Draws come from one explicit `torch.Generator` per lane on the tensors'
+device, seeded from the solve stage's NumPy rng where the JAX package
+built its `jax.random.key`; Philox cannot replay threefry, so the port
+matches the reference in law, not in indices.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import math
 import time
 from typing import Optional
 
@@ -42,7 +51,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import registry
-from repro_torch.core.batch_schedule import BatchSchedule
+from repro_torch.core.batch_schedule import BatchSchedule, shape_bucket
 from repro_torch.core.lsh import MonotoneLSH
 from repro_torch.core.plan import ExecutionSpec
 from repro_torch.core.sample_tree import TiledSampleTree
@@ -52,13 +61,18 @@ from repro_torch.core.seeding import (
     _candidate_pool_to_centers,
     _estimate_scale,
 )
-from repro_torch.core.tree_embedding import build_multitree
+from repro_torch.core.tree_embedding import build_multitree, compute_max_dist
 from repro_torch.kernels import ops
 
 __all__ = [
     "device_fast_kmeanspp",
     "device_rejection_sampling",
     "device_kmeans_parallel_rounds",
+    "StackedLane",
+    "prepared_lane",
+    "stacked_rejection_sampling",
+    "stacked_fast_kmeanspp",
+    "canonical_pow2_scale",
     "device_fast_kmeanspp_seeder",
     "device_rejection_seeder",
     "device_kmeans_parallel_seeder",
@@ -163,52 +177,125 @@ def seeding_data_from_arrays(data, device="cuda") -> DeviceSeedingData:
 
 
 def _pad_axis(a: torch.Tensor, axis: int, n_pad: int) -> torch.Tensor:
-    """Zero-pad one axis to `n_pad`."""
+    """Zero-pad one axis to `n_pad`.  A lane axis of stride 0 (one copy
+    shared by every lane, from `expand`) stays shared: the copy is padded
+    once."""
+    axis %= a.dim()
     pad = n_pad - a.shape[axis]
     if pad <= 0:
         return a
+    if axis > 0 and a.stride(0) == 0:
+        return _pad_axis(a[0], axis - 1, n_pad)[None].expand(
+            a.shape[0], *[-1] * (a.dim() - 1))
     shape = list(a.shape)
     shape[axis] = pad
     return torch.cat([a, a.new_zeros(shape)], dim=axis)
 
 
-def _make_open_center(codes_lo, codes_hi, *, scale, num_levels, tile):
-    """Per-center sweep over all trees; the last tree's kernel emits the
-    per-tile weight sums the coarse heap update consumes.  `x` is the
-    opened point's index (a Python int): its code column is passed as a
-    strided view, so no gather runs."""
-    t = codes_lo.shape[0]
+def _initial_weights(ts: TiledSampleTree, n_real: int, m_init: float,
+                     device) -> torch.Tensor:
+    """(n_pad,) f32: the first `n_real` rows at `m_init`, the rest at 0
+    (never sampled)."""
+    weights = torch.zeros(ts.n_pad, dtype=torch.float32, device=device)
+    weights[:n_real] = m_init
+    return weights
 
-    def open_center(weights, x: int):
+
+def _lane_start(codes_lo, codes_hi, n_real, *, scale, num_levels, m_init,
+                tile):
+    """The lane-batched seeders' state over codes (B, T, H-1, n):
+    (sampler, open_center, weights (B, n_pad), coarse heaps (B, 2 cap)).
+
+    `open_center(weights, x)` opens point x[j] (x (B,) int64 on the card)
+    in every lane j with one lane-axis launch per tree and returns
+    ``(weights', tile sums (B, T))``.  Lane j starts with its first
+    `n_real[j]` rows at `m_init`; each lane's first heap is built alone,
+    exactly as a one-lane solve builds it (a sum's rounding may depend on
+    its shape).
+    """
+    n = codes_lo.shape[-1]
+    ts = TiledSampleTree(n, tile=tile)
+    lo = _pad_axis(codes_lo, 3, ts.n_pad)
+    hi = _pad_axis(codes_hi, 3, ts.n_pad)
+    t = lo.shape[1]
+    sweep = dict(scale=scale, num_levels=num_levels)
+
+    def open_center(weights, x):
         for ti in range(t - 1):
-            weights = ops.tree_sep_update(
-                codes_lo[ti], codes_hi[ti], codes_lo[ti, :, x],
-                codes_hi[ti, :, x], weights, scale=scale,
-                num_levels=num_levels)
-        return ops.tree_sep_update_tiles(
-            codes_lo[t - 1], codes_hi[t - 1], codes_lo[t - 1, :, x],
-            codes_hi[t - 1, :, x], weights, scale=scale,
-            num_levels=num_levels, block_n=tile)
+            weights = ops.tree_sep_update_lanes(lo[:, ti], hi[:, ti], x,
+                                                weights, **sweep)
+        return ops.tree_sep_update_tiles_lanes(lo[:, t - 1], hi[:, t - 1], x,
+                                               weights, block_n=tile, **sweep)
 
-    return open_center
+    rows = [_initial_weights(ts, r, m_init, codes_lo.device) for r in n_real]
+    coarse = torch.stack([ts.init(w) for w in rows])
+    return ts, open_center, torch.stack(rows), coarse
 
 
 def _initial_state(codes_lo, codes_hi, *, scale, num_levels, m_init, tile):
-    """(sampler, open_center, weights0, coarse0) over the tile-padded codes:
-    live rows start at `m_init`, padded rows at 0 (never sampled)."""
-    n = codes_lo.shape[2]
-    ts = TiledSampleTree(n, tile=tile)
-    open_center = _make_open_center(
-        _pad_axis(codes_lo, 2, ts.n_pad), _pad_axis(codes_hi, 2, ts.n_pad),
-        scale=scale, num_levels=num_levels, tile=tile)
-    weights = torch.zeros(ts.n_pad, dtype=torch.float32,
-                          device=codes_lo.device)
-    weights[:n] = m_init
-    return ts, open_center, weights, ts.init(weights)
+    """(sampler, open_center, weights0, coarse0) of one dataset: the
+    one-lane case of `_lane_start`, with (n_pad,) weights and a heap, and
+    `open_center(weights, x)` taking the opened point as an int.  Replays
+    a given sequence of centers."""
+    ts, open_lanes, weights, coarse = _lane_start(
+        codes_lo[None], codes_hi[None], [codes_lo.shape[2]], scale=scale,
+        num_levels=num_levels, m_init=m_init, tile=tile)
+
+    def open_center(w, x: int):
+        w, tsums = open_lanes(w[None], torch.tensor([x], device=w.device))
+        return w[0], tsums[0]
+
+    return ts, open_center, weights[0], coarse[0]
 
 
 def _uniform_index(n: int, generator: torch.Generator, device) -> int:
     return int(torch.randint(0, n, (1,), generator=generator, device=device))
+
+
+def _lanes_of(codes_lo, generators, n_real):
+    """(B, device, per-lane live row counts, default all n rows)."""
+    b = len(generators)
+    if codes_lo.shape[0] != b:
+        raise ValueError(f"arrays of {codes_lo.shape[0]} lanes and {b} "
+                         "generators")
+    n = codes_lo.shape[-1]
+    n_real = [n] * b if n_real is None else [int(r) for r in n_real]
+    if len(n_real) != b or not all(1 <= r <= n for r in n_real):
+        raise ValueError(f"n_real must hold one count in 1..{n} per lane, "
+                         f"got {n_real}")
+    return b, codes_lo.device, n_real
+
+
+def stacked_fast_kmeanspp(codes_lo: torch.Tensor, codes_hi: torch.Tensor,
+                          k: int, generators, *, n_real=None, scale: float,
+                          num_levels: int, m_init: float,
+                          tile: int = 512) -> torch.Tensor:
+    """Algorithm 3 over B lanes in lockstep: (B, k) int32 chosen indices.
+
+    Codes are (B, T, H-1, n), lane j's dataset in row j; an `expand`ed
+    (stride-0) lane axis shares one dataset's codes, and nothing is copied
+    per lane.  Lane j draws from `generators[j]` and samples only its first
+    `n_real[j]` rows (default all n): the rest start, and stay, at weight 0.
+    Center i of every lane opens in the same step, with one lane-axis sweep
+    per tree; each lane's indices are those of its one-lane solve, bit for
+    bit.  Nothing syncs: the opened points stay on the card.
+    """
+    b, dev, n_real = _lanes_of(codes_lo, generators, n_real)
+    ts, open_center, weights, coarse = _lane_start(
+        codes_lo, codes_hi, n_real, scale=scale, num_levels=num_levels,
+        m_init=m_init, tile=tile)
+    lanes = torch.arange(b, device=dev)      # one draw a lane
+    chosen = []
+    for i in range(k):
+        if i == 0:
+            x = torch.cat([torch.randint(0, r, (1,), generator=g, device=dev)
+                           for r, g in zip(n_real, generators)])
+        else:
+            x = ts.sample_lanes(coarse, weights, generators, [1] * b, lanes)
+        weights, tsums = open_center(weights, x)
+        coarse = ts.refresh(coarse, tsums)
+        chosen.append(x)
+    return torch.stack(chosen, dim=1).to(torch.int32)
 
 
 def device_fast_kmeanspp(codes_lo: torch.Tensor, codes_hi: torch.Tensor,
@@ -216,26 +303,170 @@ def device_fast_kmeanspp(codes_lo: torch.Tensor, codes_hi: torch.Tensor,
                          num_levels: int, m_init: float,
                          tile: int = 512) -> torch.Tensor:
     """Algorithm 3 (D^2 sampling in the multi-tree metric).  Returns (k,)
-    int32 chosen indices on the codes' device.
+    int32 chosen indices on the codes' device: the one-lane case of
+    `stacked_fast_kmeanspp`.
 
     Per opened center the sample structure is fixed incrementally: the last
     tree sweep's tile sums feed one `TiledSampleTree.refresh`.
     """
-    n = codes_lo.shape[2]
-    dev = codes_lo.device
-    ts, open_center, weights, coarse = _initial_state(
-        codes_lo, codes_hi, scale=scale, num_levels=num_levels,
+    return stacked_fast_kmeanspp(
+        codes_lo[None], codes_hi[None], k, [generator], scale=scale,
+        num_levels=num_levels, m_init=m_init, tile=tile)[0]
+
+
+def _block_layout(sizes: tuple, device) -> tuple:
+    """A round's candidate layout for the lanes' block sizes: (lane of each
+    candidate (S,), each lane's first candidate (B,), each candidate's
+    position in its lane's block (S,)), int64 on `device`.  A lane of size
+    0 draws nothing that round."""
+    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    lanes = np.repeat(np.arange(len(sizes)), sizes)
+    local = np.arange(len(lanes)) - starts[lanes]
+    return tuple(torch.as_tensor(a, dtype=torch.int64, device=device)
+                 for a in (lanes, starts, local))
+
+
+def stacked_rejection_sampling(
+    codes_lo: torch.Tensor,     # (B, T, H-1, n) int32
+    codes_hi: torch.Tensor,
+    points: torch.Tensor,       # (B, n, d) f32
+    keys_lo: torch.Tensor,      # (B, L, n) int32
+    keys_hi: torch.Tensor,
+    k: int,
+    generators,
+    *,
+    n_real=None,
+    scale: float,
+    num_levels: int,
+    m_init: float,
+    c: float = 1.2,
+    schedule: BatchSchedule | None = None,
+    max_rounds: int = 32,
+    tile: int = 512,
+    round_logs: Optional[list] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Algorithm 4 over B lanes in lockstep.  Returns ``(chosen (B, k)
+    int32, trials (B, k) int32)``.
+
+    Every array carries a leading lane axis, lane j's dataset in row j; an
+    `expand`ed (stride-0) lane axis shares one dataset, and nothing is
+    copied per lane.  Lane j samples only its first `n_real[j]` rows
+    (default all n), draws from `generators[j]` and keeps its own schedule
+    state (bucket index, rate EMA) and trial counts.  Center i of every
+    lane opens in the same step.  Per round, each lane that has not yet
+    accepted for the current center draws its block (`ts.sample`'s two
+    uniform vectors, then the acceptance uniforms) exactly as its one-lane
+    solve draws it; the descent, the gathers, one `lsh_bucket_accept`
+    launch, the per-lane decisions and the one device-to-host transfer run
+    once for all lanes.  A lane that accepts, or whose weights are all 0,
+    sits out the rest of the center's rounds: it draws nothing and its
+    schedule stands still.  The opened points then go through one
+    lane-axis sweep per tree.  So each lane's indices and trials are those
+    of its one-lane solve, bit for bit, whatever B.
+
+    Per lane, as the paper's REJECTIONSAMPLING: rounds of batched
+    speculative rejection draw a block of i.i.d. candidates from the
+    current multi-tree D^2 law plus uniforms, score them with
+    ``p = d2_lsh / (c^2 * mtd2)`` over the opened centers and open the
+    first accept (the rest of the block is discarded, which keeps the
+    sequential law exactly).  A complete LSH miss always accepts.  After
+    `max_rounds` rounds without an accept, the first candidate of the last
+    block -- an exact multi-tree D^2 draw -- opens.  The first center, and
+    any center while all of a lane's weights are 0, is a uniform draw over
+    its live rows.  `trials` counts the candidates each center consumed (at
+    least 1).  `round_logs`, when given, holds one list per lane that
+    receives the block size of each of its rounds.
+    """
+    b, dev, n_real = _lanes_of(codes_lo, generators, n_real)
+    n = codes_lo.shape[-1]
+    l, d = keys_lo.shape[1], points.shape[2]
+    c2 = float(c) ** 2
+    schedule = schedule if schedule is not None else BatchSchedule()
+    buckets = schedule.buckets()
+    ts, open_center, weights, coarse = _lane_start(
+        codes_lo, codes_hi, n_real, scale=scale, num_levels=num_levels,
         m_init=m_init, tile=tile)
-    chosen = []
+    b_idx = [schedule.index_of(schedule.initial(n, k, ts.num_tiles))] * b
+    acc_ema = [schedule.prior_accept] * b
+    pts_pad = _pad_axis(points, 1, ts.n_pad)
+    # (L, B, n_pad) views: a gather at (lane, point) gives (L, S) keys.
+    klo_pad = _pad_axis(keys_lo, 2, ts.n_pad).transpose(0, 1)
+    khi_pad = _pad_axis(keys_hi, 2, ts.n_pad).transpose(0, 1)
+    every = torch.arange(b, device=dev)
+    layouts: dict[tuple, tuple] = {}      # block sizes -> `_block_layout`
+
+    # One slot per center in every lane; the accept kernel reads only the
+    # first i (the opened ones), so the buffers need no padding.
+    ctr_pts = torch.full((b, k, d), _FAR, dtype=torch.float32, device=dev)
+    ck_lo = torch.zeros((b, l, k), dtype=torch.int32, device=dev)
+    ck_hi = torch.zeros((b, l, k), dtype=torch.int32, device=dev)
+    chosen = [[] for _ in range(b)]
+    trials = [[] for _ in range(b)]
     for i in range(k):
-        if i == 0:
-            x = _uniform_index(n, generator, dev)
-        else:
-            x = int(ts.sample(coarse, weights, generator, 1)[0])
+        xs, t_i = [None] * b, [0] * b
+        active = list(range(b)) if i > 0 else []
+        for _ in range(max_rounds):
+            if not active:
+                break
+            sizes = [0] * b
+            for j in active:
+                sizes[j] = buckets[b_idx[j]]
+            key = tuple(sizes)
+            if key not in layouts:
+                layouts[key] = _block_layout(key, dev)
+            lanes, starts, local = layouts[key]
+            cand = ts.sample_lanes(coarse, weights, generators, sizes,
+                                   lanes)                        # i.i.d. D^2
+            us = [torch.rand(sizes[j], generator=generators[j],
+                             dtype=torch.float32, device=dev)
+                  for j in active]
+            us = us[0] if len(us) == 1 else torch.cat(us)
+            _, p_acc = ops.lsh_bucket_accept_lanes(
+                klo_pad[:, lanes, cand], khi_pad[:, lanes, cand],
+                pts_pad[lanes, cand], lanes, ck_lo, ck_hi, ctr_pts,
+                weights[lanes, cand], i, c2=c2)
+            acc = us < p_acc
+            none = len(cand)
+            first = torch.full((b,), none, dtype=torch.int64, device=dev)
+            first.scatter_reduce_(0, lanes, torch.where(acc, local, none),
+                                  "amin")                    # first accept
+            any_acc = first < none
+            hit = torch.where(any_acc, first, 0)
+            n_acc = torch.zeros(b, dtype=torch.int64, device=dev).index_add_(
+                0, lanes, acc.long())
+            # The round's one device-to-host transfer, a row per lane.
+            rows = torch.stack([
+                (coarse[:, 1] > 0).long(), any_acc.long(), hit, n_acc,
+                cand[(starts + hit).clamp_max(none - 1)],
+                cand[starts.clamp_max(none - 1)]], dim=1).tolist()
+            still = []
+            for j in active:
+                live, any_j, hit_j, n_acc_j, x_hit, x_first = rows[j]
+                if not live:     # all weights 0: the uniform draw opens
+                    continue
+                bj = sizes[j]
+                if round_logs is not None:
+                    round_logs[j].append(bj)
+                t_i[j] += hit_j + 1 if any_j else bj
+                acc_ema[j] = schedule.update_rate(acc_ema[j], n_acc_j / bj)
+                b_idx[j] = schedule.next_index(b_idx[j], acc_ema[j])
+                xs[j] = x_hit if any_j else x_first   # cand[0]: exhaustion
+                if not any_j:
+                    still.append(j)
+            active = still
+        for j in range(b):
+            if xs[j] is None:
+                xs[j] = _uniform_index(n_real[j], generators[j], dev)
+            chosen[j].append(xs[j])
+            trials[j].append(max(t_i[j], 1))
+        x = torch.tensor(xs, dtype=torch.int64, device=dev)
         weights, tsums = open_center(weights, x)
         coarse = ts.refresh(coarse, tsums)
-        chosen.append(x)
-    return torch.tensor(chosen, dtype=torch.int32, device=dev)
+        ctr_pts[:, i] = pts_pad[every, x]
+        ck_lo[:, :, i] = klo_pad[:, every, x].T
+        ck_hi[:, :, i] = khi_pad[:, every, x].T
+    return (torch.tensor(chosen, dtype=torch.int32, device=dev),
+            torch.tensor(trials, dtype=torch.int32, device=dev))
 
 
 def device_rejection_sampling(
@@ -256,79 +487,17 @@ def device_rejection_sampling(
     tile: int = 512,
     round_log: Optional[list] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Algorithm 4 (REJECTIONSAMPLING).  Returns ``(chosen (k,) int32,
-    trials (k,) int32)`` on the codes' device.
-
-    Per center, rounds of batched speculative rejection: draw a block of
-    i.i.d. candidates from the current multi-tree D^2 law plus uniforms,
-    compute every candidate's acceptance probability
-    ``d2_lsh / (c^2 * mtd2)`` with one `lsh_bucket_accept` launch over the
-    opened centers, and open the first accept (the rest of the block is
-    discarded, which keeps the sequential law exactly).  A complete LSH miss
-    always accepts.  After `max_rounds` rounds without an accept, the first
-    candidate of the last block — an exact multi-tree D^2 draw — opens.
-    The first center, and any center while all weights are 0, is a uniform
-    draw.  `trials` counts the candidates each center consumed (at least 1).
-    `round_log`, when given, receives the block size of every round.
-    """
-    n = codes_lo.shape[2]
-    dev = codes_lo.device
-    l, d = keys_lo.shape[0], points.shape[1]
-    c2 = float(c) ** 2
-    schedule = schedule if schedule is not None else BatchSchedule()
-    buckets = schedule.buckets()
-    ts, open_center, weights, coarse = _initial_state(
-        codes_lo, codes_hi, scale=scale, num_levels=num_levels,
-        m_init=m_init, tile=tile)
-    b_idx = schedule.index_of(schedule.initial(n, k, ts.num_tiles))
-    acc_ema = schedule.prior_accept
-    pts_pad = _pad_axis(points, 0, ts.n_pad)
-    klo_pad = _pad_axis(keys_lo, 1, ts.n_pad)
-    khi_pad = _pad_axis(keys_hi, 1, ts.n_pad)
-
-    # One slot per center; the accept kernel reads only the first i (the
-    # opened ones), so the buffers need no padding.
-    ctr_pts = torch.full((k, d), _FAR, dtype=torch.float32, device=dev)
-    ck_lo = torch.zeros((l, k), dtype=torch.int32, device=dev)
-    ck_hi = torch.zeros((l, k), dtype=torch.int32, device=dev)
-    chosen, trials = [], []
-    for i in range(k):
-        x, t_i = None, 0
-        for _ in range(max_rounds if i > 0 else 0):
-            bj = buckets[b_idx]
-            cand = ts.sample(coarse, weights, generator, bj)   # i.i.d. D^2
-            us = torch.rand(bj, generator=generator, dtype=torch.float32,
-                            device=dev)
-            _, p_acc = ops.lsh_bucket_accept(
-                klo_pad[:, cand], khi_pad[:, cand], pts_pad[cand],
-                ck_lo, ck_hi, ctr_pts, weights[cand], i, c2=c2)
-            acc = us < p_acc
-            hit = torch.argmax(acc.to(torch.int8))             # first accept
-            # The round's one device-to-host transfer.
-            live, any_acc, hit, n_acc, x_hit, x_first = torch.stack([
-                (coarse[1] > 0).long(), acc.any().long(), hit,
-                acc.sum(), cand[hit], cand[0]]).tolist()
-            if not live:             # all weights 0: the uniform draw opens
-                break
-            if round_log is not None:
-                round_log.append(bj)
-            t_i += hit + 1 if any_acc else bj
-            acc_ema = schedule.update_rate(acc_ema, n_acc / bj)
-            b_idx = schedule.next_index(b_idx, acc_ema)
-            x = x_hit if any_acc else x_first  # cand[0]: the exhaustion pick
-            if any_acc:
-                break
-        if x is None:
-            x = _uniform_index(n, generator, dev)
-        weights, tsums = open_center(weights, x)
-        coarse = ts.refresh(coarse, tsums)
-        ctr_pts[i] = pts_pad[x]
-        ck_lo[:, i] = klo_pad[:, x]
-        ck_hi[:, i] = khi_pad[:, x]
-        chosen.append(x)
-        trials.append(max(t_i, 1))
-    return (torch.tensor(chosen, dtype=torch.int32, device=dev),
-            torch.tensor(trials, dtype=torch.int32, device=dev))
+    """Algorithm 4 (REJECTIONSAMPLING) on one dataset: the one-lane case of
+    `stacked_rejection_sampling`, whose docstring states the algorithm.
+    Returns ``(chosen (k,) int32, trials (k,) int32)`` on the codes'
+    device; `round_log`, when given, receives the block size of every
+    round."""
+    chosen, trials = stacked_rejection_sampling(
+        codes_lo[None], codes_hi[None], points[None], keys_lo[None],
+        keys_hi[None], k, [generator], scale=scale, num_levels=num_levels,
+        m_init=m_init, c=c, schedule=schedule, max_rounds=max_rounds,
+        tile=tile, round_logs=None if round_log is None else [round_log])
+    return chosen[0], trials[0]
 
 
 def resolve_schedule(schedule, batch) -> BatchSchedule:
@@ -341,11 +510,164 @@ def resolve_schedule(schedule, batch) -> BatchSchedule:
     return BatchSchedule()
 
 
+def _seeded(seed: int, device) -> torch.Generator:
+    g = torch.Generator(device=device)
+    g.manual_seed(int(seed))
+    return g
+
+
 def _generator(rng: np.random.Generator, device) -> torch.Generator:
     """The solve stage's one draw from the plan rng seeds the generator."""
-    g = torch.Generator(device=device)
-    g.manual_seed(int(rng.integers(2 ** 31)))
-    return g
+    return _seeded(rng.integers(2 ** 31), device)
+
+
+# ---------------------------------------------------------------------------
+# Stacked lanes: B different datasets solved together
+# (`ClusterPlan.fit_batch(datasets=...)`, `fit_batch_prepared`).
+#
+# As in the JAX package, `scale` / `num_levels` / `m_init` depend on each
+# dataset's diameter, so the canonical prepare rescales every dataset into
+# the unit ball by an EXACT power-of-two factor (mantissas untouched, so
+# distance ratios -- all that D^2 sampling and the scale-free acceptance
+# test consume -- are preserved bit for bit) and builds the embedding with
+# the forced diameter bound max_dist=1.0 at a fixed canonical resolution:
+# the statics then depend only on (d, resolution).  Row counts pad up to a
+# `shape_bucket` rung, and the lanes of one bucket run as one
+# `stacked_*` solve with a per-lane `n_real` (padded rows carry weight 0,
+# never sampled).  Where the JAX package compiles one vmapped program per
+# bucket, the port runs one lane-batched host loop per bucket.  Eager
+# PyTorch has no buffers to donate, so `donated` is always False.
+# ---------------------------------------------------------------------------
+
+_STACK_RESOLUTION = 2.0 ** -10   # canonical leaf side => H = 12 fixed levels
+
+
+def canonical_pow2_scale(points: np.ndarray) -> float:
+    """Exact power-of-two factor mapping `points` into the unit ball.
+
+    ``s = 2^-ceil(log2(compute_max_dist(points)))`` guarantees
+    ``compute_max_dist(points * s) <= 1.0``; because s is a power of two the
+    rescale only shifts exponents (no mantissa rounding), so every pairwise
+    distance ratio -- and therefore the D^2 sampling distribution and the
+    Algorithm-4 acceptance ratio -- is preserved exactly.
+    """
+    md = compute_max_dist(np.asarray(points, dtype=np.float64))
+    return 2.0 ** -math.ceil(math.log2(md)) if md > 0 else 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class StackedLane:
+    """One dataset's canonically rescaled, bucket-padded lane artifacts.
+
+    `arrays` are the per-lane device tensors (row axis padded to a
+    `shape_bucket` rung); `statics` the solve's (scale, num_levels,
+    m_init), bit-identical across every lane of a shape bucket; `n_real`
+    the live row count.  Lanes stack iff their `shape_key`s are equal: the
+    plan groups by it, one solve per group.
+    """
+
+    arrays: tuple
+    n_real: int
+    statics: tuple
+
+    @property
+    def shape_key(self) -> tuple:
+        return (tuple(tuple(a.shape) for a in self.arrays), self.statics)
+
+
+def _canonical_rejection_lane(points, rng, *, options, execution):
+    """`BackendImpl.prepare_stacked` for the rejection seeder."""
+    pts = np.asarray(points, dtype=np.float64)
+    n = pts.shape[0]
+    s = canonical_pow2_scale(pts)
+    resolution = float(options.get("stack_resolution", _STACK_RESOLUTION))
+    # A user lsh_r is expressed in ORIGINAL data units: rescale it with the
+    # points, or the canonical lane's collision radius is off by 1/s.
+    lsh_r = options.get("lsh_r")
+    data = prepare_rejection(
+        pts * s, seed=int(rng.integers(2 ** 31)), resolution=resolution,
+        max_dist=1.0, lsh_r=None if lsh_r is None else float(lsh_r) * s,
+        num_tables=options.get("num_tables", 15),
+        hashes_per_table=options.get("hashes_per_table", 1),
+        device=execution.device)
+    bucket = shape_bucket(n, min_bucket=max(1024, execution.tile))
+    return StackedLane(
+        arrays=(_pad_axis(data.codes_lo, 2, bucket),
+                _pad_axis(data.codes_hi, 2, bucket),
+                _pad_axis(data.points, 0, bucket),
+                _pad_axis(data.keys_lo, 1, bucket),
+                _pad_axis(data.keys_hi, 1, bucket)),
+        n_real=n, statics=(data.scale, data.num_levels, data.m_init))
+
+
+def _canonical_fastkmeanspp_lane(points, rng, *, options, execution):
+    """`BackendImpl.prepare_stacked` for the fastkmeans++ seeder."""
+    pts = np.asarray(points, dtype=np.float64)
+    n = pts.shape[0]
+    resolution = float(options.get("stack_resolution", _STACK_RESOLUTION))
+    lo, hi, meta = prepare_embedding(
+        pts * canonical_pow2_scale(pts), seed=int(rng.integers(2 ** 31)),
+        resolution=resolution, max_dist=1.0, device=execution.device)
+    bucket = shape_bucket(n, min_bucket=max(1024, execution.tile))
+    return StackedLane(
+        arrays=(_pad_axis(lo, 2, bucket), _pad_axis(hi, 2, bucket)),
+        n_real=n, statics=(meta["scale"], meta["num_levels"],
+                           meta["m_init"]))
+
+
+def prepared_lane(artifacts) -> StackedLane:
+    """A solo prepare's artifacts (`DeviceSeedingData` of the rejection
+    seeder, ``(codes_lo, codes_hi, meta)`` of fastkmeans++) as one lane of
+    `solve_stacked`, all its rows live: ``fit_batch(seeds)`` passes it once
+    per seed."""
+    if isinstance(artifacts, DeviceSeedingData):
+        arrays = (artifacts.codes_lo, artifacts.codes_hi, artifacts.points,
+                  artifacts.keys_lo, artifacts.keys_hi)
+        statics = (artifacts.scale, artifacts.num_levels, artifacts.m_init)
+    else:
+        lo, hi, meta = artifacts
+        arrays = (lo, hi)
+        statics = (meta["scale"], meta["num_levels"], meta["m_init"])
+    return StackedLane(arrays=arrays, n_real=arrays[0].shape[-1],
+                       statics=statics)
+
+
+def _stack_lanes(lanes) -> list:
+    """The lanes' arrays stacked on a leading lane axis.  One lane given
+    for every position (B seeds of one dataset) is expanded instead: a
+    stride-0 lane axis over the one copy."""
+    if all(lane is lanes[0] for lane in lanes):
+        return [a[None].expand(len(lanes), *a.shape)
+                for a in lanes[0].arrays]
+    return [torch.stack([lane.arrays[j] for lane in lanes])
+            for j in range(len(lanes[0].arrays))]
+
+
+def _solve_stacked_rejection(lanes, k, lane_seeds, *, c, schedule, options,
+                             execution):
+    """`BackendImpl.solve_stacked`: the lanes of one shape bucket as one
+    lane-batched solve, lane j's generator seeded with `lane_seeds[j]`."""
+    arrs = _stack_lanes(lanes)
+    scale, num_levels, m_init = lanes[0].statics
+    sched = resolve_schedule(schedule, options.get("batch"))
+    idx, trials = stacked_rejection_sampling(
+        *arrs, k, [_seeded(s, arrs[0].device) for s in lane_seeds],
+        n_real=[lane.n_real for lane in lanes], scale=scale,
+        num_levels=num_levels, m_init=m_init, c=c, schedule=sched,
+        max_rounds=options.get("max_rounds", 32), tile=execution.tile)
+    return idx, {"trials": trials, "batch_buckets": sched.buckets(),
+                 "donated": False}
+
+
+def _solve_stacked_fastkmeanspp(lanes, k, lane_seeds, *, c, schedule,
+                                options, execution):
+    arrs = _stack_lanes(lanes)
+    scale, num_levels, m_init = lanes[0].statics
+    idx = stacked_fast_kmeanspp(
+        *arrs, k, [_seeded(s, arrs[0].device) for s in lane_seeds],
+        n_real=[lane.n_real for lane in lanes], scale=scale,
+        num_levels=num_levels, m_init=m_init, tile=execution.tile)
+    return idx, {"donated": False}
 
 
 # ---------------------------------------------------------------------------
@@ -533,14 +855,18 @@ def _register():
     # as its `run` (``"<name>/device"`` in the legacy `SEEDERS`).
     registry.register_backend("fastkmeans++", "device", registry.BackendImpl(
         run=device_fast_kmeanspp_seeder, prepare=_prep_fastkmeanspp,
-        solve=_solve_fastkmeanspp, device_native=True),
+        solve=_solve_fastkmeanspp, device_native=True,
+        prepare_stacked=_canonical_fastkmeanspp_lane,
+        solve_stacked=_solve_stacked_fastkmeanspp),
         legacy_registry=SEEDERS)
     registry.register_backend("rejection", "device", registry.BackendImpl(
         run=device_rejection_seeder, prepare=_prep_rejection,
-        solve=_solve_rejection, device_native=True),
+        solve=_solve_rejection, device_native=True,
+        prepare_stacked=_canonical_rejection_lane,
+        solve_stacked=_solve_stacked_rejection),
         legacy_registry=SEEDERS)
-    # Not device-native: the rounds run on the card, the weighted recluster
-    # on the host per fit.
+    # Not device-native and no stacked lanes (as in the JAX package): the
+    # rounds run on the card, the weighted recluster on the host per fit.
     registry.register_backend("kmeans||", "device", registry.BackendImpl(
         run=device_kmeans_parallel_seeder, prepare=_prep_kmeans_parallel,
         solve=_solve_kmeans_parallel, device_native=False),

@@ -5,6 +5,7 @@
     res  = plan.fit(points)       # prepare (cached by fingerprint) + solve
     res2 = plan.refit(seed=7)     # solve stage only: no re-prepare
     batch = plan.fit_batch([0, 1, 2, 3])   # lane i == refit(seed=i)
+    lanes = plan.fit_batch(datasets=[a, b])  # stacked lanes, one solve
 
 Three stages, as in the JAX package's `core/plan.py`:
 
@@ -15,8 +16,11 @@ Three stages, as in the JAX package's `core/plan.py`:
     LSH keys, device upload) runs once per data fingerprint and is cached.
     The rng draws it consumes are snapshotted, and they are the JAX
     package's draws in its order, so the artifacts are bit-identical.
-  * **execute** — `fit` / `refit` / `fit_prepared` / `fit_batch` run only
-    the sampling stage against the cached artifacts.
+  * **execute** — `fit` / `refit` / `fit_prepared` / `fit_batch` /
+    `fit_batch_prepared` run only the sampling stage against the cached
+    artifacts.  B solves of one shape (B seeds of one dataset, or B
+    datasets of one shape bucket) run as one lane-batched solve, where the
+    JAX package runs one vmapped program.
 
 Two backends: ``"device"`` (the default) runs the seeders on
 `ExecutionSpec.device` through the hand-written kernels; ``"cpu"`` runs
@@ -162,9 +166,9 @@ class FitResult:
     extras: dict = dataclasses.field(default_factory=dict)
 
     def block_until_ready(self) -> "FitResult":
-        """Wait for the card's work behind the result (a no-op on the
-        CPU); returns self."""
-        if self.indices.is_cuda:
+        """Wait for the card's work behind the result (a no-op on the CPU
+        and for the NumPy arrays of `to_numpy`); returns self."""
+        if isinstance(self.indices, torch.Tensor) and self.indices.is_cuda:
             torch.cuda.synchronize(self.indices.device)
         return self
 
@@ -269,26 +273,38 @@ class ClusterPlan:
         return self
 
     def prepare_stacked(self, points) -> PreparedData:
-        """The stacked-lane prepare of `fit_batch(datasets=...)`.  No port
-        impl has stacked lanes yet (ROADMAP Queue 1 item 6), so this raises
-        the JAX package's error for an impl without the capability."""
-        raise ValueError(
-            f"{self.cluster.seeder!r} on backend {self.execution.backend!r} "
-            "has no stacked lanes; use prepare_data + "
-            "fit_batch(datasets=...) (solo loop)")
+        """Thread-safe *stacked-lane* prepare (canonical rescale + padding).
+
+        The multi-dataset twin of `prepare_data`: builds (or fetches, keyed
+        by ``<fingerprint>/stacked``) the dataset's `StackedLane` artifacts
+        -- the exact power-of-two rescale into the unit ball plus the
+        `shape_bucket` row padding -- so a later `fit_batch_prepared` call
+        can solve it with other same-bucket datasets as lanes of one solve.
+        Requires an impl with the stacked capability (see the capability
+        table).
+        """
+        if not self.impl.supports_stacked:
+            raise ValueError(
+                f"{self.cluster.seeder!r} on backend "
+                f"{self.execution.backend!r} has no stacked lanes; use "
+                "prepare_data + fit_batch(datasets=...) (solo loop)")
+        return self._prepare_cached(points, stacked=True)
 
     def prepare_data(self, points) -> PreparedData:
         """Thread-safe prepare returning an explicit `PreparedData` handle
         (the plan's active data is left alone).  Re-preparing the same data
         is a cache hit that does no host work."""
-        fp = data_fingerprint(points)
+        return self._prepare_cached(points, stacked=False)
+
+    def _prepare_cached(self, points, *, stacked: bool) -> PreparedData:
+        fp = data_fingerprint(points) + ("/stacked" if stacked else "")
         with self._lock:
             self.stats["prepare_calls"] += 1
             prep = self._prepared.get(fp)
             if prep is not None:
                 self.stats["prepare_hits"] += 1
                 return prep
-        prep = self._build_prepared(fp, points)
+        prep = self._build_prepared(fp, points, stacked)
         with self._lock:
             cur = self._prepared.get(fp)
             if cur is not None:            # lost a same-data build race
@@ -298,20 +314,28 @@ class ClusterPlan:
             self.stats["prepare_builds"] += 1
         return prep
 
-    def _build_prepared(self, fp: str, points) -> PreparedData:
+    def _build_prepared(self, fp: str, points,
+                        stacked: bool) -> PreparedData:
         t0 = time.perf_counter()
         pts = ensure_host_f64(points)
         rng = np.random.default_rng(self.cluster.seed)
         options = self.cluster.options_dict()
         seed_pts, resolution = pts, options.get("resolution")
-        if self.caps.needs_quantize and self.cluster.quantize:
-            seed_pts = quantize(pts, rng).points
-            resolution = options.get("resolution", 1.0)
         artifacts = None
-        if self.impl.preparable:
-            artifacts = self.impl.prepare(
-                seed_pts, rng, resolution=resolution, options=options,
-                execution=self.execution)
+        if stacked:
+            # Canonical lane: the exact power-of-two rescale replaces the
+            # Appendix-F quantisation as the aspect-ratio control (fixed
+            # canonical resolution => fixed level count).
+            artifacts = self.impl.prepare_stacked(
+                pts, rng, options=options, execution=self.execution)
+        else:
+            if self.caps.needs_quantize and self.cluster.quantize:
+                seed_pts = quantize(pts, rng).points
+                resolution = options.get("resolution", 1.0)
+            if self.impl.preparable:
+                artifacts = self.impl.prepare(
+                    seed_pts, rng, resolution=resolution, options=options,
+                    execution=self.execution)
         return PreparedData(
             fingerprint=fp, pts=pts, seed_pts=seed_pts,
             resolution=resolution, artifacts=artifacts,
@@ -426,12 +450,8 @@ class ClusterPlan:
             extras = dict(extras, lloyd_iterations=refinement.iterations)
         else:
             cost = _cost_program(prep.points_dev, centers)
-        if cost.is_cuda:        # solve_seconds covers the device work too
-            torch.cuda.synchronize(cost.device)
-        return FitResult(indices=idx, centers=centers, cost=cost, k=k,
-                         prepare_seconds=prep.prepare_seconds,
-                         solve_seconds=time.perf_counter() - t0,
-                         extras=extras)
+        return self._finish(idx, centers, cost, k, prep.prepare_seconds, t0,
+                            extras)
 
     # -- multi-problem execution --------------------------------------------
 
@@ -440,17 +460,28 @@ class ClusterPlan:
         """Solve B independent seeding problems; a `FitResult` with a
         leading batch axis on indices, centers and cost.
 
-        * ``fit_batch(seeds)`` — B seeds on ONE prepared dataset: lane i is
-          bit-identical to `refit(seed=seeds[i])`, because it is that
-          refit (``extras["vmapped"]`` False).  Nothing is re-prepared.
-          The JAX package runs its device-native seeders' lanes as one
-          vmapped program; the port's lane-batched solve is ROADMAP
-          Queue 1 item 6.
-        * ``fit_batch(datasets=[...], seeds=None|[...])`` — B different
-          datasets (one optional seed each, default the spec's), each
-          prepared (fingerprint-cached) and fitted in turn, as the JAX
-          package does for impls without stacked lanes
-          (``extras["stacked"]`` False); no port impl has them yet.
+        * ``fit_batch(seeds)`` -- B seeds on ONE prepared dataset; lane i is
+          bit-identical to `refit(seed=seeds[i])`.  On the device backend
+          the device-native seeders (rejection, fastkmeans++: the impls
+          with stacked lanes) run the B lanes as one `solve_stacked` over
+          one copy of the artifacts
+          (``extras["vmapped"]`` True, as the JAX package's one vmapped
+          program reports it); k-means||, the cpu backend and
+          ``lloyd_iters > 0`` loop over `refit` (``vmapped`` False).
+          Nothing is re-prepared.
+        * ``fit_batch(datasets=[...], seeds=None|[...])`` -- B different
+          datasets (one optional seed each, default the spec's).  Where the
+          impl `supports_stacked` and ``lloyd_iters == 0``, every dataset
+          is canonically rescaled (an exact power-of-two factor into the
+          unit ball: distance ratios, and so the D^2 law and the acceptance
+          test, are preserved exactly), padded to a `shape_bucket` rung
+          and prepare-cached, and the lanes of each bucket run as one
+          lane-batched solve (`fit_batch_prepared`); lane i is
+          bit-identical to ``fit_batch(datasets=[datasets[i]], ...)``.
+          Otherwise each dataset is prepared and fitted in turn (the solo
+          loop).  ``extras["stacked"]`` says which path ran.  All datasets
+          share the feature dimension d; indices, centers and cost are per
+          lane, in each dataset's ORIGINAL coordinates.
         """
         if datasets is not None:
             if points is not None:
@@ -458,11 +489,50 @@ class ClusterPlan:
             return self._fit_batch_datasets(list(datasets), seeds)
         if seeds is None:
             raise ValueError("fit_batch() needs seeds (or datasets=...)")
-        self._require(points)
+        prep = self._require(points)
         seeds = [int(s) for s in seeds]
         if not seeds:
             raise ValueError("fit_batch() needs at least one seed")
+        if self.impl.supports_stacked and self.cluster.lloyd_iters == 0:
+            return self._fit_batch_lanes(prep, seeds)
         return _stack_results([self.refit(seed=s) for s in seeds], seeds)
+
+    def _fit_batch_lanes(self, prep: PreparedData,
+                         seeds: list[int]) -> FitResult:
+        """B seeds on one dataset as one lane-batched solve over one copy of
+        its artifacts; lane i draws from a generator seeded as
+        `refit(seed=seeds[i])`'s is."""
+        from repro_torch.core.device_seeding import prepared_lane
+
+        t0 = time.perf_counter()
+        with self._lock:
+            self.stats["solves"] += len(seeds)
+        k = self.cluster.k
+        idx, solved = self.impl.solve_stacked(
+            [prepared_lane(prep.artifacts)] * len(seeds), k,
+            [_lane_seed(self._solve_rng(prep, s)) for s in seeds],
+            c=self.cluster.c, schedule=self.cluster.schedule,
+            options=self.cluster.options_dict(), execution=self.execution)
+        extras: dict = {"seeds": tuple(seeds), "vmapped": True}
+        if "trials" in solved:
+            extras["trials"] = solved["trials"]
+        centers = prep.points_dev[idx.long()]            # (B, k, d)
+        cost = torch.stack([_cost_program(prep.points_dev, c)
+                            for c in centers])
+        return self._finish(idx, centers, cost, k, prep.prepare_seconds, t0,
+                            extras)
+
+    @staticmethod
+    def _finish(idx, centers, cost, k: int, prepare_seconds: float,
+                t0: float, extras: dict) -> FitResult:
+        if cost.is_cuda:        # solve_seconds covers the device work too
+            torch.cuda.synchronize(cost.device)
+        return FitResult(indices=idx, centers=centers, cost=cost, k=k,
+                         prepare_seconds=prepare_seconds,
+                         solve_seconds=time.perf_counter() - t0,
+                         extras=extras)
+
+    # -- multi-DATASET execution (stacked lanes) ----------------------------
 
     def _fit_batch_datasets(self, datasets: list,
                             seeds: Optional[Sequence[int]]) -> FitResult:
@@ -473,11 +543,94 @@ class ClusterPlan:
                  else [self.cluster.seed] * b)
         if len(seeds) != b:
             raise ValueError(f"got {len(seeds)} seeds for {b} datasets")
+        if self.impl.supports_stacked and self.cluster.lloyd_iters == 0:
+            preps = [self._prepare_cached(pts_i, stacked=True)
+                     for pts_i in datasets]
+            return self.fit_batch_prepared(preps, seeds=seeds)
         results = [self.fit_prepared(self.prepare_data(pts_i), seed=s)
                    for pts_i, s in zip(datasets, seeds)]
         out = _stack_results(results, seeds)
         out.extras["stacked"] = False
         return out
+
+    def fit_batch_prepared(self, prepared: Sequence[PreparedData], *,
+                           seeds: Optional[Sequence[int]] = None
+                           ) -> FitResult:
+        """Solve B stacked-prepared lanes (one lane-batched solve per shape
+        bucket).
+
+        The solve stage of ``fit_batch(datasets=...)`` against explicit
+        `prepare_stacked` handles: no implicit state, no host re-prepare.
+        Lane i of the stacked `FitResult` is bit-identical to
+        ``fit_batch_prepared([prepared[i]], seeds=[seeds[i]])`` in the
+        same shape bucket, whatever the other lanes.  `seeds` defaults to
+        the spec seed per lane (the solo `refit` stream).  The JAX package
+        pads each bucket's lane count to a power of two with copies of
+        lane 0, so that its traced programs are reused; an eager solve has
+        nothing to reuse, so the port runs the lanes as they are.
+        """
+        t0 = time.perf_counter()
+        preps = list(prepared)
+        if not preps:
+            raise ValueError("fit_batch_prepared() needs >= 1 lane")
+        seeds = ([int(s) for s in seeds] if seeds is not None
+                 else [self.cluster.seed] * len(preps))
+        if len(seeds) != len(preps):
+            raise ValueError(
+                f"got {len(seeds)} seeds for {len(preps)} lanes")
+        if any(not hasattr(p.artifacts, "shape_key") for p in preps):
+            raise ValueError(
+                "fit_batch_prepared() needs prepare_stacked handles "
+                "(got a solo prepare_data handle)")
+        dims = {p.pts.shape[1] for p in preps}
+        if len(dims) > 1:
+            raise ValueError(
+                f"stacked fit_batch needs one feature dimension, got {dims}")
+        with self._lock:
+            self.stats["solves"] += len(seeds)
+        k = self.cluster.k
+        options = self.cluster.options_dict()
+        options.pop("resolution", None)
+        groups: dict[tuple, list[int]] = {}
+        for i, p in enumerate(preps):
+            groups.setdefault(p.artifacts.shape_key, []).append(i)
+        idx_lanes: list = [None] * len(preps)
+        trials_lanes: dict[int, Any] = {}
+        for members in groups.values():
+            idx_g, extras_g = self.impl.solve_stacked(
+                [preps[i].artifacts for i in members], k,
+                [_lane_seed(self._solve_rng(preps[i], seeds[i]))
+                 for i in members],
+                c=self.cluster.c, schedule=self.cluster.schedule,
+                options=options, execution=self.execution)
+            for j, i in enumerate(members):
+                idx_lanes[i] = idx_g[j]
+                if "trials" in extras_g:
+                    trials_lanes[i] = extras_g["trials"][j]
+        centers = [p.points_dev[idx.long()] for p, idx in zip(preps,
+                                                               idx_lanes)]
+        costs = [_cost_program(p.points_dev, ctr)
+                 for p, ctr in zip(preps, centers)]
+        extras: dict = {
+            "seeds": tuple(seeds), "stacked": True, "vmapped": True,
+            "shape_buckets": len(groups), "donated": False,
+            "lane_rows": tuple(p.artifacts.n_real for p in preps),
+            "bucket_rows": tuple(p.artifacts.arrays[0].shape[-1]
+                                 for p in preps),
+        }
+        if trials_lanes:
+            extras["trials"] = torch.stack(
+                [trials_lanes[i] for i in range(len(preps))])
+        return self._finish(torch.stack(idx_lanes), torch.stack(centers),
+                            torch.stack(costs), k,
+                            float(sum(p.prepare_seconds for p in preps)), t0,
+                            extras)
+
+
+def _lane_seed(rng: np.random.Generator) -> int:
+    """A lane's generator seed: the one draw the solo solve's `_generator`
+    takes from the same solve rng."""
+    return int(rng.integers(2 ** 31))
 
 
 def _stack_results(results: list[FitResult], seeds: list[int]) -> FitResult:

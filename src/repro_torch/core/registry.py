@@ -66,17 +66,34 @@ class BackendImpl:
     the whole solve runs on the device (k-means|| reclusters its pool on
     the host, so it is not); the port's tests hold the flag to the JAX
     registration.
+
+    ``prepare_stacked(pts, rng, *, options, execution) -> StackedLane``
+    builds one dataset's canonically rescaled, shape-bucket-padded lane
+    for `ClusterPlan.fit_batch(datasets=...)`; ``solve_stacked(lanes, k,
+    lane_seeds, *, c, schedule, options, execution) -> ((B, k) indices,
+    extras)`` solves the lanes of one shape bucket together, lane j's
+    generator seeded with ``lane_seeds[j]``.  Both ``None`` means the
+    backend solves multiple datasets by looping the solo path.
     """
 
     run: Callable
     prepare: Optional[Callable] = None
     solve: Optional[Callable] = None
     device_native: bool = False
+    prepare_stacked: Optional[Callable] = None
+    solve_stacked: Optional[Callable] = None
 
     @property
     def preparable(self) -> bool:
         """True when the backend exposes the cached prepare/solve split."""
         return self.prepare is not None and self.solve is not None
+
+    @property
+    def supports_stacked(self) -> bool:
+        """True when B *different* datasets can be solved as stacked
+        lanes."""
+        return (self.prepare_stacked is not None
+                and self.solve_stacked is not None)
 
 
 @dataclasses.dataclass
@@ -161,9 +178,8 @@ def resolve(name: str, backend: str = "device") -> Callable:
 
 def capability_table() -> str:
     """Markdown capability matrix generated from the live registry, with
-    the JAX package's columns.  No port impl has stacked lanes or
-    streaming yet (ROADMAP Queue 1 items 6 and 8), so those columns read
-    "—"."""
+    the JAX package's columns.  No port impl has streaming yet (ROADMAP
+    Queue 1 item 8), so that column reads "—"."""
     header = ("| seeder | backends | device-native | cached prepare "
               "| stacked | streaming | quantize | accepts `c` "
               "| accepts schedule | degrades to |")
@@ -172,12 +188,14 @@ def capability_table() -> str:
         spec = SEEDER_SPECS[name]
         native = [b for b in spec.backends if spec.impls[b].device_native]
         prep = [b for b in spec.backends if spec.impls[b].preparable]
+        stacked = [b for b in spec.backends
+                   if spec.impls[b].supports_stacked]
         fallback = f"`{spec.fallback}`" if spec.fallback else "—"
         rows.append(
             f"| `{name}` | {', '.join(spec.backends)} "
             f"| {', '.join(native) or '—'} "
             f"| {', '.join(prep) or '—'} "
-            "| — | — "
+            f"| {', '.join(stacked) or '—'} | — "
             f"| {'yes' if spec.caps.needs_quantize else '—'} "
             f"| {'yes' if spec.caps.accepts_c else '—'} "
             f"| {'yes' if spec.caps.accepts_schedule else '—'} "

@@ -10,12 +10,16 @@ The tree is a flat array heap of size 2*cap (1-indexed, leaves at
 - `SampleTree`: NumPy, float64, exact — the host reference.
 - `SampleTreeTorch`: the same heap as an f32 tensor on any device; its
   `scatter_update` fixes only the touched ancestors (their children's sum,
-  level by level, clamped to >= 0), never an O(n) rebuild.
+  level by level, clamped to >= 0), never an O(n) rebuild; its `descend`
+  walks B heaps at once, a lane per draw (`sample` is the one-heap case).
 - `TiledSampleTree`: the device seeders' two-level sampler — a coarse heap
   over per-tile weight sums (rebuilt from the sweep kernel's tile-sum
-  epilogue) plus an exact intra-tile cumsum over the dense weights.
+  epilogue) plus an exact intra-tile cumsum over the dense weights.  Its
+  `sample_lanes` draws the blocks of B independent lanes (one heap and one
+  weight row each, the lane-batched seeders' form) in one descent.
 
-Draws take an explicit `torch.Generator` on the tensors' device.
+Draws take an explicit `torch.Generator` on the tensors' device, one per
+lane.
 """
 
 from __future__ import annotations
@@ -112,14 +116,17 @@ class SampleTreeTorch:
         self.levels = int(np.log2(self.cap))
 
     def init(self, weights: torch.Tensor) -> torch.Tensor:
-        """Build the heap from scratch — O(n); loop preambles only."""
-        heap = torch.zeros(2 * self.cap, dtype=torch.float32,
-                           device=weights.device)
-        heap[self.cap: self.cap + self.n] = weights.to(torch.float32)
+        """Build the heap from scratch — O(n); loop preambles only.  A
+        leading axis of `weights` (lanes) gives one heap per row; each is
+        the heap of that row alone, bit for bit (elementwise adds)."""
+        heap = torch.zeros(weights.shape[:-1] + (2 * self.cap,),
+                           dtype=torch.float32, device=weights.device)
+        heap[..., self.cap: self.cap + self.n] = weights.to(torch.float32)
         idx = self.cap
         while idx > 1:
             half = idx // 2
-            heap[half:idx] = heap[idx: 2 * idx: 2] + heap[idx + 1: 2 * idx: 2]
+            heap[..., half:idx] = (heap[..., idx: 2 * idx: 2]
+                                   + heap[..., idx + 1: 2 * idx: 2])
             idx = half
         return heap
 
@@ -146,13 +153,26 @@ class SampleTreeTorch:
 
     def sample(self, heap: torch.Tensor, generator: torch.Generator,
                size: int) -> torch.Tensor:
-        """Draw `size` i.i.d. leaf indices in proportion to leaf weights."""
+        """Draw `size` i.i.d. leaf indices in proportion to leaf weights:
+        the one-heap case of `descend`."""
         u = torch.rand(size, generator=generator, dtype=torch.float32,
-                       device=heap.device) * heap[1]
-        v = torch.ones(size, dtype=torch.int64, device=heap.device)
+                       device=heap.device)
+        return self.descend(heap[None], u, torch.zeros(
+            size, dtype=torch.int64, device=heap.device))
+
+    def descend(self, heaps: torch.Tensor, u: torch.Tensor,
+                lanes: torch.Tensor) -> torch.Tensor:
+        """The leaves that uniforms `u` (S,) in [0, 1) pick, draw s under
+        the heap of lane ``lanes[s]``: heaps (B, 2 cap), `lanes` (S,)
+        int64.  Elementwise over the draws, so each lane's leaves are
+        those of its heap alone, bit for bit."""
+        flat = heaps.reshape(-1)
+        base = lanes * heaps.shape[1]
+        u = u * heaps[:, 1][lanes]
+        v = torch.ones_like(lanes)
         for _ in range(self.levels):
             left = 2 * v
-            wl = heap[left]
+            wl = flat[base + left]
             go_left = u < wl
             u = torch.where(go_left, u, u - wl)
             v = torch.where(go_left, left, left + 1)
@@ -186,7 +206,8 @@ class TiledSampleTree:
 
     def refresh(self, heap: torch.Tensor,
                 tile_sums: torch.Tensor) -> torch.Tensor:
-        """Per-center update from the kernels' tile sums.
+        """Per-center update from the kernels' tile sums ((T,), or (B, T)
+        for B lanes' heaps).
 
         A sweep changes every tile sum, so this is `scatter_update` of all
         T leaves, which equals a rebuild bit for bit; the rebuild takes
@@ -200,14 +221,48 @@ class TiledSampleTree:
 
     def sample(self, heap: torch.Tensor, w_pad: torch.Tensor,
                generator: torch.Generator, size: int) -> torch.Tensor:
-        """Draw `size` i.i.d. point indices in proportion to `w_pad`."""
-        tiles = self.coarse.sample(heap, generator, size)            # (B,)
-        wt = w_pad.reshape(self.num_tiles, self.tile)[tiles]         # (B, tile)
-        csum = torch.cumsum(wt, dim=1)
+        """Draw `size` i.i.d. point indices in proportion to `w_pad`: the
+        one-lane case of `sample_lanes`."""
+        lanes = torch.zeros(size, dtype=torch.int64, device=w_pad.device)
+        return self.sample_lanes(heap[None], w_pad[None], [generator],
+                                 [size], lanes)
+
+    def sample_lanes(self, heaps: torch.Tensor, w_pad: torch.Tensor,
+                     generators, sizes, lanes: torch.Tensor) -> torch.Tensor:
+        """Draw `sizes[j]` i.i.d. point indices of lane j in proportion to
+        its weights `w_pad[j]`, under its heap `heaps[j]`, for every lane
+        at once: heaps (B, 2 cap), w_pad (B, n_pad); `lanes` (S,) int64 is
+        the lane of each draw, the lanes' blocks in lane order (S the sum
+        of `sizes`; a lane of size 0 draws nothing).  Returns (S,) indices.
+
+        Lane j draws from `generators[j]` exactly what a one-lane call
+        draws, in its order: `sizes[j]` uniforms for the descent, then
+        `sizes[j]` for the position in the tile.  The descent, the gathers
+        and the comparisons are elementwise over all lanes, so each lane's
+        indices are the one-lane call's, bit for bit.  The intra-tile
+        cumsum runs per lane block: on the card a cumsum's rounding may
+        depend on how many rows it is given.
+        """
+        dev = w_pad.device
+        blocks = [(j, size) for j, size in enumerate(sizes) if size]
+        u_tile, u_leaf = [], []
+        for j, size in blocks:
+            for draws in (u_tile, u_leaf):
+                draws.append(torch.rand(size, generator=generators[j],
+                                        dtype=torch.float32, device=dev))
+        u_tile, u_leaf = (d[0] if len(d) == 1 else torch.cat(d)
+                          for d in (u_tile, u_leaf))
+        tiles = self.coarse.descend(heaps, u_tile, lanes)
+        wt = w_pad.reshape(w_pad.shape[0], self.num_tiles,
+                           self.tile)[lanes, tiles]                  # (S, tile)
+        csum, start = [], 0
+        for _, size in blocks:
+            csum.append(torch.cumsum(wt[start: start + size], dim=1))
+            start += size
+        csum = csum[0] if len(csum) == 1 else torch.cat(csum)
         # A fresh intra-tile uniform over the tile's exact mass keeps the
         # conditional leaf law exact even where a coarse tile sum rounds
         # differently from the cumsum.  Smallest j with csum[j] > u.
-        u = torch.rand(size, generator=generator, dtype=torch.float32,
-                       device=w_pad.device) * csum[:, -1]
+        u = u_leaf * csum[:, -1]
         off = (csum <= u[:, None]).sum(dim=1).clamp_max(self.tile - 1)
         return (tiles * self.tile + off).clamp(0, self.n - 1)

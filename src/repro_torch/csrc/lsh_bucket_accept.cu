@@ -45,6 +45,16 @@
 //     only the second runs (every lane a miss).
 // No library call computes q.c.
 //
+// A lane axis, as the JAX package's `jax.vmap` gives the Pallas call one:
+// with `lanes` (one int64 lane id per candidate) candidate b reads the
+// center slots of lane lanes[b], at `clo + lanes[b] * ck_lane_stride` and
+// `c + lanes[b] * c_lane_stride`, so the candidates of every lane of a
+// round go in one launch, each lane's block at its own size; all lanes
+// have the same live count, since their centers open in lockstep.  Without
+// `lanes` every candidate reads lane 0 (the one-lane call).  A candidate's
+// result is the min over the same colliding slots with the same warp sums
+// whatever the grid, so it is bit-identical to a launch of its lane alone.
+//
 // The distance keeps the reference's expanded form and its order,
 // (|q|^2 - 2 q.c) + |c|^2; the sums over d run in another order than the
 // reference's, so results agree to f32 rounding.  Any B and any K: both
@@ -74,8 +84,12 @@ __device__ __forceinline__ float accept_p(float d2, float m, float c2) {
 // the colliding ones goes to partial[chunk * B + b].
 __global__ void __launch_bounds__(kWarps * 32)
     lsh_query_kernel(const int* __restrict__ qlo, const int* __restrict__ qhi,
-                     const float* __restrict__ q, const int* __restrict__ clo,
-                     const int* __restrict__ chi, const float* __restrict__ c,
+                     const float* __restrict__ q,
+                     const long long* __restrict__ lanes,
+                     const int* __restrict__ clo_all,
+                     const int* __restrict__ chi_all,
+                     const float* __restrict__ c_all,
+                     long long ck_lane_stride, long long c_lane_stride,
                      float* __restrict__ partial, int L, int B, int K, int D,
                      int count, int per_lane) {
   extern __shared__ float smem[];
@@ -83,6 +97,10 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int warp = threadIdx.x >> 5;
   const int b = blockIdx.y * kWarps + warp;
   if (b >= B) return;  // whole warps only; no block-wide barrier follows
+  const long long lane_b = lanes != nullptr ? lanes[b] : 0LL;
+  const int* __restrict__ clo = clo_all + lane_b * ck_lane_stride;
+  const int* __restrict__ chi = chi_all + lane_b * ck_lane_stride;
+  const float* __restrict__ c = c_all + lane_b * c_lane_stride;
   float* q_s = smem + warp * (D + 2 * L);               // [D]
   int* qk_s = reinterpret_cast<int*>(q_s + D);          // [2][L]
 
@@ -173,10 +191,11 @@ int num_chunks(int B, int count) {
 }
 
 template <bool kAccept>
-int launch(const int* qlo, const int* qhi, const float* q, const int* clo,
-           const int* chi, const float* c, const float* mtd2, float* partial,
-           float* d2_out, float* p_out, int L, int B, int K, int D, int count,
-           float c2, void* stream) {
+int launch(const int* qlo, const int* qhi, const float* q,
+           const long long* lanes, const int* clo, const int* chi,
+           const float* c, long long ck_lane_stride, long long c_lane_stride,
+           const float* mtd2, float* partial, float* d2_out, float* p_out,
+           int L, int B, int K, int D, int count, float c2, void* stream) {
   if (B <= 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int chunks = num_chunks(B, count);
@@ -190,8 +209,8 @@ int launch(const int* qlo, const int* qhi, const float* q, const int* clo,
     }
     const dim3 grid(chunks, (B + kWarps - 1) / kWarps);
     lsh_query_kernel<<<grid, kWarps * 32, smem, st>>>(
-        qlo, qhi, q, clo, chi, c, partial, L, B, K, D, count,
-        per_lane_for(B, count));
+        qlo, qhi, q, lanes, clo, chi, c, ck_lane_stride, c_lane_stride,
+        partial, L, B, K, D, count, per_lane_for(B, count));
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -202,27 +221,31 @@ int launch(const int* qlo, const int* qhi, const float* q, const int* clo,
 
 }  // namespace
 
-// Layouts (row-major): qlo/qhi (L, B), q (B, D), clo/chi (L, K), c (K, D),
-// mtd2 (B,); outputs d2_out, p_out (B,); partial, scratch of at least
-// ceil(count / 32) x B floats.  0 <= count <= K (the Python binding checks
-// it).
+// Layouts (row-major): qlo/qhi (L, B), q (B, D), lanes (B,) int64 or null,
+// lane l's clo/chi (L, K) at l * ck_lane_stride and c (K, D) at
+// l * c_lane_stride, mtd2 (B,); outputs d2_out, p_out (B,); partial,
+// scratch of at least ceil(count / 32) x B floats.  0 <= count <= K (the
+// Python binding checks it).
 // Each returns the cudaError_t of the attribute call or of a launch.
 extern "C" int lsh_bucket_accept_launch(
-    const int* qlo, const int* qhi, const float* q, const int* clo,
-    const int* chi, const float* c, const float* mtd2, float* partial,
+    const int* qlo, const int* qhi, const float* q, const long long* lanes,
+    const int* clo, const int* chi, const float* c, long long ck_lane_stride,
+    long long c_lane_stride, const float* mtd2, float* partial,
     float* d2_out, float* p_out, int L, int B, int K, int D, int count,
     float c2, void* stream) {
-  return launch<true>(qlo, qhi, q, clo, chi, c, mtd2, partial, d2_out, p_out,
-                      L, B, K, D, count, c2, stream);
+  return launch<true>(qlo, qhi, q, lanes, clo, chi, c, ck_lane_stride,
+                      c_lane_stride, mtd2, partial, d2_out, p_out, L, B, K,
+                      D, count, c2, stream);
 }
 
-// The query alone (no mtd2, no p): d2_out (B,).
+// The query alone (no mtd2, no p) of one lane: d2_out (B,).
 extern "C" int lsh_bucket_min_launch(const int* qlo, const int* qhi,
                                      const float* q, const int* clo,
                                      const int* chi, const float* c,
                                      float* partial, float* d2_out, int L,
                                      int B, int K, int D, int count,
                                      void* stream) {
-  return launch<false>(qlo, qhi, q, clo, chi, c, nullptr, partial, d2_out,
-                       nullptr, L, B, K, D, count, 0.0f, stream);
+  return launch<false>(qlo, qhi, q, nullptr, clo, chi, c, 0, 0, nullptr,
+                       partial, d2_out, nullptr, L, B, K, D, count, 0.0f,
+                       stream);
 }

@@ -1,11 +1,12 @@
 """Binding of `csrc/lsh_bucket_accept.cu`: argument checks and the launches.
 
-`launch` (the query with its acceptance epilogue) and `launch_min` (the
-query alone) take CUDA tensors of any B and K and the number of live center
-slots, `count` (the dispatch and launch-count wrappers are
-`ops.lsh_bucket_accept` and `ops.lsh_bucket_min`), allocate the outputs and
-the kernel's scratch with `torch.empty`, launch on the current stream and
-raise on a CUDA error.  The kernel guards both edges and reads no slot at
+`launch` (the query with its acceptance epilogue), `launch_lanes` (the
+same over the candidates of B lanes, each reading its own lane's center
+slots) and `launch_min` (the query alone) take CUDA tensors of any B and K
+and the number of live center slots, `count` (the dispatch and
+launch-count wrappers are `ops.lsh_bucket_accept`, its `_lanes` form and
+`ops.lsh_bucket_min`), allocate the outputs and the kernel's scratch with
+`torch.empty`, launch on the current stream and raise on a CUDA error.  The kernel guards both edges and reads no slot at
 or past `count`, so nothing is padded and no penalty row is built.
 """
 
@@ -18,7 +19,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels._check import check_cuda, check_tensor, raise_on_error
 
-__all__ = ["launch", "launch_min"]
+__all__ = ["launch", "launch_lanes", "launch_min"]
 
 _SLOT_CHUNK = 32   # slots a warp takes per step: the scratch's row bound
 
@@ -31,8 +32,8 @@ def _fn(name: str):
     if fn is None:
         fn = getattr(_build.library("lsh_bucket_accept"), name)
         if name == "lsh_bucket_accept_launch":
-            fn.argtypes = [_P] * 10 + [ctypes.c_int] * 5 + [ctypes.c_float,
-                                                             _P]
+            fn.argtypes = [_P] * 7 + [ctypes.c_longlong] * 2 + [_P] * 4 \
+                + [ctypes.c_int] * 5 + [ctypes.c_float, _P]
         else:
             fn.argtypes = [_P] * 8 + [ctypes.c_int] * 5 + [_P]
         fn.restype = ctypes.c_int
@@ -62,24 +63,52 @@ def _scratch(b: int, count: int, device) -> torch.Tensor:
                        dtype=torch.float32, device=device)
 
 
-def launch(q_keys_lo, q_keys_hi, q, c_keys_lo, c_keys_hi, c, mtd2, *,
-           count: int, c2: float):
-    """(d2_min (B,), p_accept (B,)) for candidates against the first
-    `count` center slots; shapes as in `_check`, plus mtd2 (B,) f32."""
-    l, b, k, d, count = _check(q_keys_lo, q_keys_hi, q, c_keys_lo,
-                               c_keys_hi, c, count)
+def _accept(q_keys_lo, q_keys_hi, q, lanes, c_keys_lo, c_keys_hi, c, mtd2,
+            dims, c2):
+    """The accept launch; `lanes` None reads lane 0's slots only."""
+    l, b, k, d, count = dims
     check_tensor("mtd2", mtd2, torch.float32, 1, shape=(b,))
-    check_cuda(q_keys_lo, q_keys_hi, q, c_keys_lo, c_keys_hi, c, mtd2)
+    tensors = (q_keys_lo, q_keys_hi, q, c_keys_lo, c_keys_hi, c, mtd2)
+    check_cuda(*tensors, *(() if lanes is None else (lanes,)))
     d2_min = torch.empty(b, dtype=torch.float32, device=q.device)
     p = torch.empty_like(d2_min)
     err = _fn("lsh_bucket_accept_launch")(
         q_keys_lo.data_ptr(), q_keys_hi.data_ptr(), q.data_ptr(),
-        c_keys_lo.data_ptr(), c_keys_hi.data_ptr(), c.data_ptr(),
-        mtd2.data_ptr(), _scratch(b, count, q.device).data_ptr(),
-        d2_min.data_ptr(), p.data_ptr(), l, b, k, d, count, c2,
+        None if lanes is None else lanes.data_ptr(), c_keys_lo.data_ptr(),
+        c_keys_hi.data_ptr(), c.data_ptr(), l * k, k * d, mtd2.data_ptr(),
+        _scratch(b, count, q.device).data_ptr(), d2_min.data_ptr(),
+        p.data_ptr(), l, b, k, d, count, c2,
         torch.cuda.current_stream(q.device).cuda_stream)
     raise_on_error("lsh_bucket_accept", err)
     return d2_min, p
+
+
+def launch(q_keys_lo, q_keys_hi, q, c_keys_lo, c_keys_hi, c, mtd2, *,
+           count: int, c2: float):
+    """(d2_min (B,), p_accept (B,)) for candidates against the first
+    `count` center slots; shapes as in `_check`, plus mtd2 (B,) f32."""
+    dims = _check(q_keys_lo, q_keys_hi, q, c_keys_lo, c_keys_hi, c, count)
+    return _accept(q_keys_lo, q_keys_hi, q, None, c_keys_lo, c_keys_hi, c,
+                   mtd2, dims, c2)
+
+
+def launch_lanes(q_keys_lo, q_keys_hi, q, lanes, c_keys_lo, c_keys_hi, c,
+                 mtd2, *, count: int, c2: float):
+    """`launch` over the candidates of several lanes: candidate b reads the
+    slots of lane lanes[b] (int64, (B,)), keys (lanes, L, K) and
+    coordinates (lanes, K, D), the first `count` of them live."""
+    n_lanes = check_tensor("c", c, torch.float32, 3)[0]
+    check_tensor("c_keys_lo", c_keys_lo, torch.int32, 3)
+    check_tensor("c_keys_hi", c_keys_hi, torch.int32, 3,
+                 shape=tuple(c_keys_lo.shape))
+    if c_keys_lo.shape[0] != n_lanes:
+        raise ValueError(f"center keys of {c_keys_lo.shape[0]} lanes and "
+                         f"coordinates of {n_lanes}")
+    dims = _check(q_keys_lo, q_keys_hi, q, c_keys_lo[0], c_keys_hi[0], c[0],
+                  count)
+    check_tensor("lanes", lanes, torch.int64, 1, shape=(dims[1],))
+    return _accept(q_keys_lo, q_keys_hi, q, lanes, c_keys_lo, c_keys_hi, c,
+                   mtd2, dims, c2)
 
 
 def launch_min(q_keys_lo, q_keys_hi, q, c_keys_lo, c_keys_hi, c, *,

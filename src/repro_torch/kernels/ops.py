@@ -19,9 +19,17 @@ returns w' and the tile sums padded to a multiple of the tile, as the JAX
 package's does (w' = 0 past n).  On the Algorithm 4 path every pad is a
 no-op: the seeders keep their buffers at block multiples.
 
+The `_lanes` forms of `tree_sep_update`, `tree_sep_update_tiles` and
+`lsh_bucket_accept` take a leading lane axis, as the JAX package's
+`jax.vmap` gives its Pallas calls one: B independent solves of one shape
+advance in one launch, and each lane's outputs are bit-identical to the
+one-lane call's.  On the CPU their plain versions run the one-lane plain
+version per lane.
+
 Each wrapper adds one to its entry of `LAUNCHES` where it launches its
-kernel, and nowhere else: a run shows it went through the kernels by
-reading `launch_counts()` after `reset_launch_counts()`.
+kernel, and nowhere else (a launch over B lanes counts one): a run shows it
+went through the kernels by reading `launch_counts()` after
+`reset_launch_counts()`.
 """
 
 from __future__ import annotations
@@ -39,8 +47,11 @@ __all__ = [
     "d2_update_tiles",
     "tree_sep_update",
     "tree_sep_update_tiles",
+    "tree_sep_update_lanes",
+    "tree_sep_update_tiles_lanes",
     "lsh_bucket_min",
     "lsh_bucket_accept",
+    "lsh_bucket_accept_lanes",
     "flash_attention",
     "attention_bshd",
     "split_codes_u64",
@@ -195,6 +206,45 @@ def tree_sep_update_tiles(codes_lo, codes_hi, center_lo, center_hi, w, *,
     return out
 
 
+def tree_sep_update_lanes(codes_lo, codes_hi, x, w, *, scale: float,
+                          num_levels: int) -> torch.Tensor:
+    """The sweep of B lanes in one launch: codes (B, H, n) with contiguous
+    rows (a stride-0 lane axis, from `expand`, shares one copy of the
+    codes), x (B,) int64 the point each lane opens (its own column is the
+    center: nothing is gathered, nothing syncs), w (B, n).  Returns w'
+    (B, n); nothing pads."""
+    if not _on_card(w):
+        return ref.tree_sep_update_lanes_ref(codes_lo, codes_hi, x, w,
+                                             scale=scale,
+                                             num_levels=num_levels)
+    from repro_torch.kernels import tree_sep_update_cuda as binding
+
+    out = binding.launch_lanes(codes_lo, codes_hi, x, w, scale=scale,
+                               num_levels=num_levels)
+    LAUNCHES["tree_sep_update"] += 1
+    return out
+
+
+def tree_sep_update_tiles_lanes(codes_lo, codes_hi, x, w, *, scale: float,
+                                num_levels: int, block_n: int = 512):
+    """`tree_sep_update_lanes` plus per-tile sums: ``(w' (B, n),
+    tile_sums (B, n // block_n))``; n must be a multiple of `block_n` (the
+    seeders keep their buffers padded to the tile)."""
+    if codes_lo.shape[-1] % block_n:
+        raise ValueError(f"n = {codes_lo.shape[-1]} is not a multiple of "
+                         f"the tile {block_n}")
+    if not _on_card(w):
+        return ref.tree_sep_update_tiles_lanes_ref(
+            codes_lo, codes_hi, x, w, scale=scale, num_levels=num_levels,
+            block_n=block_n)
+    from repro_torch.kernels import tree_sep_update_cuda as binding
+
+    out = binding.launch_tiles_lanes(codes_lo, codes_hi, x, w, scale=scale,
+                                     num_levels=num_levels, tile=block_n)
+    LAUNCHES["tree_sep_update_tiles"] += 1
+    return out
+
+
 def _live_slots(c: torch.Tensor, count) -> int:
     """The number of live center slots: the first `count` (`None`: all K),
     clamped to 0..K as the plain version's mask clamps it."""
@@ -241,6 +291,27 @@ def lsh_bucket_accept(q_keys_lo, q_keys_hi, q, c_keys_lo, c_keys_hi, c, mtd2,
                                c, mtd2, count=live, c2=c2)
     LAUNCHES["lsh_bucket_accept"] += 1
     return d2_min, p
+
+
+def lsh_bucket_accept_lanes(q_keys_lo, q_keys_hi, q, lanes, c_keys_lo,
+                            c_keys_hi, c, mtd2, count=None, *, c2: float):
+    """`lsh_bucket_accept` over the candidates of B lanes in one launch:
+    candidate b (keys (L, S), coordinates (S, D), mtd2 (S,)) is scored
+    against the center slots of lane ``lanes[b]`` (int64 in 0..B-1), keys
+    (B, L, K) and coordinates (B, K, D), the first `count` live in every
+    lane.  Lanes may hold blocks of any sizes, in any order.  Returns
+    ``(d2_min (S,), p_accept (S,))``."""
+    live = _live_slots(c[0], count)
+    if not _on_card(q):
+        return ref.lsh_bucket_accept_lanes_penalty_ref(
+            q_keys_lo, q_keys_hi, q, lanes, c_keys_lo, c_keys_hi, c,
+            penalty_row(c.shape[1], live, q.device), mtd2, c2=c2)
+    from repro_torch.kernels import lsh_bucket_accept_cuda as binding
+
+    out = binding.launch_lanes(q_keys_lo, q_keys_hi, q, lanes, c_keys_lo,
+                               c_keys_hi, c, mtd2, count=live, c2=c2)
+    LAUNCHES["lsh_bucket_accept"] += 1
+    return out
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

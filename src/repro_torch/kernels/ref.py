@@ -25,10 +25,13 @@ __all__ = [
     "d2_update_tiles_ref",
     "tree_sep_update_ref",
     "tree_sep_update_tiles_ref",
+    "tree_sep_update_lanes_ref",
+    "tree_sep_update_tiles_lanes_ref",
     "lsh_bucket_min_ref",
     "lsh_bucket_min_penalty_ref",
     "lsh_bucket_accept_ref",
     "lsh_bucket_accept_penalty_ref",
+    "lsh_bucket_accept_lanes_penalty_ref",
     "flash_attention_ref",
     "attention_bshd_ref",
 ]
@@ -141,6 +144,36 @@ def tree_sep_update_tiles_ref(codes_lo, codes_hi, center_lo, center_hi, w, *,
     return out, tile_sums_ref(out, block_n)
 
 
+def _lane_columns(codes_lo, codes_hi, x):
+    """Per lane j: its (H, n) planes and the column of its point x[j]."""
+    for j, xj in enumerate(x.tolist()):
+        lo, hi = codes_lo[j], codes_hi[j]
+        yield j, lo, hi, lo[:, xj], hi[:, xj]
+
+
+def tree_sep_update_lanes_ref(codes_lo, codes_hi, x, w, *, scale: float,
+                              num_levels: int) -> torch.Tensor:
+    """The lane-axis sweep: codes (B, H, n) (a stride-0 lane axis shares
+    one copy), x (B,) the point each lane opens, w (B, n) -> w' (B, n),
+    `tree_sep_update_ref` of each lane stacked."""
+    return torch.stack([
+        tree_sep_update_ref(lo, hi, clo, chi, w[j], scale=scale,
+                            num_levels=num_levels)
+        for j, lo, hi, clo, chi in _lane_columns(codes_lo, codes_hi, x)])
+
+
+def tree_sep_update_tiles_lanes_ref(codes_lo, codes_hi, x, w, *,
+                                    scale: float, num_levels: int,
+                                    block_n: int = 512):
+    """(w' (B, n), tile sums (B, n / block_n)): `tree_sep_update_tiles_ref`
+    of each lane stacked."""
+    outs = [tree_sep_update_tiles_ref(lo, hi, clo, chi, w[j], scale=scale,
+                                      num_levels=num_levels, block_n=block_n)
+            for j, lo, hi, clo, chi in _lane_columns(codes_lo, codes_hi, x)]
+    return (torch.stack([o for o, _ in outs]),
+            torch.stack([t for _, t in outs]))
+
+
 def _masked_d2(q_keys_lo, q_keys_hi, q, c_keys_lo, c_keys_hi, c,
                live: torch.Tensor) -> torch.Tensor:
     """(B, K) squared distances where a live center shares a bucket with
@@ -228,6 +261,26 @@ def lsh_bucket_accept_penalty_ref(q_keys_lo, q_keys_hi, q, c_keys_lo,
     d2_min = lsh_bucket_min_penalty_ref(q_keys_lo, q_keys_hi, q, c_keys_lo,
                                         c_keys_hi, c, penalty)
     return d2_min, _accept_p(d2_min, mtd2, c2)
+
+
+def lsh_bucket_accept_lanes_penalty_ref(q_keys_lo, q_keys_hi, q, lanes,
+                                        c_keys_lo, c_keys_hi, c,
+                                        penalty: torch.Tensor,
+                                        mtd2: torch.Tensor, *, c2: float):
+    """The lane-axis accept: candidate b against the slots of lane
+    lanes[b], keys (lanes, L, K) and coordinates (lanes, K, D).  Each
+    lane's candidates, in their order, go through
+    `lsh_bucket_accept_penalty_ref` with that lane's slots, so a lane's
+    results are the one-lane call's."""
+    d2_min = torch.empty(q.shape[0], dtype=torch.float32, device=q.device)
+    p = torch.empty_like(d2_min)
+    for j in range(c.shape[0]):
+        sel = torch.nonzero(lanes == j).flatten()
+        if len(sel):
+            d2_min[sel], p[sel] = lsh_bucket_accept_penalty_ref(
+                q_keys_lo[:, sel], q_keys_hi[:, sel], q[sel], c_keys_lo[j],
+                c_keys_hi[j], c[j], penalty, mtd2[sel], c2=c2)
+    return d2_min, p
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

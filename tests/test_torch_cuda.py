@@ -19,7 +19,14 @@ tile and an offset view of x, and the tiles wrapper is held to allocating
 nothing the size of x.  The last three tests drive the plan's other entry
 points on the card: the legacy `fit` against `ClusterPlan.fit` for the
 three device seeders, `fit_batch(seeds)` lanes against solo refits, and
-`no_retrace()` around refits after a warm-up.
+`no_retrace()` around refits after a warm-up.  The stacked-lane tests
+(`-k stacked`) hold the lane axis of the two sweeps and of
+`lsh_bucket_accept` to their plain versions and, lane by lane, to the
+one-lane launch bit for bit (per-lane codes and shared codes with a
+stride-0 lane axis, lanes of different block sizes), the lane-batched
+sampler to the one-lane sampler, and `fit_batch(seeds)` and
+`fit_batch(datasets=...)` lanes (mixed shape buckets included) to their
+one-lane fits.
 """
 
 import numpy as np
@@ -672,14 +679,25 @@ def test_fit_batch_lanes_equal_refits_on_the_card(cuda, seeder):
     b = plan.fit_batch([0, 1, 2, 3])
     batch_counts = ops.launch_counts()
     assert b.indices.is_cuda and tuple(b.indices.shape) == (4, 32)
-    ops.reset_launch_counts()
+    refits = []
     for i in range(4):
+        ops.reset_launch_counts()
         lane = plan.refit(seed=i)
+        refits.append(ops.launch_counts())
         assert torch.equal(b.indices[i], lane.indices)
         assert torch.equal(b.cost[i], lane.cost)
-    assert ops.launch_counts() == batch_counts
     if seeder == "rejection":
-        assert batch_counts["tree_sep_update_tiles"] == 4 * 32
+        # One lane-batched solve: each sweep launches once a center for
+        # all four lanes, the accept kernel once a round for the lanes
+        # still drawing.
+        lsh = [c["lsh_bucket_accept"] for c in refits]
+        assert batch_counts["tree_sep_update"] == 2 * 32
+        assert batch_counts["tree_sep_update_tiles"] == 32
+        assert max(lsh) <= batch_counts["lsh_bucket_accept"] <= sum(lsh)
+        assert b.extras["vmapped"] is True
+    else:                    # k-means|| keeps the loop of refits
+        assert batch_counts == {name: sum(c[name] for c in refits)
+                                for name in batch_counts}
 
 
 def test_no_retrace_holds_around_refits_on_the_card(cuda):
@@ -693,3 +711,173 @@ def test_no_retrace_holds_around_refits_on_the_card(cuda):
         plan.refit(seed=1)
         plan.refit(seed=2)
         plan.fit_batch([3, 4])
+
+
+# -- stacked lanes: the lane axis of the three kernels ---------------------------
+
+def _lane_planes(b, h, n, seed, dev, shared):
+    """(B, H, n) code planes (an `expand`ed stride-0 lane axis when
+    `shared`), x (B,) int64 and w (B, n) on the card."""
+    planes = [_codes(h, n, seed + (0 if shared else j), dev)
+              for j in range(1 if shared else b)]
+    lo = torch.stack([p[0] for p in planes])
+    hi = torch.stack([p[1] for p in planes])
+    if shared:
+        lo, hi = lo.expand(b, h, n), hi.expand(b, h, n)
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.integers(0, n, size=b), device=dev)
+    w = torch.as_tensor(rng.uniform(0, 1e8, size=(b, n)).astype(np.float32),
+                        device=dev)
+    return lo, hi, x, w
+
+
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("b,h,n,tile", [(1, 11, 1024, 512), (4, 11, 4096, 512),
+                                        (3, 59, 384, 128), (8, 14, 1536, 512)])
+def test_stacked_sweep_kernels_equal_one_lane_launches(cuda, b, h, n, tile,
+                                                       shared):
+    lo, hi, x, w = _lane_planes(b, h, n, b * n + h, cuda, shared)
+    kw = dict(scale=7.5 * 3 ** 0.5, num_levels=h + 1)
+    before = ops.launch_counts()
+    out = ops.tree_sep_update_lanes(lo, hi, x, w, **kw)
+    tout, tsums = ops.tree_sep_update_tiles_lanes(lo, hi, x, w, block_n=tile,
+                                                  **kw)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["tree_sep_update"] == before["tree_sep_update"] + 1
+    assert after["tree_sep_update_tiles"] == \
+        before["tree_sep_update_tiles"] + 1
+    assert torch.equal(out, ref.tree_sep_update_lanes_ref(lo, hi, x, w, **kw))
+    plain, psums = ref.tree_sep_update_tiles_lanes_ref(lo, hi, x, w,
+                                                       block_n=tile, **kw)
+    assert torch.equal(tout, plain)
+    torch.testing.assert_close(tsums, psums, rtol=1e-5, atol=0.0)
+    for j, xj in enumerate(x.tolist()):
+        col = (lo[j][:, xj], hi[j][:, xj])
+        assert torch.equal(out[j], ops.tree_sep_update(lo[j], hi[j], *col,
+                                                       w[j], **kw))
+        one, one_sums = ops.tree_sep_update_tiles(lo[j], hi[j], *col, w[j],
+                                                  block_n=tile, **kw)
+        assert torch.equal(tout[j], one) and torch.equal(tsums[j], one_sums)
+        assert float(out[j, xj]) == 0.0
+
+
+def test_stacked_sweep_kernels_take_a_lane_of_a_larger_stack(cuda):
+    """The seeders pass tree t of (B, T, H-1, n) codes: a strided lane
+    axis over contiguous planes."""
+    codes = [_codes(11, 2048, 40 + j, cuda) for j in range(3 * 3)]
+    lo = torch.stack([c[0] for c in codes]).reshape(3, 3, 11, 2048)
+    hi = torch.stack([c[1] for c in codes]).reshape(3, 3, 11, 2048)
+    x = torch.tensor([5, 0, 2047], device=cuda)
+    w = torch.rand(3, 2048, device=cuda) * 1e6
+    kw = dict(scale=2.0, num_levels=12)
+    out = ops.tree_sep_update_lanes(lo[:, 1], hi[:, 1], x, w, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref.tree_sep_update_lanes_ref(lo[:, 1], hi[:, 1],
+                                                          x, w, **kw))
+
+
+@pytest.mark.parametrize("sizes,count", [((512, 512, 512, 512), 500),
+                                         ((32, 0, 256, 64), 999),
+                                         ((128,), 0), ((7, 300), 1000)])
+def test_stacked_lsh_kernel_equals_one_lane_launches(cuda, sizes, count):
+    b, k, l, d = len(sizes), 1000, 15, 74
+    rng = np.random.default_rng(sum(sizes) + count)
+    s = sum(sizes)
+    lanes = torch.as_tensor(np.repeat(np.arange(b), sizes), device=cuda)
+    arrays = (rng.integers(-5, 5, size=(l, s)).astype(np.int32),
+              rng.integers(-5, 5, size=(l, s)).astype(np.int32),
+              rng.normal(size=(s, d)).astype(np.float32),
+              rng.integers(-5, 5, size=(b, l, k)).astype(np.int32),
+              rng.integers(-5, 5, size=(b, l, k)).astype(np.int32),
+              rng.normal(size=(b, k, d)).astype(np.float32),
+              rng.uniform(0, 3, size=s).astype(np.float32))
+    qlo, qhi, q, clo, chi, c, mtd2 = (torch.from_numpy(a).to(cuda)
+                                      for a in arrays)
+    mtd2[::5] = 0.0
+    before = ops.launch_counts()["lsh_bucket_accept"]
+    d2, p = ops.lsh_bucket_accept_lanes(qlo, qhi, q, lanes, clo, chi, c, mtd2,
+                                        count, c2=1.44)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["lsh_bucket_accept"] == before + 1
+    pd2, pp = ref.lsh_bucket_accept_lanes_penalty_ref(
+        qlo, qhi, q, lanes, clo, chi, c, ops.penalty_row(k, count, cuda),
+        mtd2, c2=1.44)
+    miss = pd2 == ref.LSH_MISS
+    assert torch.equal(d2 == ref.LSH_MISS, miss)
+    torch.testing.assert_close(d2[~miss], pd2[~miss], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(p, pp, rtol=1e-5, atol=1e-5)
+    start = 0
+    for j, size in enumerate(sizes):
+        seg = slice(start, start + size)
+        one = ops.lsh_bucket_accept(qlo[:, seg].contiguous(),
+                                    qhi[:, seg].contiguous(), q[seg], clo[j],
+                                    chi[j], c[j], mtd2[seg], count, c2=1.44)
+        assert torch.equal(d2[seg], one[0]) and torch.equal(p[seg], one[1])
+        start += size
+
+
+def test_stacked_sampler_equals_one_lane_sampler(cuda):
+    """The lane-batched descent and the per-lane cumsum draw each lane's
+    block exactly as `TiledSampleTree.sample` draws it alone."""
+    from repro_torch.core.sample_tree import TiledSampleTree
+
+    ts = TiledSampleTree(311_029, tile=512)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    w = torch.rand(4, ts.n_pad, generator=gen, device=cuda)
+    w[:, 311_029:] = 0.0
+    w[2, :200_000] = 0.0
+    heaps = torch.stack([ts.init(w[j].clone()) for j in range(4)])
+    for sizes in ((512, 512, 512, 512), (32, 0, 256, 64), (1, 1, 1, 1)):
+        lanes = torch.as_tensor(np.repeat(np.arange(4), sizes), device=cuda)
+        gens = [torch.Generator(device=cuda).manual_seed(10 + j)
+                for j in range(4)]
+        cand = ts.sample_lanes(heaps, w, gens, sizes, lanes)
+        start = 0
+        for j, size in enumerate(sizes):
+            if size:
+                one = ts.sample(heaps[j], w[j].clone(),
+                                torch.Generator(device=cuda).manual_seed(
+                                    10 + j), size)
+                assert torch.equal(cand[start: start + size], one), (sizes, j)
+            start += size
+
+
+@pytest.mark.parametrize("seeder", ["rejection", "fastkmeans++"])
+def test_stacked_seeds_lanes_equal_refits_on_the_card(cuda, seeder):
+    plan = ClusterPlan(ClusterSpec(k=48, seeder=seeder, seed=3),
+                       ExecutionSpec(backend="device"))
+    plan.prepare(_card_mixture(7))
+    batch = plan.fit_batch([3, 5, 6, 0, 9])
+    assert batch.extras["vmapped"] is True
+    for i, s in enumerate((3, 5, 6, 0, 9)):
+        lane = plan.refit(seed=s)
+        assert torch.equal(batch.indices[i], lane.indices)
+        assert torch.equal(batch.centers[i], lane.centers)
+        if seeder == "rejection":
+            assert torch.equal(batch.extras["trials"][i],
+                               lane.extras["trials"])
+    assert torch.equal(plan.fit_batch([9]).indices[0], batch.indices[4])
+
+
+@pytest.mark.parametrize("seeder", ["rejection", "fastkmeans++"])
+def test_stacked_datasets_equal_one_lane_fits_on_the_card(cuda, seeder):
+    datasets = [_card_mixture(20, n=20_000), _card_mixture(21, n=30_000),
+                _card_mixture(22, n=9_000), _card_mixture(23, n=31_000)]
+    plan = ClusterPlan(ClusterSpec(k=40, seeder=seeder, seed=1),
+                       ExecutionSpec(backend="device"))
+    ops.reset_launch_counts()
+    batch = plan.fit_batch(datasets=datasets, seeds=[1, 2, 3, 4])
+    counts = ops.launch_counts()
+    assert batch.extras["stacked"] and batch.extras["shape_buckets"] == 2
+    assert batch.extras["bucket_rows"] == (32768, 32768, 16384, 32768)
+    assert batch.extras["lane_rows"] == (20_000, 30_000, 9_000, 31_000)
+    # One solve per bucket: 2 sweeps and a tiles sweep a center each.
+    assert counts["tree_sep_update"] == 2 * 2 * 40
+    assert counts["tree_sep_update_tiles"] == 2 * 40
+    for i, (x, s) in enumerate(zip(datasets, (1, 2, 3, 4))):
+        solo = plan.fit_batch(datasets=[x], seeds=[s])
+        assert torch.equal(batch.indices[i], solo.indices[0])
+        assert torch.equal(batch.cost[i], solo.cost[0])
+        assert int(batch.indices[i].max()) < len(x)
+        assert len(torch.unique(batch.indices[i])) == 40

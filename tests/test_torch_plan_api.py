@@ -7,12 +7,16 @@ package's, on the CPU.
   * The cpu backend's `ClusterPlan.fit` equals the JAX package's: indices
     exactly, cost to rtol 1e-5; so does `fit_batch(seeds)`.
   * `fit_batch(seeds)` lane i is bit-identical to `refit(seed=seeds[i])`
-    on both backends; `fit_batch(datasets=...)` is the solo loop
-    (``stacked`` False) and `prepare_stacked` raises.
-  * `replace`, `forget`, `block_until_ready`, the capability table cell by
-    cell (the sharded backend, and the stacked and streaming columns,
-    aside), `no_retrace`, and the names of `repro.core.__all__` still to
-    come, each with its ROADMAP item.
+    on both backends, and on the device backend the device-native seeders
+    run the lanes as one lane-batched solve (``vmapped`` True, with the
+    JAX package's `extras`); for a seeder without stacked lanes
+    (k-means||) `fit_batch(datasets=...)` is the solo loop (``stacked``
+    False) and `prepare_stacked` raises.  The stacked lanes themselves are
+    `tests/test_torch_stacked.py`'s.
+  * `replace`, `forget`, `block_until_ready` (on tensors and on the NumPy
+    arrays of `to_numpy`), the capability table cell by cell (the sharded
+    backend and the streaming column aside), `no_retrace`, and the names
+    of `repro.core.__all__` still to come, each with its ROADMAP item.
 """
 
 import dataclasses
@@ -168,13 +172,22 @@ def test_fit_batch_lanes_equal_refits(seeder, backend):
     assert tuple(b.indices.shape) == (3, 4)
     assert tuple(b.centers.shape) == (3, 4, 4)
     assert tuple(b.cost.shape) == (3,)
-    assert b.extras == {"seeds": (1, 2, 3), "vmapped": False}
+    # The JAX package's extras: device-native seeders on the device backend
+    # are one lane-batched solve, the rest a loop of refits.
+    lanes = backend == "device" and seeder != "kmeans||"
+    want = {"seeds": (1, 2, 3), "vmapped": lanes}
+    if lanes and seeder == "rejection":
+        assert tuple(b.extras["trials"].shape) == (3, 4)
+        want["trials"] = b.extras["trials"]
+    assert b.extras == want
     assert plan.cache_info()["prepare_builds"] == 1
     for i, s in enumerate([1, 2, 3]):
         lane = plan.refit(seed=s)
         assert torch.equal(b.indices[i], lane.indices)
         assert torch.equal(b.centers[i], lane.centers)
         assert torch.equal(b.cost[i], lane.cost)
+        if "trials" in want:
+            assert torch.equal(b.extras["trials"][i], lane.extras["trials"])
     host = b.to_numpy()
     assert host.indices.dtype == np.int64 and host.cost.shape == (3,)
     with pytest.raises(ValueError, match="single-problem"):
@@ -194,8 +207,10 @@ def test_cpu_fit_batch_matches_jax_package(seeder):
 
 
 def test_fit_batch_over_datasets_is_the_solo_loop():
+    # k-means|| has no stacked lanes (as in the JAX package), so its
+    # datasets are prepared and fitted in turn.
     data = [_mixture(n=300, seed=s) for s in (1, 2)]
-    plan = _plan("device", k=4, seeder="rejection", seed=0)
+    plan = _plan("device", k=4, seeder="kmeans||", seed=0)
     b = plan.fit_batch([3, 4], datasets=data)
     assert b.extras["stacked"] is False and b.extras["seeds"] == (3, 4)
     for i, (pts, s) in enumerate(zip(data, (3, 4))):
@@ -249,6 +264,13 @@ def test_block_until_ready_returns_self():
     assert res.block_until_ready() is res
 
 
+def test_block_until_ready_on_numpy_arrays():
+    """The JAX package's returns the result for host arrays too."""
+    res = _plan(k=5, seeder="kmeans++").fit(_mixture(n=200)).to_numpy()
+    assert isinstance(res.indices, np.ndarray)
+    assert res.block_until_ready() is res
+
+
 def test_cpu_refit_with_new_k_reuses_the_quantisation():
     plan = _plan(k=4, seeder="rejection", seed=0)
     plan.fit(_mixture(seed=9))
@@ -277,12 +299,12 @@ def test_plan_rejects_bad_pairs():
 
 def _table_cells(table: str) -> dict:
     """{seeder: [cell, ...]} of a capability table, the sharded backend
-    and the stacked and streaming columns left out."""
+    and the streaming column left out."""
     out = {}
     for line in table.replace("kmeans||", "kmeans-par").splitlines()[2:]:
         cells = [c.strip() for c in line.strip("|").split("|")]
         kept = [", ".join(b for b in c.split(", ") if b != "sharded")
-                or "—" for c in cells[:4] + cells[6:]]
+                or "—" for c in cells[:5] + cells[6:]]
         out[cells[0]] = kept
     return out
 
@@ -292,7 +314,7 @@ def test_capability_table_matches_jax_package_cell_by_cell():
     assert table.splitlines()[:2] == jcore.capability_table().splitlines()[:2]
     assert _table_cells(table) == _table_cells(jcore.capability_table())
     for line in table.replace("kmeans||", "kmeans-par").splitlines()[2:]:
-        assert line.split("|")[5:7] == [" — ", " — "]   # items 6 and 8
+        assert line.split("|")[6] == " — "              # item 8
 
 
 def test_every_registered_seeder_has_cpu_impl_and_doc():

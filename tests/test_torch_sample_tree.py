@@ -176,6 +176,32 @@ def test_torch_tree_matches_numpy():
     assert np.allclose(freq, w / w.sum(), atol=0.03)
 
 
+def test_descend_over_lanes_equals_each_heap_alone():
+    """`descend` over B heaps (draws in any lane order, a lane with none)
+    picks, draw by draw, the leaf that `sample`'s descent of that lane's
+    heap alone picks from the same uniform: one descent serves both."""
+    rng = np.random.default_rng(4)
+    n, b = 45, 4
+    w = rng.uniform(0, 3, size=(b, n)).astype(np.float32)
+    w[1, ::2] = 0.0
+    tt = SampleTreeTorch(n)
+    heaps = tt.init(torch.from_numpy(w))
+    lanes = torch.tensor([2, 0, 0, 3, 1, 2, 0, 3, 3], dtype=torch.int64)
+    lanes = torch.cat([lanes, lanes[lanes != 2]])      # lane 2: fewer draws
+    u = torch.rand(len(lanes), generator=_gen(5))
+    got = tt.descend(heaps, u, lanes)
+    for s, j in enumerate(lanes.tolist()):
+        one = tt.descend(heaps[j][None], u[s: s + 1],
+                         torch.zeros(1, dtype=torch.int64))
+        assert int(got[s]) == int(one[0])
+        assert w[j, int(got[s])] > 0
+    # `sample` is the one-heap case: the same draws as descend of its u.
+    u0 = torch.rand(64, generator=_gen(6))
+    assert torch.equal(tt.sample(heaps[1], _gen(6), 64),
+                       tt.descend(heaps[1][None], u0,
+                                  torch.zeros(64, dtype=torch.int64)))
+
+
 def test_heaps_match_jax():
     """Same weights and updates: `init` is bit-identical to the JAX
     package's (the same pairwise f32 sums), and the tile sums, the coarse
