@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Drives the port's three paths.  Two go through the plan, each at the shape
+Drives the port's three paths (and, in phase 8d, the plan's streaming
+entry points on the first).  Two go through the plan, each at the shape
 of the paper's smallest real dataset (KDD Cup, 311,029 x 74, generated
 here from a seed as `benchmarks/datasets.py` does) with k = 1000: the
 paper's Algorithm 4,
@@ -87,6 +88,26 @@ against its plain PyTorch version on the card.  In order:
      cpu backend's six NumPy seeders on the host at n = 31,102 (the first
      tenth of the rows), their host times and float64 cost ratios to
      exact k-means++ (information only);
+ 8d. streaming at full width on `kddcup_shaped(0)`, k = 1000, through the
+     device backend: `prepare_streaming` of the first 200,000 rows
+     (capacity 262,144), `extend` of the other 111,029 in batches of
+     10,000 (capacity 524,288), `retire` of 31,102 rows drawn from a
+     seed, each timed; the patched `w0` exactly m_init on the live rows
+     and 0 elsewhere, the patched heap `ts.init(w0)` bit for bit;
+     `fit_prepared(seed=1)` with the launch counts set to 0 just before
+     and read just after (2k, k and at least k - 1 launches), its indices
+     live and distinct, its masked cost within 1e-4 of float64 over the
+     live rows, a replay of its centers from `w0` through the kernels and
+     the plain sweeps (the same weights), seed 1 again (the same indices);
+     a from-scratch `prepare_data` of the live rows and its fit, timed
+     beside; extend then retire of the same 10,000 rows (`w0` and the
+     heap back bit for bit); an extend of 1,000 rows out of the frozen
+     domain (one rebuild) and the same checks again; scratch equivalence,
+     the first 200,000 rows then 50,000 duplicates of them against all
+     250,000 at once (artifacts and the refit's indices bit-identical);
+     and a fastkmeans++ stream with the same history, its refit's
+     launches and checks.  Rows 1 to 3 of the kernel line add the
+     rejection refit's launches;
   9. the seeding paths' device tensors are freed;
  10. `flash_attention` against its plain version (the chunked
      online-softmax scan) at the serving path's shape, q (4, 2048, 32, 128)
@@ -169,6 +190,11 @@ KERNELS = {
                         "src/repro/kernels/flash_attention.py:94"),
 }
 STACK_SMALL = 150_000                   # the third stacked lane's rows
+STREAM_FIRST = 200_000                  # phase 8d: the stream's first rows
+STREAM_BATCH = 10_000                   # rows an extend
+STREAM_RETIRE = 31_102                  # rows retired, a tenth of n
+STREAM_DUPS = 50_000                    # duplicates of the first rows
+STREAM_OOD = 1_000                      # rows moved out of the domain
 KMP_ROUNDS = 5                          # the k-means|| defaults
 KMP_ELL = 2.0 * K
 KMP_CAP = int(min(N, max(8, 4 * KMP_ELL)))
@@ -1097,6 +1123,9 @@ def seeding_paths(torch, t_start: float) -> list:
     log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**20:.1f}"
         f" MiB; {time.perf_counter() - t_start:.1f} s so far")
     other_entry_points(torch, t_start, points, plan, fit, km_fit, t)
+    stream_launches = streaming(torch, t_start, points)
+    for row in rows:
+        row["launches"] += stream_launches.get(row["name"], 0)
     return rows
 
 
@@ -1527,6 +1556,251 @@ def stacked_lanes(torch, t_start) -> None:
             f"({b_by}), {b_ms / ms:.3f} of the bound")
     log(f"  lane-axis max abs err against the plain versions: sweeps 0.0 "
         f"(bit-identical), lsh_bucket_accept {lsh_err:.3g}")
+
+
+def streaming(torch, t_start, points) -> dict:
+    """Phase 8d: a stream at full width on the main path's data, through
+    the device backend: `prepare_streaming` of the first rows, `extend`
+    of the rest in batches (crossing a capacity rung), `retire` of a
+    tenth, and refits over the live rows, each held to its checks.
+    Returns the rejection refit's launch counts."""
+    from repro_torch.core import device_seeding as ds
+    from repro_torch.core.batch_schedule import shape_bucket
+    from repro_torch.core.plan import ClusterPlan, ClusterSpec, ExecutionSpec
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda")
+    rungs = (shape_bucket(STREAM_FIRST), shape_bucket(N))  # 262,144; 524,288
+    log(f"[{time.perf_counter() - t_start:.1f} s] streaming at full width, "
+        f"d={D}, k={K}: prepare_streaming of {STREAM_FIRST} rows, extends "
+        f"of {STREAM_BATCH}, retire of {STREAM_RETIRE}")
+    retired = np.random.default_rng(SEED + 8).choice(N, STREAM_RETIRE,
+                                                     replace=False)
+
+    def sync_s(t0):
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def history(seeder):
+        plan = ClusterPlan(ClusterSpec(k=K, seeder=seeder, seed=SEED),
+                           ExecutionSpec(backend="device"))
+        t0 = time.perf_counter()
+        prep = plan.prepare_streaming(points[:STREAM_FIRST])
+        prep_s = sync_s(t0)
+        state = prep.streaming
+        caps = [state.capacity]
+        ext_s = []
+        for lo in range(STREAM_FIRST, N, STREAM_BATCH):
+            t0 = time.perf_counter()
+            plan.extend(points[lo: lo + STREAM_BATCH], prepared=prep)
+            ext_s.append(sync_s(t0))
+            caps.append(state.capacity)
+        t0 = time.perf_counter()
+        plan.retire(retired, prepared=prep)
+        ret_s = sync_s(t0)
+        if (caps[0], caps[-1]) != rungs or \
+                state.n_rows != N or state.rebuilds != 0 or \
+                state.live_count != N - STREAM_RETIRE:
+            raise AssertionError(f"stream {seeder}: capacities {caps}, rows "
+                                 f"{state.n_rows}, rebuilds {state.rebuilds}"
+                                 f", live {state.live_count}")
+        log(f"  {seeder}: prepare_streaming {prep_s:.3f} s (capacity "
+            f"{caps[0]}); {len(ext_s)} extends, median "
+            f"{float(np.median(ext_s)):.4f} s a batch (max "
+            f"{max(ext_s):.4f} s; capacity {caps[-1]} from extend "
+            f"{caps.index(caps[-1])}); retire of {STREAM_RETIRE} rows "
+            f"{ret_s:.4f} s; {state.live_count} live of {state.n_rows}")
+        return plan, prep
+
+    def check_weights(label, state):
+        """`w0` is m_init on live rows and 0 on retired and padding rows,
+        and the patched heap is `ts.init(w0)` bit for bit."""
+        want = torch.zeros(state.ts.n_pad, device=dev)
+        want[:state.capacity] = torch.as_tensor(
+            state.live, dtype=torch.float32, device=dev) * state.statics[2]
+        heap = state.ts.init(state.w0)
+        if not (torch.equal(state.w0, want)
+                and torch.equal(state.base_heap, heap)):
+            raise AssertionError(f"{label}: w0 exact "
+                                 f"{torch.equal(state.w0, want)}, heap equal "
+                                 f"to ts.init(w0) "
+                                 f"{torch.equal(state.base_heap, heap)}")
+
+    def refit(label, plan, prep, seed, want):
+        """A refit with the launch counts set to 0 just before and read
+        just after; its indices live and distinct, its masked cost against
+        float64 over the live rows."""
+        state = prep.streaming
+        ops.reset_launch_counts()
+        res = plan.fit_prepared(prep, seed=seed)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        lsh = counts["lsh_bucket_accept"]
+        lsh_ok = lsh >= K - 1 if plan.cluster.seeder == "rejection" \
+            else lsh == 0
+        if counts != dict({name: 0 for name in counts}, **want,
+                          lsh_bucket_accept=lsh) or not lsh_ok:
+            raise AssertionError(f"{label}: launches {counts}, expected "
+                                 f"{want} (and the accept)")
+        idx = res.indices.cpu().numpy()
+        pts64 = torch.as_tensor(state.host_pts[state.live_ids()], device=dev)
+        exact = cost64(torch, pts64, torch.as_tensor(state.host_pts[idx],
+                                                     device=dev))
+        rel = abs(float(res.cost) - exact) / exact
+        if not (state.live[idx].all() and len(np.unique(idx)) == K
+                and rel <= 1e-4 and res.extras["streaming"]):
+            raise AssertionError(f"{label}: indices live "
+                                 f"{state.live[idx].all()}, distinct "
+                                 f"{len(np.unique(idx))}, cost "
+                                 f"{float(res.cost)} against {exact}")
+        rounds = (f", {lsh} accept rounds, trials per center "
+                  f"{float(res.extras['trials'].sum()) / K:.3f}"
+                  if lsh else "")
+        log(f"  {label}: solve {res.solve_seconds:.3f} s, cost "
+            f"{float(res.cost):.9g} (float64 over the live rows "
+            f"{exact:.10g}, rel {rel:.3g}); launches={counts}{rounds}; "
+            f"indices live and distinct")
+        del pts64
+        return res, counts
+
+    def replay(label, state, idx):
+        """The refit's centers opened from `w0` through the kernels (one
+        lane, as the solve launches them) and through the plain sweeps:
+        the same weights bit for bit, retired and padding rows still 0."""
+        scale, levels, m_init = state.statics
+        tile = state.tile
+        ts, open_k, w_k, _ = ds._lane_start(
+            state.codes_lo[None], state.codes_hi[None], [state.capacity],
+            scale=scale, num_levels=levels, m_init=m_init, tile=tile,
+            w0=state.w0[None], base0=state.base_heap[None])
+        lo = ds._pad_axis(state.codes_lo, 2, ts.n_pad)
+        hi = ds._pad_axis(state.codes_hi, 2, ts.n_pad)
+        t = lo.shape[0]
+        kw = dict(scale=scale, num_levels=levels)
+        w_p = state.w0.clone()
+        for x in idx.tolist():
+            w_k, _ = open_k(w_k, torch.tensor([x], device=dev))
+            for ti in range(t - 1):
+                w_p = ref.tree_sep_update_ref(lo[ti], hi[ti], lo[ti, :, x],
+                                              hi[ti, :, x], w_p, **kw)
+            w_p, _ = ref.tree_sep_update_tiles_ref(
+                lo[t - 1], hi[t - 1], lo[t - 1, :, x], hi[t - 1, :, x], w_p,
+                block_n=tile, **kw)
+        torch.cuda.synchronize()
+        dead = state.w0 == 0
+        if not (torch.equal(w_k[0], w_p) and bool((w_p[dead] == 0).all())):
+            raise AssertionError(f"{label}: replay weights equal "
+                                 f"{torch.equal(w_k[0], w_p)}, dead rows 0 "
+                                 f"{bool((w_p[dead] == 0).all())}")
+        log(f"  {label}: a replay of the {len(idx)} centers from w0 through "
+            f"the kernels and through the plain sweeps gives the same "
+            f"weights; {int(dead.sum())} retired and padding rows stay 0")
+
+    def refit_checks(label, plan, prep, want):
+        check_weights(label, prep.streaming)
+        res, counts = refit(f"{label} fit_prepared(seed=1)", plan, prep, 1,
+                            want)
+        replay(label, prep.streaming, res.indices)
+        again = plan.fit_prepared(prep, seed=1)
+        if not torch.equal(again.indices, res.indices):
+            raise AssertionError(f"{label}: seed 1 opened other indices the "
+                                 "second time")
+        log(f"  {label}: seed 1 again, the same {K} indices "
+            f"({again.solve_seconds:.3f} s)")
+        return res, counts
+
+    plan, prep = history("rejection")
+    state = prep.streaming
+    t = state.codes_lo.shape[0]
+    sweeps = {"tree_sep_update": (t - 1) * K, "tree_sep_update_tiles": K}
+    res, launches = refit_checks("rejection stream", plan, prep, sweeps)
+
+    # From scratch on the same live rows: the main path's prepare (quantised)
+    # and fit, information only.
+    live_pts = state.live_points()
+    static = plan.prepare_data(live_pts)
+    scratch_fit = plan.fit_prepared(static, seed=1)
+    log(f"  from scratch on the {len(live_pts)} live rows: prepare_data "
+        f"{static.prepare_seconds:.3f} s, fit solve "
+        f"{scratch_fit.solve_seconds:.3f} s, cost "
+        f"{float(scratch_fit.cost):.9g} (quantised, as the main path)")
+    plan.forget(static)
+    del static, scratch_fit, live_pts
+
+    # Round trip: extend then retire the same rows.
+    w0, heap = state.w0.clone(), state.base_heap.clone()
+    n0 = state.n_rows
+    plan.extend(points[:STREAM_BATCH], prepared=prep)
+    plan.retire(np.arange(n0, n0 + STREAM_BATCH), prepared=prep)
+    if not (torch.equal(state.w0, w0) and torch.equal(state.base_heap, heap)):
+        raise AssertionError("stream: extend then retire of the same rows "
+                             "did not give w0 and the heap back")
+    log(f"  extend then retire of {STREAM_BATCH} rows: w0 and the heap "
+        "back bit for bit")
+    del w0, heap
+
+    # Out of the frozen domain ([origin, origin + 2) a coordinate in scaled
+    # units, less the tree's shift): a rebuild over every row, then the
+    # checks.
+    far = points[:STREAM_OOD] + 2.0 / state.scale
+    t0 = time.perf_counter()
+    plan.extend(far, prepared=prep)
+    ood_s = sync_s(t0)
+    if state.rebuilds != 1:
+        raise AssertionError(f"stream: {state.rebuilds} rebuilds after an "
+                             "extend out of the domain")
+    log(f"  extend of {STREAM_OOD} rows out of the domain: rebuild over "
+        f"{state.n_rows} rows in {ood_s:.3f} s (stream_rebuilds 1)")
+    res_ood, _ = refit_checks("rejection stream after the rebuild", plan,
+                              prep, sweeps)
+    if res_ood.extras["stream_rebuilds"] != 1:
+        raise AssertionError(f"stream extras {res_ood.extras}")
+    plan.forget(prep)
+    del prep, state, res, res_ood
+
+    # Scratch equivalence: A then duplicates of A, against A + B at once.
+    dups = points[np.random.default_rng(SEED + 9).integers(
+        0, STREAM_FIRST, STREAM_DUPS)]
+    t0 = time.perf_counter()
+    inc = plan.prepare_streaming(points[:STREAM_FIRST])
+    plan.extend(dups, prepared=inc)
+    inc_s = sync_s(t0)
+    t0 = time.perf_counter()
+    scratch = plan.prepare_streaming(np.concatenate([points[:STREAM_FIRST],
+                                                     dups]))
+    scratch_s = sync_s(t0)
+    si, ss = inc.streaming, scratch.streaming
+    names = ("codes_lo", "codes_hi", "keys_lo", "keys_hi", "pts_scaled", "w0",
+             "base_heap")
+    same = [n for n in names if torch.equal(getattr(si, n), getattr(ss, n))]
+    ri = plan.fit_prepared(inc, seed=2)
+    rs = plan.fit_prepared(scratch, seed=2)
+    if len(same) != len(names) or si.scale != ss.scale or \
+            si.capacity != ss.capacity or si.rebuilds != 0 or \
+            not torch.equal(ri.indices, rs.indices):
+        raise AssertionError(f"scratch equivalence: equal {same}, scale "
+                             f"{si.scale} {ss.scale}, indices equal "
+                             f"{torch.equal(ri.indices, rs.indices)}")
+    log(f"  scratch equivalence: prepare_streaming of {STREAM_FIRST} rows "
+        f"and extend of {STREAM_DUPS} duplicates ({inc_s:.3f} s) against "
+        f"prepare_streaming of the {STREAM_FIRST + STREAM_DUPS} rows "
+        f"({scratch_s:.3f} s): codes, keys, pts_scaled, w0 and the heap "
+        f"bit-identical, capacity {si.capacity}; the refit at seed 2 the "
+        "same indices")
+    plan.forget(inc)
+    plan.forget(scratch)
+    del inc, scratch, si, ss, ri, rs
+
+    fast_plan, fast_prep = history("fastkmeans++")
+    check_weights("fastkmeans++ stream", fast_prep.streaming)
+    refit("fastkmeans++ stream fit_prepared(seed=1)", fast_plan, fast_prep,
+          1, sweeps)
+    fast_plan.forget(fast_prep)
+    del fast_prep
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[{time.perf_counter() - t_start:.1f} s] streaming done")
+    return launches
 
 
 def check_attention(torch, ops, ref, q, k, v, causal: bool, label: str,

@@ -1,11 +1,12 @@
 """Core of the port: the plan API and the legacy facade, the seeder
 registry with its two backends (the seeders on the card and the faithful
-NumPy seeders on the host), and the host structures (tree embedding, LSH,
-multi-tree sampler, quantisation, sample structures).
+NumPy seeders on the host), streaming (mutable prepared streams, drift
+detection, mini-batch refinement, dynamic k), and the host structures
+(tree embedding, LSH, multi-tree sampler, quantisation, sample
+structures).
 
 Exports the names of the JAX package's `repro.core.__all__` that are
-ported; the rest (the engine, resilience and streaming) are ROADMAP
-Queue 1 items 7 and 8.
+ported; the rest (the engine and resilience) are ROADMAP Queue 1 item 7.
 """
 
 from repro_torch.core.api import (
@@ -38,6 +39,15 @@ from repro_torch.core.seeding import (
     kmeanspp,
     rejection_sampling,
     uniform_sampling,
+)
+from repro_torch.core.streaming import (
+    DriftDetector,
+    DriftPolicy,
+    MiniBatchRefiner,
+    StreamingController,
+    StreamingOps,
+    StreamState,
+    split_merge_k,
 )
 from repro_torch.core.tracing import RetraceError, TRACE_COUNTS, no_retrace
 from repro_torch.core.tree_embedding import MultiTreeEmbedding, build_multitree
@@ -77,4 +87,11 @@ __all__ = [
     "uniform_sampling",
     "MultiTreeEmbedding",
     "build_multitree",
+    "StreamingOps",
+    "StreamState",
+    "DriftPolicy",
+    "DriftDetector",
+    "MiniBatchRefiner",
+    "StreamingController",
+    "split_merge_k",
 ]

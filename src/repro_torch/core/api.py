@@ -47,6 +47,9 @@ from repro_torch.core.registry import (
     capability_table,
 )
 from repro_torch.core.seeding import SEEDERS, SeedingResult, clustering_cost
+# Streaming ops attach to the registered BackendImpls at import time, so
+# this comes after the backend-registering imports above.
+from repro_torch.core import streaming  # noqa: F401  attaches streaming ops
 
 __all__ = [
     "KMeansConfig", "KMeans", "fit", "resolve_seeder", "BACKENDS",

@@ -202,7 +202,7 @@ def _initial_weights(ts: TiledSampleTree, n_real: int, m_init: float,
 
 
 def _lane_start(codes_lo, codes_hi, n_real, *, scale, num_levels, m_init,
-                tile):
+                tile, w0=None, base0=None):
     """The lane-batched seeders' state over codes (B, T, H-1, n):
     (sampler, open_center, weights (B, n_pad), coarse heaps (B, 2 cap)).
 
@@ -211,7 +211,9 @@ def _lane_start(codes_lo, codes_hi, n_real, *, scale, num_levels, m_init,
     ``(weights', tile sums (B, T))``.  Lane j starts with its first
     `n_real[j]` rows at `m_init`; each lane's first heap is built alone,
     exactly as a one-lane solve builds it (a sum's rounding may depend on
-    its shape).
+    its shape).  Base weights `w0` (B, n_pad), when given, replace that
+    start, with their heaps `base0` (B, 2 cap) or, when None, heaps built
+    from them.
     """
     n = codes_lo.shape[-1]
     ts = TiledSampleTree(n, tile=tile)
@@ -227,9 +229,15 @@ def _lane_start(codes_lo, codes_hi, n_real, *, scale, num_levels, m_init,
         return ops.tree_sep_update_tiles_lanes(lo[:, t - 1], hi[:, t - 1], x,
                                                weights, block_n=tile, **sweep)
 
-    rows = [_initial_weights(ts, r, m_init, codes_lo.device) for r in n_real]
-    coarse = torch.stack([ts.init(w) for w in rows])
-    return ts, open_center, torch.stack(rows), coarse
+    if w0 is None:
+        weights = torch.stack([_initial_weights(ts, r, m_init,
+                                                codes_lo.device)
+                               for r in n_real])
+    else:
+        weights = _pad_axis(w0.to(torch.float32), 1, ts.n_pad)
+    if base0 is None:
+        base0 = torch.stack([ts.init(w) for w in weights])
+    return ts, open_center, weights, base0
 
 
 def _initial_state(codes_lo, codes_hi, *, scale, num_levels, m_init, tile):
@@ -268,8 +276,8 @@ def _lanes_of(codes_lo, generators, n_real):
 
 def stacked_fast_kmeanspp(codes_lo: torch.Tensor, codes_hi: torch.Tensor,
                           k: int, generators, *, n_real=None, scale: float,
-                          num_levels: int, m_init: float,
-                          tile: int = 512) -> torch.Tensor:
+                          num_levels: int, m_init: float, tile: int = 512,
+                          w0=None, base0=None) -> torch.Tensor:
     """Algorithm 3 over B lanes in lockstep: (B, k) int32 chosen indices.
 
     Codes are (B, T, H-1, n), lane j's dataset in row j; an `expand`ed
@@ -279,15 +287,23 @@ def stacked_fast_kmeanspp(codes_lo: torch.Tensor, codes_hi: torch.Tensor,
     Center i of every lane opens in the same step, with one lane-axis sweep
     per tree; each lane's indices are those of its one-lane solve, bit for
     bit.  Nothing syncs: the opened points stay on the card.
+
+    The streaming path passes base weights `w0` (B, n_pad): live rows at
+    `m_init`, retired and padding rows at 0, which are never sampled and
+    never perturb the loop, so a lane draws the exact law over its live
+    rows; `base0` (B, 2 cap), when given, are their coarse heaps (else
+    built from them).  The first center is then drawn by the sampler over
+    `w0`, exactly uniform on the live rows, not by `randint`, which could
+    open a retired row.
     """
     b, dev, n_real = _lanes_of(codes_lo, generators, n_real)
     ts, open_center, weights, coarse = _lane_start(
         codes_lo, codes_hi, n_real, scale=scale, num_levels=num_levels,
-        m_init=m_init, tile=tile)
+        m_init=m_init, tile=tile, w0=w0, base0=base0)
     lanes = torch.arange(b, device=dev)      # one draw a lane
     chosen = []
     for i in range(k):
-        if i == 0:
+        if i == 0 and w0 is None:
             x = torch.cat([torch.randint(0, r, (1,), generator=g, device=dev)
                            for r, g in zip(n_real, generators)])
         else:
@@ -300,18 +316,29 @@ def stacked_fast_kmeanspp(codes_lo: torch.Tensor, codes_hi: torch.Tensor,
 
 def device_fast_kmeanspp(codes_lo: torch.Tensor, codes_hi: torch.Tensor,
                          k: int, generator: torch.Generator, *, scale: float,
-                         num_levels: int, m_init: float,
-                         tile: int = 512) -> torch.Tensor:
+                         num_levels: int, m_init: float, tile: int = 512,
+                         w0: Optional[torch.Tensor] = None,
+                         base0: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
     """Algorithm 3 (D^2 sampling in the multi-tree metric).  Returns (k,)
     int32 chosen indices on the codes' device: the one-lane case of
-    `stacked_fast_kmeanspp`.
+    `stacked_fast_kmeanspp`, with its base weights `w0` (n_pad,) and heap
+    `base0` (2 cap,) on the streaming path.
 
     Per opened center the sample structure is fixed incrementally: the last
     tree sweep's tile sums feed one `TiledSampleTree.refresh`.
     """
     return stacked_fast_kmeanspp(
         codes_lo[None], codes_hi[None], k, [generator], scale=scale,
-        num_levels=num_levels, m_init=m_init, tile=tile)[0]
+        num_levels=num_levels, m_init=m_init, tile=tile, **_one_lane_base(
+            w0, base0))[0]
+
+
+def _one_lane_base(w0, base0) -> dict:
+    """A one-lane solve's base weights and heap as the lane-batched
+    seeders take them, (1, n_pad) and (1, 2 cap)."""
+    return {"w0": None if w0 is None else w0[None],
+            "base0": None if base0 is None else base0[None]}
 
 
 def _block_layout(sizes: tuple, device) -> tuple:
@@ -344,6 +371,8 @@ def stacked_rejection_sampling(
     max_rounds: int = 32,
     tile: int = 512,
     round_logs: Optional[list] = None,
+    w0: Optional[torch.Tensor] = None,
+    base0: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Algorithm 4 over B lanes in lockstep.  Returns ``(chosen (B, k)
     int32, trials (B, k) int32)``.
@@ -376,6 +405,11 @@ def stacked_rejection_sampling(
     its live rows.  `trials` counts the candidates each center consumed (at
     least 1).  `round_logs`, when given, holds one list per lane that
     receives the block size of each of its rounds.
+
+    Base weights `w0` and heaps `base0` (the streaming path) are as in
+    `stacked_fast_kmeanspp`: the first center, and a center while all of
+    a lane's weights are 0, are then drawn by the sampler over `w0`,
+    exactly uniform on the live rows.
     """
     b, dev, n_real = _lanes_of(codes_lo, generators, n_real)
     n = codes_lo.shape[-1]
@@ -385,7 +419,8 @@ def stacked_rejection_sampling(
     buckets = schedule.buckets()
     ts, open_center, weights, coarse = _lane_start(
         codes_lo, codes_hi, n_real, scale=scale, num_levels=num_levels,
-        m_init=m_init, tile=tile)
+        m_init=m_init, tile=tile, w0=w0, base0=base0)
+    base_w, base_heap = weights, coarse
     b_idx = [schedule.index_of(schedule.initial(n, k, ts.num_tiles))] * b
     acc_ema = [schedule.prior_accept] * b
     pts_pad = _pad_axis(points, 1, ts.n_pad)
@@ -454,6 +489,14 @@ def stacked_rejection_sampling(
                 if not any_j:
                     still.append(j)
             active = still
+        unset = [j for j in range(b) if xs[j] is None]
+        if unset and w0 is not None:
+            drawn = ts.sample_lanes(
+                base_heap, base_w, generators,
+                [int(xs[j] is None) for j in range(b)],
+                torch.as_tensor(unset, device=dev)).tolist()
+            for j, x_j in zip(unset, drawn):
+                xs[j] = x_j
         for j in range(b):
             if xs[j] is None:
                 xs[j] = _uniform_index(n_real[j], generators[j], dev)
@@ -486,17 +529,21 @@ def device_rejection_sampling(
     max_rounds: int = 32,
     tile: int = 512,
     round_log: Optional[list] = None,
+    w0: Optional[torch.Tensor] = None,
+    base0: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Algorithm 4 (REJECTIONSAMPLING) on one dataset: the one-lane case of
     `stacked_rejection_sampling`, whose docstring states the algorithm.
     Returns ``(chosen (k,) int32, trials (k,) int32)`` on the codes'
     device; `round_log`, when given, receives the block size of every
-    round."""
+    round; `w0` (n_pad,) and `base0` (2 cap,) are the streaming path's
+    base weights and heap."""
     chosen, trials = stacked_rejection_sampling(
         codes_lo[None], codes_hi[None], points[None], keys_lo[None],
         keys_hi[None], k, [generator], scale=scale, num_levels=num_levels,
         m_init=m_init, c=c, schedule=schedule, max_rounds=max_rounds,
-        tile=tile, round_logs=None if round_log is None else [round_log])
+        tile=tile, round_logs=None if round_log is None else [round_log],
+        **_one_lane_base(w0, base0))
     return chosen[0], trials[0]
 
 

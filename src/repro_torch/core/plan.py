@@ -6,6 +6,9 @@
     res2 = plan.refit(seed=7)     # solve stage only: no re-prepare
     batch = plan.fit_batch([0, 1, 2, 3])   # lane i == refit(seed=i)
     lanes = plan.fit_batch(datasets=[a, b])  # stacked lanes, one solve
+    prep = plan.prepare_streaming(points)  # a mutable stream
+    plan.extend(more, prepared=prep); plan.retire(ids, prepared=prep)
+    res3 = plan.fit_prepared(prep)  # over the live rows
 
 Three stages, as in the JAX package's `core/plan.py`:
 
@@ -21,6 +24,10 @@ Three stages, as in the JAX package's `core/plan.py`:
     artifacts.  B solves of one shape (B seeds of one dataset, or B
     datasets of one shape bucket) run as one lane-batched solve, where the
     JAX package runs one vmapped program.
+
+A stream (`prepare_streaming`, `extend`, `retire`; `core.streaming`) is a
+`PreparedData` whose artifacts are patched in place; its solves cover the
+live rows, and its cost masks out the retired ones.
 
 Two backends: ``"device"`` (the default) runs the seeders on
 `ExecutionSpec.device` through the hand-written kernels; ``"cpu"`` runs
@@ -203,13 +210,18 @@ def _pairwise_d2(points: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
 
 
 def _cost_program(points: torch.Tensor, centers: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None,
                   chunk: int = 65536) -> torch.Tensor:
     """sum_x min_c ||x - c||^2 as a 0-d tensor, in row chunks so the
-    (rows, k) distance block stays bounded."""
+    (rows, k) distance block stays bounded.  A stream's (n,) f32 live
+    `mask` weights each row's term: its retired rows stay in place (global
+    ids are stable) and count 0."""
     total = torch.zeros((), dtype=points.dtype, device=points.device)
     for lo in range(0, points.shape[0], chunk):
-        d2 = _pairwise_d2(points[lo: lo + chunk], centers)
-        total += d2.min(dim=1).values.sum()
+        d2 = _pairwise_d2(points[lo: lo + chunk], centers).min(dim=1).values
+        if mask is not None:
+            d2 = d2 * mask[lo: lo + chunk]
+        total += d2.sum()
     return total
 
 
@@ -225,6 +237,13 @@ class PreparedData:
     rng_state: dict                   # np.Generator state after prep draws
     prepare_seconds: float
     points_dev: Any = None            # device copy for gather/cost
+    # A mutable `core.streaming.StreamState` makes this handle
+    # extendable/retirable in place.  Mutation invalidates the content
+    # fingerprint, so the cache re-keys a mutated handle on `generation`
+    # (``<fp>/stream<seq>#g<generation>``, see `ClusterPlan.extend`) and a
+    # stale content key can never alias it.
+    streaming: Any = None
+    generation: int = 0
 
 
 def _load_backend(backend: str) -> None:
@@ -260,7 +279,9 @@ class ClusterPlan:
         self._active: Optional[PreparedData] = None
         self._lock = threading.Lock()      # cache dict + stats counters
         self.stats = {"prepare_calls": 0, "prepare_hits": 0,
-                      "prepare_builds": 0, "solves": 0}
+                      "prepare_builds": 0, "solves": 0, "extends": 0,
+                      "retires": 0}
+        self._stream_seq = 0           # uniquifies streaming cache keys
 
     # -- prepare stage ------------------------------------------------------
 
@@ -289,6 +310,137 @@ class ClusterPlan:
                 f"{self.execution.backend!r} has no stacked lanes; use "
                 "prepare_data + fit_batch(datasets=...) (solo loop)")
         return self._prepare_cached(points, stacked=True)
+
+    def prepare_streaming(self, points) -> PreparedData:
+        """Prepare `points` as a *mutable stream* (extend/retire in place).
+
+        The streaming twin of `prepare_data`: the backend's streaming ops
+        (see the capability table) freeze an exact power-of-two scale and
+        build capacity-padded artifacts that `extend`/`retire` mutate
+        incrementally -- new rows are encoded against the frozen trees/LSH
+        and the leaf weights are patched by scatter updates, never
+        re-fingerprinted.  Every call builds a fresh, independent stream
+        (its cache key carries a per-plan sequence number and the mutation
+        generation, so a content-fingerprint hit can never alias it), and
+        makes it the plan's active data; `forget` releases it.
+        """
+        ops = self._streaming_ops()
+        t0 = time.perf_counter()
+        pts = ensure_host_f64(points)
+        rng = np.random.default_rng(self.cluster.seed)
+        state = ops.prepare(pts, rng, **self._stream_prepare_kw())
+        with self._lock:
+            seq = self._stream_seq
+            self._stream_seq += 1
+        fp = f"{data_fingerprint(pts)}/stream{seq}#g{state.generation}"
+        prep = PreparedData(
+            fingerprint=fp, pts=pts, seed_pts=pts, resolution=None,
+            artifacts=None, rng_state=rng.bit_generator.state,
+            prepare_seconds=time.perf_counter() - t0, streaming=state,
+            generation=state.generation)
+        with self._lock:
+            self._prepared[fp] = prep
+            self.stats["prepare_calls"] += 1
+            self.stats["prepare_builds"] += 1
+            self._active = prep
+        return prep
+
+    def _stream_prepare_kw(self) -> dict:
+        options = dict(self.cluster.options_dict(),
+                       _seeder=self.cluster.seeder)
+        return dict(resolution=options.get("resolution"), options=options,
+                    execution=self.execution)
+
+    def _streaming_ops(self):
+        ops = self.impl.streaming
+        if ops is None:
+            raise ValueError(
+                f"{self.cluster.seeder!r} on backend "
+                f"{self.execution.backend!r} has no streaming support (see "
+                "the capability table); extend/retire need "
+                "prepare_streaming-capable impls")
+        return ops
+
+    def extend(self, points, *, prepared: Optional[PreparedData] = None
+               ) -> PreparedData:
+        """Append `points` to a prepared stream *in place* (no re-prepare).
+
+        New rows are scaled by the stream's frozen power of two, encoded
+        against the frozen trees and LSH tables, and their leaf weights
+        patched, so the next `fit_prepared`/`refit` draws the exact D^2 law
+        over the grown live set (rows outside the frozen grid domain force
+        a logged rebuild of the embedding).  `prepared` defaults to the
+        plan's active handle; a handle that is not a stream becomes one in
+        place first.  The handle is re-keyed in the prepare cache on its
+        bumped generation.  Returns the handle.
+        """
+        ops = self._streaming_ops()
+        prep = self._mutable_prep(prepared)
+        ops.extend(prep.streaming, ensure_host_f64(points),
+                   execution=self.execution)
+        self._rekey_mutated(prep)
+        with self._lock:
+            self.stats["extends"] += 1
+        return prep
+
+    def retire(self, indices, *, prepared: Optional[PreparedData] = None
+               ) -> PreparedData:
+        """Retire rows (by global row id) from a prepared stream in place.
+
+        Retired rows keep their ids (rows are never compacted), but their
+        leaf weights drop to exactly 0: they have no mass in the tile
+        cumsum, are never proposed, and are masked out of the cost.
+        Extend-then-retire of the same rows gives the leaf weights back bit
+        for bit.  The same conversion and re-keying as `extend`.  Returns
+        the handle.
+        """
+        ops = self._streaming_ops()
+        prep = self._mutable_prep(prepared)
+        ops.retire(prep.streaming, np.asarray(indices, dtype=np.int64),
+                   execution=self.execution)
+        self._rekey_mutated(prep)
+        with self._lock:
+            self.stats["retires"] += 1
+        return prep
+
+    def _mutable_prep(self, prepared: Optional[PreparedData]
+                      ) -> PreparedData:
+        if prepared is None:
+            with self._lock:
+                prepared = self._active
+            if prepared is None:
+                raise RuntimeError(
+                    "no prepared data: call plan.prepare_streaming(points) "
+                    "(or prepare/fit) before extend/retire")
+        if prepared.streaming is None:
+            # In-place conversion of a static prep: a stream over its rows
+            # from a fresh spec-seeded rng (the artifacts are superseded;
+            # the rng replay snapshot stays, so seed=None refits remain
+            # deterministic).
+            prepared.streaming = self._streaming_ops().prepare(
+                prepared.pts, np.random.default_rng(self.cluster.seed),
+                **self._stream_prepare_kw())
+            prepared.artifacts = None
+            prepared.generation = prepared.streaming.generation
+        return prepared
+
+    def _rekey_mutated(self, prep: PreparedData) -> None:
+        """Re-key a mutated prep on its generation: the content fingerprint
+        no longer matches the data, so the stale key is dropped and the
+        entry lives under ``<base>#g<generation>`` -- `forget` keeps
+        working, and a fresh `prepare_data` of the original points can
+        never alias the mutated handle.  The device copy of the rows is
+        dropped (the row set changed)."""
+        state = prep.streaming
+        base = prep.fingerprint.split("#g")[0]
+        with self._lock:
+            old_key = prep.fingerprint
+            prep.generation = state.generation
+            new_key = f"{base}#g{state.generation}"
+            if self._prepared.pop(old_key, None) is not None:
+                self._prepared[new_key] = prep
+            prep.fingerprint = new_key
+            prep.points_dev = None
 
     def prepare_data(self, points) -> PreparedData:
         """Thread-safe prepare returning an explicit `PreparedData` handle
@@ -417,6 +569,12 @@ class ClusterPlan:
         rng = self._solve_rng(prep, seed)
         options = self.cluster.options_dict()
         options.pop("resolution", None)
+        if prep.streaming is not None:
+            idx, extras = self.impl.streaming.solve(
+                prep.streaming, k, rng, c=self.cluster.c,
+                schedule=self.cluster.schedule, options=options,
+                execution=self.execution)
+            return self._finish_streaming(prep, k, idx, extras, t0)
         if self.impl.preparable:
             idx, extras = self.impl.solve(
                 prep.artifacts, prep.seed_pts, k, rng, c=self.cluster.c,
@@ -453,6 +611,42 @@ class ClusterPlan:
         return self._finish(idx, centers, cost, k, prep.prepare_seconds, t0,
                             extras)
 
+    def _finish_streaming(self, prep: PreparedData, k: int, idx_raw,
+                          extras: dict, t0: float) -> FitResult:
+        """`_execute`'s gather and cost over a stream's current rows.
+
+        Global row ids are stable (streams never compact), so the gather
+        indexes the whole row block, rebuilt on the device when `n_rows`
+        changed, and the cost masks the retired rows out.
+        """
+        state = prep.streaming
+        idx = torch.as_tensor(idx_raw, dtype=torch.int32, device=self.device)
+        with state.lock:
+            n_rows = state.n_rows
+            if prep.points_dev is None or \
+                    prep.points_dev.shape[0] != n_rows:
+                prep.points_dev = torch.as_tensor(
+                    state.host_pts[:n_rows],
+                    dtype=getattr(torch, self.execution.dtype),
+                    device=self.device)
+            pts_dev = prep.points_dev
+            mask = state.live_mask_device()
+        centers = pts_dev[idx.long()]
+        if self.cluster.lloyd_iters > 0:
+            host_idx = idx.cpu().numpy().astype(np.int64)
+            refinement = lloyd(state.live_points(), state.host_pts[host_idx],
+                               max_iters=self.cluster.lloyd_iters)
+            centers = torch.as_tensor(refinement.centers,
+                                      dtype=centers.dtype,
+                                      device=centers.device)
+            cost = torch.tensor(refinement.cost, dtype=torch.float32,
+                                device=centers.device)
+            extras = dict(extras, lloyd_iterations=refinement.iterations)
+        else:
+            cost = _cost_program(pts_dev, centers, mask)
+        return self._finish(idx, centers, cost, k, prep.prepare_seconds, t0,
+                            extras)
+
     # -- multi-problem execution --------------------------------------------
 
     def fit_batch(self, seeds: Optional[Sequence[int]] = None, points=None,
@@ -466,7 +660,7 @@ class ClusterPlan:
           with stacked lanes) run the B lanes as one `solve_stacked` over
           one copy of the artifacts
           (``extras["vmapped"]`` True, as the JAX package's one vmapped
-          program reports it); k-means||, the cpu backend and
+          program reports it); k-means||, the cpu backend, a stream and
           ``lloyd_iters > 0`` loop over `refit` (``vmapped`` False).
           Nothing is re-prepared.
         * ``fit_batch(datasets=[...], seeds=None|[...])`` -- B different
@@ -493,7 +687,8 @@ class ClusterPlan:
         seeds = [int(s) for s in seeds]
         if not seeds:
             raise ValueError("fit_batch() needs at least one seed")
-        if self.impl.supports_stacked and self.cluster.lloyd_iters == 0:
+        if self.impl.supports_stacked and self.cluster.lloyd_iters == 0 \
+                and prep.streaming is None:
             return self._fit_batch_lanes(prep, seeds)
         return _stack_results([self.refit(seed=s) for s in seeds], seeds)
 

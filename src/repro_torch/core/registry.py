@@ -17,7 +17,7 @@ bare name for cpu), as in the JAX package.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 __all__ = [
     "BACKENDS",
@@ -74,6 +74,13 @@ class BackendImpl:
     extras)`` solves the lanes of one shape bucket together, lane j's
     generator seeded with ``lane_seeds[j]``.  Both ``None`` means the
     backend solves multiple datasets by looping the solo path.
+
+    ``streaming`` is the mutable-data split
+    (`repro_torch.core.streaming.StreamingOps`): ``prepare``/``extend``/
+    ``retire``/``solve`` over a capacity-padded `StreamState` whose leaf
+    weights are patched by `TiledSampleTree` scatter updates instead of
+    re-fingerprinting.  ``None`` means `ClusterPlan.extend`/`retire` are
+    unavailable on this backend.
     """
 
     run: Callable
@@ -82,6 +89,7 @@ class BackendImpl:
     device_native: bool = False
     prepare_stacked: Optional[Callable] = None
     solve_stacked: Optional[Callable] = None
+    streaming: Optional[Any] = None
 
     @property
     def preparable(self) -> bool:
@@ -94,6 +102,11 @@ class BackendImpl:
         lanes."""
         return (self.prepare_stacked is not None
                 and self.solve_stacked is not None)
+
+    @property
+    def supports_streaming(self) -> bool:
+        """True when the backend exposes streaming extend/retire ops."""
+        return self.streaming is not None
 
 
 @dataclasses.dataclass
@@ -178,8 +191,8 @@ def resolve(name: str, backend: str = "device") -> Callable:
 
 def capability_table() -> str:
     """Markdown capability matrix generated from the live registry, with
-    the JAX package's columns.  No port impl has streaming yet (ROADMAP
-    Queue 1 item 8), so that column reads "—"."""
+    the JAX package's columns (its sharded backend, whose streaming
+    column reads "sharded (fallback)", is ROADMAP Queue 1 item 10)."""
     header = ("| seeder | backends | device-native | cached prepare "
               "| stacked | streaming | quantize | accepts `c` "
               "| accepts schedule | degrades to |")
@@ -190,12 +203,15 @@ def capability_table() -> str:
         prep = [b for b in spec.backends if spec.impls[b].preparable]
         stacked = [b for b in spec.backends
                    if spec.impls[b].supports_stacked]
+        streaming = [b for b in spec.backends
+                     if spec.impls[b].supports_streaming]
         fallback = f"`{spec.fallback}`" if spec.fallback else "—"
         rows.append(
             f"| `{name}` | {', '.join(spec.backends)} "
             f"| {', '.join(native) or '—'} "
             f"| {', '.join(prep) or '—'} "
-            f"| {', '.join(stacked) or '—'} | — "
+            f"| {', '.join(stacked) or '—'} "
+            f"| {', '.join(streaming) or '—'} "
             f"| {'yes' if spec.caps.needs_quantize else '—'} "
             f"| {'yes' if spec.caps.accepts_c else '—'} "
             f"| {'yes' if spec.caps.accepts_schedule else '—'} "

@@ -26,7 +26,11 @@ one-lane launch bit for bit (per-lane codes and shared codes with a
 stride-0 lane axis, lanes of different block sizes), the lane-batched
 sampler to the one-lane sampler, and `fit_batch(seeds)` and
 `fit_batch(datasets=...)` lanes (mixed shape buckets included) to their
-one-lane fits.
+one-lane fits.  The streaming tests (`-k streaming`) hold a stream on the
+card: the patched heap equal to `ts.init(w0)` bit for bit after three
+thousand random extends and retires, one seed replaying, scratch
+equivalence, and refits opening only live rows after an extend out of
+the domain.
 """
 
 import numpy as np
@@ -881,3 +885,89 @@ def test_stacked_datasets_equal_one_lane_fits_on_the_card(cuda, seeder):
         assert torch.equal(batch.cost[i], solo.cost[0])
         assert int(batch.indices[i].max()) < len(x)
         assert len(torch.unique(batch.indices[i])) == 40
+
+
+# -- streaming (`-k streaming`) ---------------------------------------------------
+
+def _stream_plan(seeder="rejection", k=24, seed=0):
+    return ClusterPlan(ClusterSpec(k=k, seeder=seeder, seed=seed),
+                       ExecutionSpec(backend="device"))
+
+
+def test_streaming_patched_heap_equals_init_on_the_card(cuda):
+    """Three thousand random extends and retires, crossing three capacity
+    rungs: `w0` is m_init on exactly the live rows and the patched heap is
+    `ts.init(w0)` bit for bit."""
+    pts = _card_mixture(30, n=3_000)
+    plan = _stream_plan()
+    prep = plan.prepare_streaming(pts[:1_000])
+    state = prep.streaming
+    rng = np.random.default_rng(30)
+    for step in range(3_000):
+        if step % 3 < 2:
+            rows = pts[rng.integers(0, 1_000, size=rng.integers(1, 4))]
+            plan.extend(rows, prepared=prep)
+        else:
+            live = state.live_ids()
+            plan.retire(rng.choice(live, size=rng.integers(1, 3),
+                                   replace=False), prepared=prep)
+    assert state.capacity == 8192 and state.rebuilds == 0
+    want = torch.zeros(state.ts.n_pad, device=cuda)
+    want[:state.capacity] = torch.as_tensor(
+        state.live, dtype=torch.float32, device=cuda) * state.statics[2]
+    assert torch.equal(state.w0, want)
+    assert torch.equal(state.base_heap, state.ts.init(state.w0))
+
+
+@pytest.mark.parametrize("seeder", ["rejection", "fastkmeans++"])
+def test_streaming_refit_replays_one_seed_on_the_card(cuda, seeder):
+    pts = _card_mixture(31, n=12_000)
+    plan = _stream_plan(seeder)
+    prep = plan.prepare_streaming(pts[:8_000])
+    plan.extend(pts[8_000:], prepared=prep)
+    plan.retire(np.arange(0, 12_000, 5), prepared=prep)
+    first = plan.fit_prepared(prep, seed=4)
+    assert torch.equal(plan.fit_prepared(prep, seed=4).indices,
+                       first.indices)
+
+
+@pytest.mark.parametrize("seeder", ["rejection", "fastkmeans++"])
+def test_streaming_scratch_equivalence_on_the_card(cuda, seeder):
+    pts = _card_mixture(32, n=6_000)
+    dups = pts[np.random.default_rng(32).integers(0, 6_000, size=2_500)]
+    plan = _stream_plan(seeder)
+    inc = plan.prepare_streaming(pts)
+    plan.extend(dups, prepared=inc)
+    scratch = plan.prepare_streaming(np.concatenate([pts, dups]))
+    si, ss = inc.streaming, scratch.streaming
+    assert si.rebuilds == 0 and si.capacity == ss.capacity == 16384
+    for name in ("codes_lo", "codes_hi", "keys_lo", "keys_hi", "pts_scaled",
+                 "w0", "base_heap"):
+        a, b = getattr(si, name), getattr(ss, name)
+        assert (a is None and b is None) or torch.equal(a, b), name
+    assert torch.equal(plan.fit_prepared(inc, seed=2).indices,
+                       plan.fit_prepared(scratch, seed=2).indices)
+
+
+@pytest.mark.parametrize("seeder", ["rejection", "fastkmeans++"])
+def test_streaming_refit_indices_are_live_on_the_card(cuda, seeder):
+    """After extends, retires and an extend out of the domain, refits open
+    only live rows, distinct, through the kernels."""
+    pts = _card_mixture(33, n=10_000)
+    plan = _stream_plan(seeder, k=40)
+    prep = plan.prepare_streaming(pts[:6_000])
+    plan.extend(pts[6_000:], prepared=prep)
+    plan.retire(np.random.default_rng(33).choice(10_000, 4_000,
+                                                 replace=False),
+                prepared=prep)
+    state = prep.streaming
+    plan.extend(pts[:100] + 2.0 / state.scale, prepared=prep)
+    assert state.rebuilds == 1
+    for s in range(4):
+        ops.reset_launch_counts()
+        res = plan.fit_prepared(prep, seed=s)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["tree_sep_update_tiles"] == 40
+        idx = res.indices.cpu().numpy()
+        assert res.indices.is_cuda and len(np.unique(idx)) == 40
+        assert state.live[idx].all()

@@ -73,11 +73,12 @@ def test_importing_the_port_loads_no_jax():
     "repro_torch.core.api", "repro_torch.core.multitree",
     "repro_torch.core.tracing", "repro_torch.core.registry",
     "repro_torch.core.seeding", "repro_torch.core.lsh",
-    "repro_torch.core.tree_embedding", "repro_torch.kernels._build"])
+    "repro_torch.core.tree_embedding", "repro_torch.kernels._build",
+    "repro_torch.core.streaming"])
 def test_the_cpu_backend_and_legacy_modules_load_no_jax(module):
-    """Each module of the CPU backend, the legacy facade and the build
-    accounting, imported alone in a fresh interpreter, loads no JAX and
-    no reference package."""
+    """Each module of the CPU backend, the legacy facade, streaming and
+    the build accounting, imported alone in a fresh interpreter, loads no
+    JAX and no reference package."""
     code = (
         f"import importlib, sys\n"
         f"importlib.import_module({module!r})\n"

@@ -15,8 +15,8 @@ package's, on the CPU.
     `tests/test_torch_stacked.py`'s.
   * `replace`, `forget`, `block_until_ready` (on tensors and on the NumPy
     arrays of `to_numpy`), the capability table cell by cell (the sharded
-    backend and the streaming column aside), `no_retrace`, and the names
-    of `repro.core.__all__` still to come, each with its ROADMAP item.
+    backend aside), `no_retrace`, and the names of `repro.core.__all__`
+    still to come, each with its ROADMAP item.
 """
 
 import dataclasses
@@ -64,9 +64,6 @@ STILL_TO_COME = {
     "classify_failure": 7, "exception_from_wire": 7,
     "exception_to_wire": 7, "fallback_chain": 7, "register_wire_error": 7,
     "validate_points": 7,
-    "DriftDetector": 8, "DriftPolicy": 8, "MiniBatchRefiner": 8,
-    "StreamingController": 8, "StreamingOps": 8, "StreamState": 8,
-    "split_merge_k": 8,
 }
 
 
@@ -299,12 +296,13 @@ def test_plan_rejects_bad_pairs():
 
 def _table_cells(table: str) -> dict:
     """{seeder: [cell, ...]} of a capability table, the sharded backend
-    and the streaming column left out."""
+    (and its streaming fallback) left out."""
     out = {}
     for line in table.replace("kmeans||", "kmeans-par").splitlines()[2:]:
         cells = [c.strip() for c in line.strip("|").split("|")]
-        kept = [", ".join(b for b in c.split(", ") if b != "sharded")
-                or "—" for c in cells[:5] + cells[6:]]
+        kept = [", ".join(b for b in c.split(", ")
+                          if not b.startswith("sharded")) or "—"
+                for c in cells]
         out[cells[0]] = kept
     return out
 
@@ -313,8 +311,10 @@ def test_capability_table_matches_jax_package_cell_by_cell():
     table = capability_table()
     assert table.splitlines()[:2] == jcore.capability_table().splitlines()[:2]
     assert _table_cells(table) == _table_cells(jcore.capability_table())
-    for line in table.replace("kmeans||", "kmeans-par").splitlines()[2:]:
-        assert line.split("|")[6] == " — "              # item 8
+    streaming = {name: cells[5] for name, cells in _table_cells(table).items()}
+    assert streaming == {"`afkmc2`": "—", "`fastkmeans++`": "cpu, device",
+                         "`kmeans++`": "—", "`kmeans-par`": "—",
+                         "`rejection`": "cpu, device", "`uniform`": "—"}
 
 
 def test_every_registered_seeder_has_cpu_impl_and_doc():
