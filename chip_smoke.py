@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's three paths (and, in phase 8d, the plan's streaming
-entry points on the first).  Two go through the plan, each at the shape
+Drives the port's three paths (and, in phases 8d to 8f, the plan's
+streaming entry points, the clustering engine and the RPC server on the
+first).  Two go through the plan, each at the shape
 of the paper's smallest real dataset (KDD Cup, 311,029 x 74, generated
 here from a seed as `benchmarks/datasets.py` does) with k = 1000: the
 paper's Algorithm 4,
@@ -106,8 +107,29 @@ against its plain PyTorch version on the card.  In order:
      the first 200,000 rows then 50,000 duplicates of them against all
      250,000 at once (artifacts and the refit's indices bit-identical);
      and a fastkmeans++ stream with the same history, its refit's
-     launches and checks.  Rows 1 to 3 of the kernel line add the
-     rejection refit's launches;
+     launches and checks;
+ 8e. the clustering engine at full width: `ClusterEngine(prepare_workers=
+     2)` on `kddcup_shaped(0)` and `(1)` at seeds 0 and 1, each ticket
+     bit-identical to the serial `prepare_data` + `fit_prepared` (phase
+     8's fit and refit for the first dataset), the wall time beside the
+     serial sum and `stats()`'s prepare and solve seconds; a pipelined
+     pair on the two prepared datasets traced with `torch.profiler`, its
+     idle share; a real out-of-memory
+     (`torch.cuda.set_per_process_memory_fraction` just above what is
+     reserved) failing a request, classified transient, the allocated
+     bytes back to their level before it, and the same request equal to
+     the fit once the cap is lifted; then a `FaultPlan` of transient
+     solve faults on the rejection targets: one ticket served by
+     k-means||/device after rejection/device (equal to phase 8's
+     k-means|| fit; an engine on the card skips the chain's cpu rungs),
+     one retried (equal to the fit at `attempt_seed(1, 1)`);
+ 8f. the clustering service: `ClusterServer` on an ephemeral loopback
+     port with two tenants, a `ClusterClient` sending `kddcup_shaped(0)`
+     at seeds 0 to 3 (four requests in flight, 176 MiB each in f64),
+     which the frontend coalesces into one stacked lane; each answer bit
+     for bit against its lane of `fit_batch_prepared` over one
+     `prepare_stacked` (phase 8c's plan), the queue-wait, solve and
+     network attribution and the bytes on the wire;
   9. the seeding paths' device tensors are freed;
  10. `flash_attention` against its plain version (the chunked
      online-softmax scan) at the serving path's shape, q (4, 2048, 32, 128)
@@ -138,7 +160,13 @@ against its plain PyTorch version on the card.  In order:
  14. reduced yi-9b in f32 on the card against the port on the CPU with
      the same weights: prefill logits to 1e-3 and the same greedy tokens;
  15. one JSON line per the eight kernels, the card's line again, and last
-     ``{"ok": true, "device": {...}}``.
+     ``{"ok": true, "device": {...}}``.  A row's `launches` is its main
+     path's count, each path's counts set to 0 just before it and read
+     just after: phase 8's rejection fit for rows 1 to 3, its k-means||
+     fit for row 5, phase 12's `generate` for row 8.  `launches_by_path`
+     gives every path's own count: ``main`` and ``kmeans||`` (phase 8),
+     ``streaming`` (8d), ``engine`` (8e), ``service`` (8f) and
+     ``generate`` (12).
 
 Any failure raises and exits non-zero before the last line is printed.
 Without CUDA, or without the rest of the repository beside it, the script
@@ -414,15 +442,11 @@ def cost64(torch, pts, centers, chunk=16384) -> float:
     return total
 
 
-def device_time(torch, prof) -> tuple:
-    """(seconds the device was busy, device events, {kernel name: [ms,
-    count]}) of a `torch.profiler` trace: the union of its CUDA events'
-    spans."""
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
+def busy_seconds(spans: list, per_second: float) -> float:
+    """The length of the union of (start, end) spans, in seconds."""
+    if not spans:
         raise AssertionError("the profiler recorded no device events")
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    spans = sorted(spans)
     busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
     for s, e in spans[1:]:
         if s > cur_e:
@@ -430,11 +454,22 @@ def device_time(torch, prof) -> tuple:
             cur_s, cur_e = s, e
         else:
             cur_e = max(cur_e, e)
-    busy = (busy + cur_e - cur_s) / 1e6
+    return (busy + cur_e - cur_s) / per_second
+
+
+def device_time(torch, prof) -> tuple:
+    """(seconds the device was busy, device events, {kernel name: [ms,
+    count]}) of a `torch.profiler` trace: the union of its CUDA events'
+    spans, read from the raw events (no Python event objects are built,
+    which is slow for hundreds of thousands of launches)."""
+    kernels = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA]
+    busy = busy_seconds([(e.start_ns(), e.start_ns() + e.duration_ns())
+                         for e in kernels], 1e9)
     by_name = collections.defaultdict(lambda: [0.0, 0])
     for e in kernels:
-        by_name[e.name][0] += e.time_range.elapsed_us() / 1e3
-        by_name[e.name][1] += 1
+        by_name[e.name()][0] += e.duration_ns() / 1e6
+        by_name[e.name()][1] += 1
     return busy, len(kernels), by_name
 
 
@@ -1071,8 +1106,7 @@ def seeding_paths(torch, t_start: float) -> list:
     # what the tracing costs.
     bare = refit
     ops.reset_launch_counts()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         profiled = plan.refit(seed=1)
         torch.cuda.synchronize()
@@ -1108,8 +1142,7 @@ def seeding_paths(torch, t_start: float) -> list:
     # the path issues it: whether an idle card runs it slower.
     for label, gap in (("back to back", 0.0), ("between 2 ms gaps", 0.002)):
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA],
-                     acc_events=True) as prof:
+                                 ProfilerActivity.CUDA]) as prof:
             for _ in range(50):
                 lsh_cuda.launch_lanes(*lane_lsh_args, count=count_main, c2=c2)
                 if gap:
@@ -1122,18 +1155,26 @@ def seeding_paths(torch, t_start: float) -> list:
             f"({kernels_50} kernels)")
     log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**20:.1f}"
         f" MiB; {time.perf_counter() - t_start:.1f} s so far")
-    other_entry_points(torch, t_start, points, plan, fit, km_fit, t)
-    stream_launches = streaming(torch, t_start, points)
+    stacked_plan = other_entry_points(torch, t_start, points, plan, fit,
+                                      km_fit, t)
+    by_path = {"main": launches, "kmeans||": km_launches,
+               "streaming": streaming(torch, t_start, points),
+               "engine": engine_phase(torch, t_start, points, plan, fit,
+                                      refit, km_fit, t),
+               "service": service_phase(torch, t_start, points,
+                                        stacked_plan)}
     for row in rows:
-        row["launches"] += stream_launches.get(row["name"], 0)
+        row["launches_by_path"] = {path: counts.get(row["name"], 0)
+                                   for path, counts in by_path.items()}
     return rows
 
 
-def other_entry_points(torch, t_start, points, plan, fit, km_fit, t) -> None:
+def other_entry_points(torch, t_start, points, plan, fit, km_fit, t):
     """Phase 8b on the same data: the legacy `fit` of the three device
     seeders against `ClusterPlan.fit` on the same seed, `fit_batch` over
     four seeds against solo refits, `no_retrace` around two refits, and
-    the cpu backend's six seeders on the host at a tenth of n."""
+    the cpu backend's six seeders on the host at a tenth of n.  Returns
+    phase 8c's plan, its canonical lanes prepared."""
     import warnings
 
     from repro_torch.core import (TRACE_COUNTS, ClusterPlan, ClusterSpec,
@@ -1192,7 +1233,7 @@ def other_entry_points(torch, t_start, points, plan, fit, km_fit, t) -> None:
         torch.cuda.synchronize()
     log(f"  no_retrace() held around refit(seed=5) and refit(seed=6); "
         f"builds counted in this process: {builds}")
-    stacked_lanes(torch, t_start)
+    stacked_plan = stacked_lanes(torch, t_start)
 
     # The cpu backend: host NumPy seeders, as in the JAX package; only the
     # gather and the f32 cost of each FitResult run on the card.
@@ -1220,6 +1261,7 @@ def other_entry_points(torch, t_start, points, plan, fit, km_fit, t) -> None:
             f"card's gather and f32 cost), float64 cost "
             f"{costs[seeder]:.10g} ({costs[seeder] / costs['kmeans++']:.4f} "
             "of exact kmeans++); no kernel launched")
+    return stacked_plan
 
 
 def fit_batch_seeds(torch, ops, seeder, plan, first, sweeps) -> None:
@@ -1275,9 +1317,10 @@ def fit_batch_seeds(torch, ops, seeder, plan, first, sweeps) -> None:
         f"to the fit; costs {[round(float(c), 1) for c in batch.cost]}")
 
 
-def stacked_lanes(torch, t_start) -> None:
+def stacked_lanes(torch, t_start):
     """Phase 8c: `fit_batch(datasets=...)` of the rejection seeder at full
-    width, then the lane axis of the three kernels on its lanes."""
+    width, then the lane axis of the three kernels on its lanes.  Returns
+    the plan, its canonical lanes prepared."""
     from repro_torch.core.batch_schedule import shape_bucket
     from repro_torch.core.plan import ClusterPlan, ClusterSpec, ExecutionSpec
     from repro_torch.core.sample_tree import TiledSampleTree
@@ -1556,6 +1599,7 @@ def stacked_lanes(torch, t_start) -> None:
             f"({b_by}), {b_ms / ms:.3f} of the bound")
     log(f"  lane-axis max abs err against the plain versions: sweeps 0.0 "
         f"(bit-identical), lsh_bucket_accept {lsh_err:.3g}")
+    return plan
 
 
 def streaming(torch, t_start, points) -> dict:
@@ -1803,6 +1847,310 @@ def streaming(torch, t_start, points) -> dict:
     return launches
 
 
+def same_fit(torch, a, b) -> bool:
+    """Indices, centers and cost bit for bit."""
+    return (torch.equal(a.indices, b.indices)
+            and torch.equal(a.centers, b.centers)
+            and torch.equal(a.cost, b.cost))
+
+
+def check_launches(label, counts, solves, t, pairwise=0) -> None:
+    """`solves` rejection solves of one lane each (or lane-batched: the
+    lanes share launches) and `pairwise` k-means|| rounds, nothing else."""
+    lsh = counts["lsh_bucket_accept"]
+    want = dict({name: 0 for name in counts}, lsh_bucket_accept=lsh,
+                tree_sep_update=solves * (t - 1) * K,
+                tree_sep_update_tiles=solves * K, pairwise_argmin=pairwise)
+    if counts != want or lsh < solves * (K - 1):
+        raise AssertionError(f"{label}: launches {counts}, expected {want} "
+                             f"and lsh_bucket_accept >= {solves * (K - 1)}")
+
+
+def engine_phase(torch, t_start, points, plan, fit, refit, km_fit,
+                 t) -> dict:
+    """Phase 8e: `ClusterEngine` at full width on `kddcup_shaped(0)` and
+    `(1)`: pipelined tickets against the serial fits, a traced pipelined
+    pair, transient faults (a retry, and a fallback down to
+    k-means||/device) and a real out-of-memory.  Returns the launches of
+    the engine's solves."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import (CircuitBreakerPolicy, ClusterEngine,
+                                  ClusterPlan, ClusterSpec, ExecutionSpec,
+                                  FaultPlan, RetryPolicy, attempt_seed,
+                                  classify_failure)
+    from repro_torch.kernels import ops
+
+    spec = ClusterSpec(k=K, seeder="rejection", seed=SEED)
+    exe = ExecutionSpec(backend="device")
+    total = collections.Counter()
+    log(f"[{time.perf_counter() - t_start:.1f} s] the clustering engine at "
+        f"full width, d={D}, k={K}, rejection: kddcup_shaped(0) and (1) at "
+        "seeds 0 and 1, prepare_workers=2")
+    data1 = kddcup_shaped(SEED + 1)
+    engine = ClusterEngine(spec, exe, prepare_workers=2, degrade=False)
+    try:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        tickets = [engine.submit(x, seed=s) for x in (points, data1)
+                   for s in (0, 1)]
+        results = [tk.result() for tk in tickets]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        stats = engine.stats()
+        check_launches("engine, four tickets", counts, 4, t)
+        total.update(counts)
+
+        serial = ClusterPlan(spec, exe)
+        prep1 = serial.prepare_data(data1)
+        refs = [fit, refit, serial.fit_prepared(prep1, seed=0),
+                serial.fit_prepared(prep1, seed=1)]
+        for i, (res, ref_fit) in enumerate(zip(results, refs)):
+            if not (same_fit(torch, res, ref_fit)
+                    and torch.equal(res.extras["trials"],
+                                    ref_fit.extras["trials"])
+                    and res.extras["served_by"] == "rejection/device"
+                    and res.extras["attempts"] == 1):
+                raise AssertionError(f"engine ticket {i} differs from its "
+                                     f"serial fit: {res.extras}")
+        serial_s = (fit.prepare_seconds + fit.solve_seconds
+                    + refit.solve_seconds + prep1.prepare_seconds
+                    + refs[2].solve_seconds + refs[3].solve_seconds)
+        log(f"  engine: four tickets in {wall:.3f} s of wall time; the "
+            f"serial prepares and solves of the same fits {serial_s:.3f} s "
+            f"(kddcup_shaped(0): phase 8's prepare {fit.prepare_seconds:.3f}"
+            f" s and solves {fit.solve_seconds:.3f} and "
+            f"{refit.solve_seconds:.3f} s; kddcup_shaped(1): prepare "
+            f"{prep1.prepare_seconds:.3f} s, solves "
+            f"{refs[2].solve_seconds:.3f} and {refs[3].solve_seconds:.3f} "
+            f"s); stats() prepare_seconds {stats['prepare_seconds']:.3f}, "
+            f"solve_seconds {stats['solve_seconds']:.3f}; launches={counts};"
+            f" each ticket bit-identical to its serial fit, costs "
+            f"{[round(float(r.cost), 1) for r in results]}")
+        del serial, prep1, refs
+
+        # A pipelined pair of requests on the two prepared datasets,
+        # traced (the card's activity only).
+        log(f"[{time.perf_counter() - t_start:.1f} s] a traced pair")
+        ops.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            pair = [engine.submit(x, seed=2) for x in (points, data1)]
+            pair = [tk.result() for tk in pair]
+            torch.cuda.synchronize()
+            pair_wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        check_launches("engine, traced pair", counts, 2, t)
+        total.update(counts)
+        busy, n_events, by_name = device_time(torch, prof)
+        log(f"  traced pipelined pair (kddcup_shaped(0) and (1) at seed 2, "
+            f"both prepared): wall {pair_wall:.3f} s, device busy "
+            f"{busy:.4f} s over {n_events} device events, idle share "
+            f"{1 - busy / pair_wall:.4f}; solves {pair[0].solve_seconds:.3f}"
+            f" and {pair[1].solve_seconds:.3f} s")
+        log_top(by_name, 5)
+        del prof
+
+        log(f"[{time.perf_counter() - t_start:.1f} s] an out-of-memory")
+        # A real out-of-memory: the allocator capped 64 MiB above what is
+        # reserved.  The pair's results stay referenced, so the solve
+        # worker letting go of its last request frees nothing here.
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated()
+        reserved = torch.cuda.memory_reserved()
+        dev_total = torch.cuda.get_device_properties(0).total_memory
+        torch.cuda.set_per_process_memory_fraction(
+            (reserved + (64 << 20)) / dev_total)
+        try:
+            t0 = time.perf_counter()
+            exc = engine.submit(points, seed=0).exception()
+            oom_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            after = torch.cuda.memory_allocated()
+        finally:
+            torch.cuda.set_per_process_memory_fraction(1.0)
+        if not (isinstance(exc, torch.cuda.OutOfMemoryError)
+                and classify_failure(exc) == "transient"
+                and after == before):
+            raise AssertionError(f"out-of-memory: {exc!r} classified "
+                                 f"{classify_failure(exc)}, allocated "
+                                 f"{after} after against {before} before")
+        ops.reset_launch_counts()
+        again = engine.submit(points, seed=0).result()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        check_launches("engine, after the out-of-memory", counts, 1, t)
+        total.update(counts)
+        if not same_fit(torch, again, fit):
+            raise AssertionError("the request after the out-of-memory "
+                                 "differs from the fit")
+        log(f"  out-of-memory: capped at {(reserved >> 20) + 64} MiB "
+            f"(reserved {reserved / 2**20:.1f} MiB, allocated "
+            f"{before / 2**20:.1f} MiB), the request failed in {oom_s:.3f} s"
+            f" with {type(exc).__name__} ({str(exc).splitlines()[0][:90]}),"
+            f" classified {classify_failure(exc)}; allocated after the "
+            f"ticket settled {after / 2**20:.1f} MiB, as before; uncapped, "
+            f"the same request equals the fit ({again.solve_seconds:.3f} s)")
+        del exc, again, results, tickets, pair
+    finally:
+        engine.close()
+    del engine
+
+    # Transient solve faults on every rejection target: the first ticket
+    # retries on the card, then is served by k-means||/device (phase 8's
+    # k-means|| fit at the same seed; an engine on the card skips the
+    # chain's cpu rungs); the second fails once more (the key's third
+    # fault) and is retried.
+    fp = FaultPlan(seed=0, solve_failure_rate=1.0, match="rejection/",
+                   max_failures_per_key=3)
+    log(f"[{time.perf_counter() - t_start:.1f} s] transient faults")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with ClusterEngine(spec, exe, prepare_workers=1, fault_plan=fp,
+                       retry=RetryPolicy(max_attempts=2),
+                       breaker=CircuitBreakerPolicy(failure_threshold=10)
+                       ) as faulty:
+        fell = faulty.submit(points, seed=0)
+        retried = faulty.submit(points, seed=1)
+        fell, retried = fell.result(), retried.result()
+        torch.cuda.synchronize()
+        fault_s = time.perf_counter() - t0
+        fstats = faulty.stats()
+    counts = ops.launch_counts()
+    check_launches("engine under faults", counts, 1, t, pairwise=KMP_ROUNDS)
+    total.update(counts)
+    want_retry = plan.fit_prepared(plan.prepare_data(points),
+                                   seed=attempt_seed(1, 1))
+    checks = {
+        "fallback served by kmeans||/device": (
+            fell.extras["served_by"] == "kmeans||/device"
+            and fell.extras["fallback_path"] == ("rejection/device",)),
+        "fallback equals the direct k-means|| fit": same_fit(torch, fell,
+                                                             km_fit),
+        "retry on rejection/device, attempt 2": (
+            retried.extras["served_by"] == "rejection/device"
+            and retried.extras["attempts"] == 2),
+        "retry equals the fit at attempt_seed(1, 1)": same_fit(
+            torch, retried, want_retry),
+        "no cpu rung": all(not key.endswith("/cpu")
+                           for key in fstats["health"]),
+        "books": (fp.stats()["injected"] == 3 and fstats["retries"] == 2
+                  and fstats["fallback_served"] == 1
+                  and fstats["completed"] == 2),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"engine under faults: {checks}, stats "
+                             f"{fstats}, faults {fp.stats()}")
+    log(f"  under faults ({fp.stats()['injected']} injected transient "
+        f"solve faults on the rejection targets): two tickets in "
+        f"{fault_s:.3f} s; the first served by kmeans||/device after "
+        f"{fell.extras['fallback_path']} (solve {fell.solve_seconds:.3f} s),"
+        f" equal to the direct k-means|| fit; the second retried "
+        f"(attempts {retried.extras['attempts']}), equal to the fit at "
+        f"attempt_seed(1, 1) = {attempt_seed(1, 1)}; stats retries "
+        f"{fstats['retries']}, fallback_served {fstats['fallback_served']},"
+        f" health {fstats['health']}; launches={counts}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[{time.perf_counter() - t_start:.1f} s] engine done")
+    return dict(total)
+
+
+def service_phase(torch, t_start, points, stacked_plan) -> dict:
+    """Phase 8f: `ClusterServer` on an ephemeral loopback port with two
+    tenants; a `ClusterClient` sends `kddcup_shaped(0)` at seeds 0 to 3,
+    four requests in flight, which the frontend coalesces into one stacked
+    lane; each answer against the lane-batched solve of those seeds.
+    Returns the launches of the server's solve."""
+    from repro_torch.core import ClusterSpec, ExecutionSpec
+    from repro_torch.kernels import ops
+    from repro_torch.serving.net import (ClusterClient, ClusterServer,
+                                         TenantScheduler, parse_tenants)
+    from repro_torch.serving.net.protocol import ResultFrame
+
+    spec = ClusterSpec(k=K, seeder="rejection", seed=SEED)
+    exe = ExecutionSpec(backend="device")
+    seeds = [0, 1, 2, 3]
+    tenants = ("bulk", "interactive")
+    log(f"[{time.perf_counter() - t_start:.1f} s] the clustering service: "
+        f"ClusterServer on loopback, tenants {tenants}, kddcup_shaped(0) at "
+        f"seeds {seeds} from one ClusterClient")
+    scheduler = TenantScheduler(parse_tenants(
+        "bulk:1000:64:1,interactive:1000:64:4"))
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with ClusterServer(spec, exe, admission=scheduler, max_batch=len(seeds),
+                       max_wait_ms=600_000.0) as srv:
+        with ClusterClient(*srv.address) as client:
+            ids = [client.submit(points, seed=s, tenant=tenants[s % 2])
+                   for s in seeds]
+            sent_s = time.perf_counter() - t0
+            wire = [client.result(rid, timeout=900) for rid in ids]
+            wall = time.perf_counter() - t0
+            settle = time.monotonic() + 30.0
+            while True:
+                stats = client.stats(timeout=60)
+                if stats["net"]["results_sent"] >= len(seeds) or \
+                        time.monotonic() > settle:
+                    break
+                time.sleep(0.05)
+    counts = ops.launch_counts()
+    prep = stacked_plan.prepare_stacked(points)        # phase 8c's, cached
+    check_launches("service, one lane-batched solve", counts, 1,
+                   prep.artifacts.arrays[0].shape[0])
+    want = stacked_plan.fit_batch_prepared([prep] * len(seeds), seeds=seeds)
+    for i, got in enumerate(wire):
+        if not (np.array_equal(got.indices, want.indices[i].cpu().numpy())
+                and np.array_equal(got.centers,
+                                   want.centers[i].cpu().numpy())
+                and got.cost == float(want.cost[i])
+                and got.extras["lane_size"] == len(seeds)):
+            raise AssertionError(f"service answer {i} differs from lane {i} "
+                                 "of the lane-batched solve")
+    net = stats["net"]
+    if not (stats["lanes"] == 1 and stats["completed"] == len(seeds)
+            and net["results_sent"] == len(seeds)
+            and net["errors_sent"] == 0):
+        raise AssertionError(f"service books: {stats}")
+    bd = net["breakdown"]
+    attributed = sum(bd.values())
+    out_bytes = sum(len(ResultFrame(rid, got.indices, got.centers, got.cost,
+                                    got.extras).encode())
+                    for rid, got in zip(ids, wire))
+    log(f"  four answers in {wall:.3f} s of wall time (the four uploads "
+        f"sent in {sent_s:.3f} s), one lane of {stats['lane_members']} "
+        f"(flush {wire[0].extras['flush_reason']}), each bit-identical to "
+        f"its lane of fit_batch_prepared over one prepare_stacked; "
+        f"launches={counts}; bytes on the wire: {net['bytes_in']} in "
+        f"({net['bytes_in'] / len(seeds) / 2**20:.1f} MiB a request, f64), "
+        f"{out_bytes} out (result frames)")
+    log("  SLO attribution (the server's, cumulative over the four "
+        "answers; solve is each answer's prepare_seconds + solve_seconds, "
+        "and a lane's prepare_seconds sums its members' prepares):")
+    for name, key in (("queue_wait", "queue_wait_s"), ("solve", "solve_s"),
+                      ("network", "network_s")):
+        log(f"    {name:<11} {bd[key]:10.4f} s ({bd[key] / attributed:.4f})")
+    for i, got in enumerate(wire):
+        srv_x = got.extras["server"]
+        log(f"    request {i} ({tenants[i % 2]}): queue_wait "
+            f"{srv_x['queue_wait']:.3f} s, prepare_seconds "
+            f"{srv_x['prepare_seconds']:.3f} s, solve_seconds "
+            f"{srv_x['solve_seconds']:.3f} s, recv_to_submit "
+            f"{srv_x['recv_to_submit'] * 1e3:.3f} ms")
+    for tenant, rec in sorted(stats["tenants"].items()):
+        log(f"    tenant {tenant}: submitted {rec.get('submitted', 0)}, "
+            f"completed {rec.get('completed', 0)}, queue_wait p50 "
+            f"{rec['queue_wait']['p50']:.3f} s")
+    del want, wire
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[{time.perf_counter() - t_start:.1f} s] service done")
+    return counts
+
+
 def check_attention(torch, ops, ref, q, k, v, causal: bool, label: str,
                     tol: float) -> float:
     """`attention_bshd` (the kernel) against its plain version on the same
@@ -2028,6 +2376,7 @@ def serving_path(torch, t_start: float) -> dict:
         raise AssertionError(f"generate: launches {counts}, expected "
                              f"{cfg.num_layers} flash_attention and no other")
     row["launches"] = counts["flash_attention"]
+    row["launches_by_path"] = {"generate": counts["flash_attention"]}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     if tokens.shape != (b, new) or tokens.min() < 0 or \
             tokens.max() >= cfg.vocab_size:
@@ -2077,7 +2426,7 @@ def serving_path(torch, t_start: float) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts, acc_events=True) as prof:
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         logits, cache = prefill(params, cfg, {"tokens": toks},
                                 max_seq=serve.max_seq)
@@ -2088,7 +2437,7 @@ def serving_path(torch, t_start: float) -> dict:
         f"over {n_events} device events, idle share {1 - busy / wall:.4f}")
     log_top(by_name, 6)
     cur = torch.argmax(logits, dim=-1)
-    with profile(activities=acts, acc_events=True) as prof:
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(TRACE_STEPS):
             logits, cache = decode_step(params, cfg, cur, cache)

@@ -260,10 +260,13 @@ class ClusterPlan:
     Construction validates the (seeder, backend) pair against the registry
     and the device against the machine; `prepare` caches host artifacts by
     data fingerprint; `fit`/`refit`/`fit_prepared` run the solve stage.
+    `fault_plan` is a `core.resilience.FaultPlan` (chaos testing; the
+    `ClusterEngine` forwards its own to every plan it builds).
     """
 
     def __init__(self, cluster: ClusterSpec,
-                 execution: Optional[ExecutionSpec] = None):
+                 execution: Optional[ExecutionSpec] = None, *,
+                 fault_plan=None):
         if not isinstance(cluster, ClusterSpec):
             raise TypeError(f"expected ClusterSpec, got "
                             f"{type(cluster).__name__}")
@@ -282,6 +285,16 @@ class ClusterPlan:
                       "prepare_builds": 0, "solves": 0, "extends": 0,
                       "retires": 0}
         self._stream_seq = 0           # uniquifies streaming cache keys
+        # Chaos hook (resilience.FaultPlan): seeded failure/latency
+        # injection at the top of the prepare build and the solve; None
+        # (the default) costs nothing on the hot path.
+        self.fault_plan = fault_plan
+
+    def _fault_inject(self, stage: str, detail: str) -> None:
+        if self.fault_plan is not None:
+            self.fault_plan.inject(
+                stage, f"{self.cluster.seeder}/{self.execution.backend}/"
+                       f"{stage}/{detail}")
 
     # -- prepare stage ------------------------------------------------------
 
@@ -325,6 +338,7 @@ class ClusterPlan:
         makes it the plan's active data; `forget` releases it.
         """
         ops = self._streaming_ops()
+        self._fault_inject("prepare", "stream")
         t0 = time.perf_counter()
         pts = ensure_host_f64(points)
         rng = np.random.default_rng(self.cluster.seed)
@@ -468,6 +482,9 @@ class ClusterPlan:
 
     def _build_prepared(self, fp: str, points,
                         stacked: bool) -> PreparedData:
+        # Injection happens only on a real build: cache hits never
+        # re-enter the fault domain (they do no work that could fail).
+        self._fault_inject("prepare", fp)
         t0 = time.perf_counter()
         pts = ensure_host_f64(points)
         rng = np.random.default_rng(self.cluster.seed)
@@ -550,7 +567,12 @@ class ClusterPlan:
                      k: Optional[int] = None,
                      seed: Optional[int] = None) -> FitResult:
         """Solve against an explicit `prepare_data` handle (no implicit
-        active-data state); same seed semantics as `fit`."""
+        active-data state, so the `ClusterEngine`'s solve worker calls it
+        while other threads prepare); same seed semantics as `fit`."""
+        # Keyed by fingerprint only (not the solve seed): retries of one
+        # request hit the same key, so FaultPlan's per-key failure caps
+        # model a transient fault that heals on re-attempt.
+        self._fault_inject("solve", prepared.fingerprint)
         return self._execute(prepared, k or self.cluster.k, seed)
 
     def _solve_rng(self, prep: PreparedData,
@@ -781,6 +803,9 @@ class ClusterPlan:
         if len(dims) > 1:
             raise ValueError(
                 f"stacked fit_batch needs one feature dimension, got {dims}")
+        # One key per lane *composition*: retries of one lane hit the same
+        # key, so FaultPlan per-key caps model healing transient faults.
+        self._fault_inject("solve", "+".join(p.fingerprint for p in preps))
         with self._lock:
             self.stats["solves"] += len(seeds)
         k = self.cluster.k

@@ -9,7 +9,21 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["check_tensor", "check_cuda", "raise_on_error"]
+__all__ = ["CudaLaunchError", "check_tensor", "check_cuda", "raise_on_error"]
+
+
+class CudaLaunchError(RuntimeError):
+    """A kernel launch that returned a non-zero ``cudaError_t``: `kernel`
+    names the binding and `code` is the error's number."""
+
+    def __init__(self, kernel: str, code: int):
+        super().__init__(f"{kernel}: CUDA launch failed with cudaError_t "
+                         f"{code}")
+        self.kernel = kernel
+        self.code = int(code)
+
+    def __reduce__(self):
+        return type(self), (self.kernel, self.code)
 
 
 def check_tensor(name: str, t, dtype: torch.dtype, ndim: int, *,
@@ -46,7 +60,7 @@ def check_cuda(*tensors: torch.Tensor) -> None:
 
 
 def raise_on_error(kernel: str, err: int) -> None:
-    """Raise RuntimeError when a launch returned a non-zero cudaError_t."""
+    """Raise `CudaLaunchError` when a launch returned a non-zero
+    cudaError_t."""
     if err != 0:
-        raise RuntimeError(f"{kernel}: CUDA launch failed with cudaError_t "
-                           f"{err}")
+        raise CudaLaunchError(kernel, err)

@@ -30,7 +30,12 @@ one-lane fits.  The streaming tests (`-k streaming`) hold a stream on the
 card: the patched heap equal to `ts.init(w0)` bit for bit after three
 thousand random extends and retires, one seed replaying, scratch
 equivalence, and refits opening only live rows after an extend out of
-the domain.
+the domain.  The service tests (`-k service`) drive the clustering
+service on the card: `ClusterEngine`'s pipelined tickets against the
+serial fits, a real out-of-memory (the allocator capped) classified
+transient with the failed attempt's memory released before the retry and
+after the ticket fails, and four loopback requests through
+`ClusterServer` against their lane-batched solve.
 """
 
 import numpy as np
@@ -717,7 +722,7 @@ def test_no_retrace_holds_around_refits_on_the_card(cuda):
         plan.fit_batch([3, 4])
 
 
-# -- stacked lanes: the lane axis of the three kernels ---------------------------
+# -- stacked lanes: the lane axis of the three kernels ------------------------
 
 def _lane_planes(b, h, n, seed, dev, shared):
     """(B, H, n) code planes (an `expand`ed stride-0 lane axis when
@@ -887,7 +892,7 @@ def test_stacked_datasets_equal_one_lane_fits_on_the_card(cuda, seeder):
         assert len(torch.unique(batch.indices[i])) == 40
 
 
-# -- streaming (`-k streaming`) ---------------------------------------------------
+# -- streaming (`-k streaming`) -----------------------------------------------
 
 def _stream_plan(seeder="rejection", k=24, seed=0):
     return ClusterPlan(ClusterSpec(k=k, seeder=seeder, seed=seed),
@@ -971,3 +976,131 @@ def test_streaming_refit_indices_are_live_on_the_card(cuda, seeder):
         idx = res.indices.cpu().numpy()
         assert res.indices.is_cuda and len(np.unique(idx)) == 40
         assert state.live[idx].all()
+
+
+# -- the clustering service (`-k service`) ------------------------------------
+
+def test_service_engine_pipelined_equals_serial_on_the_card(cuda):
+    """Two prepare workers uploading while the solve worker launches, on
+    the default stream: every ticket equals the serial prepare + solve."""
+    from repro_torch.core import ClusterEngine
+
+    spec = ClusterSpec(k=32, seeder="rejection", seed=0)
+    exe = ExecutionSpec(backend="device")
+    datasets = [_card_mixture(40 + i, n=20_000 + 3_000 * i)
+                for i in range(3)]
+    ops.reset_launch_counts()
+    with ClusterEngine(spec, exe, prepare_workers=2) as engine:
+        tickets = [engine.submit(x, seed=s) for x in datasets
+                   for s in (0, 1)]
+        results = [t.result(timeout=300) for t in tickets]
+    counts = ops.launch_counts()
+    assert counts["tree_sep_update_tiles"] == 6 * 32
+    assert counts["lsh_bucket_accept"] >= 6 * 31
+    serial = ClusterPlan(spec, exe)
+    for i, x in enumerate(datasets):
+        prep = serial.prepare_data(x)
+        for j, s in enumerate((0, 1)):
+            want = serial.fit_prepared(prep, seed=s)
+            got = results[2 * i + j]
+            assert got.indices.is_cuda
+            assert torch.equal(got.indices, want.indices)
+            assert torch.equal(got.centers, want.centers)
+            assert torch.equal(got.cost, want.cost)
+
+
+def test_service_real_oom_is_transient_and_released_on_the_card(cuda):
+    """A real out-of-memory on the solve (the allocator capped just above
+    what is reserved) is transient; the failed attempt's tensors are
+    released before the retry (which succeeds once the cap is lifted, on
+    the retry's own seed) and after a ticket fails with it; the request
+    then equals its uncapped fit."""
+    from repro_torch.core import (ClusterEngine, RetryPolicy, attempt_seed,
+                                  classify_failure)
+
+    spec = ClusterSpec(k=256, seeder="rejection", seed=0)
+    exe = ExecutionSpec(backend="device")
+    pts = _card_mixture(50, n=70_000)       # the cost's (65536, 256) chunk
+    total = torch.cuda.get_device_properties(cuda).total_memory
+
+    class Cap:
+        """The plan's fault hook: records the memory allocated at each
+        solve's start once armed, and lifts the cap at call `lift`."""
+
+        def __init__(self):
+            self.seen, self.lift = None, None
+
+        def arm(self, lift=None):
+            torch.cuda.empty_cache()
+            self.seen, self.lift = [], lift
+            torch.cuda.set_per_process_memory_fraction(
+                (torch.cuda.memory_reserved() + (8 << 20)) / total)
+            return torch.cuda.memory_allocated()
+
+        def inject(self, stage, key):
+            if stage == "solve" and self.seen is not None:
+                self.seen.append(torch.cuda.memory_allocated())
+                if len(self.seen) == self.lift:
+                    torch.cuda.set_per_process_memory_fraction(1.0)
+
+    cap = Cap()
+    try:
+        with ClusterEngine(spec, exe, degrade=False,
+                           fault_plan=cap) as engine:
+            want = engine.submit(pts).result(timeout=300)
+            before = cap.arm(lift=2)
+            res = engine.submit(pts, retry=RetryPolicy(
+                max_attempts=2)).result(timeout=300)
+            retry_seen = list(cap.seen)
+            before_fail = cap.arm()
+            exc = engine.submit(pts).exception(timeout=300)
+            torch.cuda.synchronize()
+            after_fail = torch.cuda.memory_allocated()
+            torch.cuda.set_per_process_memory_fraction(1.0)
+            again = engine.submit(pts).result(timeout=300)
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+    assert res.extras["attempts"] == 2 and retry_seen == [before, before]
+    assert isinstance(exc, torch.cuda.OutOfMemoryError)
+    assert classify_failure(exc) == "transient"
+    assert after_fail == before_fail
+    assert torch.equal(again.indices, want.indices)
+    assert torch.equal(again.cost, want.cost)
+    plan = ClusterPlan(spec, exe)
+    retried = plan.fit_prepared(plan.prepare_data(pts),
+                                seed=attempt_seed(None, 1))
+    assert torch.equal(res.indices, retried.indices)
+    assert torch.equal(res.cost, retried.cost)
+
+
+def test_service_loopback_fits_through_the_server_on_the_card(cuda):
+    """Four requests from a client over loopback, two tenants, coalesced
+    into one stacked lane on the card: each answer equals the lane of
+    `fit_batch_prepared` over `prepare_stacked` at its seed."""
+    from repro_torch.serving.net import (ClusterClient, ClusterServer,
+                                         TenantScheduler, parse_tenants)
+
+    spec = ClusterSpec(k=24, seeder="rejection", seed=0)
+    exe = ExecutionSpec(backend="device")
+    x = _card_mixture(60, n=25_000)
+    scheduler = TenantScheduler(parse_tenants("bulk:1000:64:1,rt:1000:64:4"))
+    ops.reset_launch_counts()
+    with ClusterServer(spec, exe, admission=scheduler, max_batch=4,
+                       max_wait_ms=60_000.0) as srv:
+        with ClusterClient(*srv.address) as client:
+            ids = [client.submit(x, seed=s, tenant=("bulk", "rt")[s % 2])
+                   for s in range(4)]
+            wire = [client.result(rid, timeout=300) for rid in ids]
+            stats = client.stats(timeout=60)
+    assert ops.launch_counts()["tree_sep_update_tiles"] == 24
+    assert stats["lanes"] == 1 and stats["mean_lane_occupancy"] == 4.0
+    plan = ClusterPlan(spec, exe)
+    prep = plan.prepare_stacked(x)
+    want = plan.fit_batch_prepared([prep] * 4, seeds=[0, 1, 2, 3])
+    for i, got in enumerate(wire):
+        np.testing.assert_array_equal(got.indices,
+                                      want.indices[i].cpu().numpy())
+        np.testing.assert_array_equal(got.centers,
+                                      want.centers[i].cpu().numpy())
+        assert got.cost == float(want.cost[i])
+        assert got.extras["lane_size"] == 4

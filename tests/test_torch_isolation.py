@@ -3,9 +3,11 @@
   * No module of `repro_torch`, and not `chip_smoke.py`, imports JAX or the
     JAX package: a scan of the sources and, in a fresh interpreter, the
     modules loaded after importing every `repro_torch` module.
-  * Entry points (the plan, the serving engine and its launcher) run on
-    CUDA unless the caller asks for the CPU, and raise rather than fall
-    back when CUDA is absent.
+  * Entry points (the plan, the serving engine and its launcher, the
+    clustering engine and its RPC launcher) run on CUDA unless the caller
+    asks for the CPU, and raise rather than fall back when CUDA is absent.
+  * The lock and future rules of `python -m repro.analysis` find nothing
+    in the port's threads and futures (and do find a planted breach).
   * The CUDA bindings check their arguments before anything reaches the
     card: a CPU tensor, a wrong dtype, shape or contiguity raises.
 """
@@ -30,7 +32,7 @@ from repro_torch.kernels import lsh_bucket_accept_cuda as lba_binding
 from repro_torch.kernels import ops
 from repro_torch.kernels import pairwise_argmin_cuda as pam_binding
 from repro_torch.kernels import tree_sep_update_cuda as tsu_binding
-from repro_torch.launch import serve
+from repro_torch.launch import cluster_serve, serve
 from repro_torch.models import init_params, param_specs
 from repro_torch.serving.engine import Engine, ServeConfig
 
@@ -74,11 +76,15 @@ def test_importing_the_port_loads_no_jax():
     "repro_torch.core.tracing", "repro_torch.core.registry",
     "repro_torch.core.seeding", "repro_torch.core.lsh",
     "repro_torch.core.tree_embedding", "repro_torch.kernels._build",
-    "repro_torch.core.streaming"])
+    "repro_torch.core.streaming", "repro_torch.core.resilience",
+    "repro_torch.core.engine", "repro_torch.serving.frontend",
+    "repro_torch.serving.net.protocol", "repro_torch.serving.net.tenancy",
+    "repro_torch.serving.net.server", "repro_torch.serving.net.client",
+    "repro_torch.launch.cluster_serve"])
 def test_the_cpu_backend_and_legacy_modules_load_no_jax(module):
-    """Each module of the CPU backend, the legacy facade, streaming and
-    the build accounting, imported alone in a fresh interpreter, loads no
-    JAX and no reference package."""
+    """Each module of the CPU backend, the legacy facade, streaming, the
+    clustering service and the build accounting, imported alone in a
+    fresh interpreter, loads no JAX and no reference package."""
     code = (
         f"import importlib, sys\n"
         f"importlib.import_module({module!r})\n"
@@ -122,6 +128,8 @@ def test_entry_points_default_to_cuda():
     engine_device = inspect.signature(Engine).parameters["device"]
     assert engine_device.default == "cuda"
     assert serve.build_parser().parse_args([]).device == "cuda"
+    args = cluster_serve.build_parser().parse_args([])
+    assert (args.backend, args.device) == ("device", "cuda")
 
 
 def test_no_silent_cpu_fallback(monkeypatch):
@@ -149,6 +157,61 @@ def test_serving_entry_points_do_not_fall_back(monkeypatch):
     eng = Engine(params, cfg, ServeConfig(max_new_tokens=1, max_seq=8),
                  device="cpu")
     assert eng.generate(np.ones((1, 4), np.int32)).shape == (1, 1)
+
+
+@pytest.mark.timeout(120)
+def test_cluster_service_does_not_fall_back(monkeypatch, capsys):
+    """Without CUDA, the engine on its default placement refuses a request
+    and the RPC launcher's smoke fails it; asked for the CPU, both run."""
+    from repro_torch.core import ClusterEngine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pts = np.random.default_rng(0).normal(size=(64, 3))
+    with ClusterEngine(ClusterSpec(k=3)) as engine:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            engine.submit(pts)
+    argv = ["--smoke", "--smoke-requests", "2", "--smoke-n", "64"]
+    assert cluster_serve.main(argv) == 1
+    assert "CUDA is not available" in capsys.readouterr().out
+    assert cluster_serve.main(argv + ["--device", "cpu"]) == 0
+    assert "smoke: PASS" in capsys.readouterr().out
+
+
+@pytest.mark.timeout(600)
+def test_lock_and_future_lint_finds_nothing_in_the_port(tmp_path):
+    """`python -m repro.analysis`'s framework-neutral thread rules over
+    `src/repro_torch` find nothing (the baseline has no entry for the
+    port), and they are live: a planted breach of each is found."""
+    rules = ["--rule", "lock-discipline", "--rule", "future-discipline"]
+
+    def lint(*paths):
+        return subprocess.run(
+            [sys.executable, "-m", "repro.analysis", "--strict", *rules,
+             *map(str, paths)], capture_output=True, text=True, cwd=ROOT,
+            env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin",
+                 "JAX_PLATFORMS": "cpu"}, timeout=300)
+
+    clean = lint(PACKAGE)
+    assert clean.returncode == 0 and "no findings" in clean.stdout, \
+        clean.stdout + clean.stderr
+    planted = tmp_path / "planted.py"
+    planted.write_text(
+        "import threading\n\n\n"
+        "class Racy:\n"
+        "    def __init__(self):\n"
+        "        self._lock = threading.Lock()\n"
+        "        self.n = 0\n\n"
+        "    def bump(self):\n"
+        "        with self._lock:\n"
+        "            self.n += 1\n\n"
+        "    def peek(self):\n"
+        "        return self.n\n\n\n"
+        "def settle(fut, fn):\n"
+        "    fut.set_result(fn())\n")
+    found = lint(planted)
+    assert found.returncode == 1
+    assert "lock-discipline" in found.stdout
+    assert "future-discipline" in found.stdout
 
 
 def test_wrappers_refuse_other_devices():

@@ -15,8 +15,8 @@ package's, on the CPU.
     `tests/test_torch_stacked.py`'s.
   * `replace`, `forget`, `block_until_ready` (on tensors and on the NumPy
     arrays of `to_numpy`), the capability table cell by cell (the sharded
-    backend aside), `no_retrace`, and the names of `repro.core.__all__`
-    still to come, each with its ROADMAP item.
+    backend aside), `no_retrace`, and every name of `repro.core.__all__`
+    exported by the port.
 """
 
 import dataclasses
@@ -54,17 +54,8 @@ PAIRS = ([(s, "cpu") for s in CPU_SEEDERS]
          + [(s, "device") for s in DEVICE_SEEDERS])
 
 # The names of `repro.core.__all__` the port does not export yet, each with
-# the ROADMAP Queue 1 item that ports it.
-STILL_TO_COME = {
-    "ClusterEngine": 7, "FitTicket": 7,
-    "CircuitBreaker": 7, "CircuitBreakerPolicy": 7,
-    "DeadlineExceededError": 7, "FaultPlan": 7, "InjectedFault": 7,
-    "InvalidInputError": 7, "QueueFullError": 7, "RemoteError": 7,
-    "RetryPolicy": 7, "ServiceUnavailableError": 7, "attempt_seed": 7,
-    "classify_failure": 7, "exception_from_wire": 7,
-    "exception_to_wire": 7, "fallback_chain": 7, "register_wire_error": 7,
-    "validate_points": 7,
-}
+# the ROADMAP Queue 1 item that ports it: none since item 7.
+STILL_TO_COME: dict = {}
 
 
 def _mixture(n=600, d=4, k_true=10, seed=0):
@@ -358,7 +349,8 @@ def test_refits_on_the_cpu_count_nothing():
 # -- the public names -----------------------------------------------------------
 
 def test_core_all_is_the_jax_packages_minus_the_items_to_come():
-    assert set(core.__all__) <= set(jcore.__all__)
-    assert set(jcore.__all__) - set(core.__all__) == set(STILL_TO_COME)
-    for name in core.__all__:
+    assert not STILL_TO_COME
+    assert set(core.__all__) == set(jcore.__all__)
+    assert len(core.__all__) == len(set(core.__all__))
+    for name in jcore.__all__:
         assert hasattr(core, name), name
