@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's three paths (and, in phases 8d to 8f, the plan's
-streaming entry points, the clustering engine and the RPC server on the
-first).  Two go through the plan, each at the shape
+Drives the port's three paths (and, in phases 8d to 8g, the plan's
+streaming entry points, the clustering engine, the RPC server and the
+sharded backend on the first).  Two go through the plan, each at the shape
 of the paper's smallest real dataset (KDD Cup, 311,029 x 74, generated
 here from a seed as `benchmarks/datasets.py` does) with k = 1000: the
 paper's Algorithm 4,
@@ -130,6 +130,17 @@ against its plain PyTorch version on the card.  In order:
      for bit against its lane of `fit_batch_prepared` over one
      `prepare_stacked` (phase 8c's plan), the queue-wait, solve and
      network attribution and the bytes on the wire;
+ 8g. the sharded backend at full width on `kddcup_shaped(0)`, k = 1000,
+     over `make_seeding_mesh(4, device="cuda:0")` (four shards on the one
+     card): the rejection plan's prepare (split onto the shards) and fit,
+     its launches (4 x 2k `tree_sep_update`, 4k `tree_sep_update_tiles`,
+     one `lsh_bucket_accept` an accept round), refits at seeds 1 to 3
+     (the mean cost of seeds 0 to 3 within 5% of phase 8b's
+     `fit_batch(seeds=[0, 1, 2, 3])` lanes), seed 0 replayed; the
+     rejection solve on one shard of phase 8's prepared artifacts (the
+     same indices as phase 8's device fit); fastkmeans++
+     and k-means|| on the four shards (5 x 4 `pairwise_argmin`
+     launches); "sharded done" closes it;
   9. the seeding paths' device tensors are freed;
  10. `flash_attention` against its plain version (the chunked
      online-softmax scan) at the serving path's shape, q (4, 2048, 32, 128)
@@ -165,8 +176,9 @@ against its plain PyTorch version on the card.  In order:
      just after: phase 8's rejection fit for rows 1 to 3, its k-means||
      fit for row 5, phase 12's `generate` for row 8.  `launches_by_path`
      gives every path's own count: ``main`` and ``kmeans||`` (phase 8),
-     ``streaming`` (8d), ``engine`` (8e), ``service`` (8f) and
-     ``generate`` (12).
+     ``streaming`` (8d), ``engine`` (8e), ``service`` (8f), ``sharded``
+     (8g: its rejection fit for rows 1 to 3, its k-means|| fit for row 5)
+     and ``generate`` (12).
 
 Any failure raises and exits non-zero before the last line is printed.
 Without CUDA, or without the rest of the repository beside it, the script
@@ -226,6 +238,7 @@ STREAM_OOD = 1_000                      # rows moved out of the domain
 KMP_ROUNDS = 5                          # the k-means|| defaults
 KMP_ELL = 2.0 * K
 KMP_CAP = int(min(N, max(8, 4 * KMP_ELL)))
+SHARDS = 4                              # phase 8g: shards on cuda:0
 SERVE_ARCH = "yi-9b"                    # the serving launcher's default
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 2048, 32
 REPLAY_PROMPT = 128
@@ -1155,14 +1168,16 @@ def seeding_paths(torch, t_start: float) -> list:
             f"({kernels_50} kernels)")
     log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**20:.1f}"
         f" MiB; {time.perf_counter() - t_start:.1f} s so far")
-    stacked_plan = other_entry_points(torch, t_start, points, plan, fit,
-                                      km_fit, t)
+    stacked_plan, lane_costs = other_entry_points(torch, t_start, points,
+                                                  plan, fit, km_fit, t)
     by_path = {"main": launches, "kmeans||": km_launches,
                "streaming": streaming(torch, t_start, points),
                "engine": engine_phase(torch, t_start, points, plan, fit,
                                       refit, km_fit, t),
                "service": service_phase(torch, t_start, points,
-                                        stacked_plan)}
+                                        stacked_plan),
+               "sharded": sharded_phase(torch, t_start, points, plan, fit,
+                                        km_fit, lane_costs, t)}
     for row in rows:
         row["launches_by_path"] = {path: counts.get(row["name"], 0)
                                    for path, counts in by_path.items()}
@@ -1174,7 +1189,8 @@ def other_entry_points(torch, t_start, points, plan, fit, km_fit, t):
     seeders against `ClusterPlan.fit` on the same seed, `fit_batch` over
     four seeds against solo refits, `no_retrace` around two refits, and
     the cpu backend's six seeders on the host at a tenth of n.  Returns
-    phase 8c's plan, its canonical lanes prepared."""
+    phase 8c's plan, its canonical lanes prepared, and the costs of the
+    `fit_batch(seeds=[0, 1, 2, 3])` lanes by seeder."""
     import warnings
 
     from repro_torch.core import (TRACE_COUNTS, ClusterPlan, ClusterSpec,
@@ -1222,9 +1238,11 @@ def other_entry_points(torch, t_start, points, plan, fit, km_fit, t):
 
     log(f"[{time.perf_counter() - t_start:.1f} s] fit_batch(seeds) and "
         "no_retrace")
-    for seeder, p, first in (("rejection", plan, fit),
-                             ("fastkmeans++", plan_fast, fast_fit)):
-        fit_batch_seeds(torch, ops, seeder, p, first, sweeps)
+    lane_costs = {seeder: fit_batch_seeds(torch, ops, seeder, p, first,
+                                          sweeps)
+                  for seeder, p, first in (("rejection", plan, fit),
+                                           ("fastkmeans++", plan_fast,
+                                            fast_fit))}
     builds = {name: v for name, v in TRACE_COUNTS.items()
               if name.startswith("build/")}
     with no_retrace():
@@ -1261,15 +1279,15 @@ def other_entry_points(torch, t_start, points, plan, fit, km_fit, t):
             f"card's gather and f32 cost), float64 cost "
             f"{costs[seeder]:.10g} ({costs[seeder] / costs['kmeans++']:.4f} "
             "of exact kmeans++); no kernel launched")
-    return stacked_plan
+    return stacked_plan, lane_costs
 
 
-def fit_batch_seeds(torch, ops, seeder, plan, first, sweeps) -> None:
+def fit_batch_seeds(torch, ops, seeder, plan, first, sweeps) -> list:
     """`fit_batch(seeds=[0, 1, 2, 3])` on a prepared full-width plan: one
     lane-batched solve (each sweep launched once a center for the four
     lanes, the accept kernel once a round for the lanes still drawing),
     each lane bit-identical to `refit(seed=s)` and lane 0 to the fit; its
-    time beside the four refits'."""
+    time beside the four refits'.  Returns the lanes' costs."""
     seeds = [0, 1, 2, 3]
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1315,6 +1333,7 @@ def fit_batch_seeds(torch, ops, seeder, plan, first, sweeps) -> None:
         f"(the refits' lsh_bucket_accept {lane_lsh}, sum "
         f"{sum(lane_lsh)}); each lane bit-identical to refit(seed=s), lane 0 "
         f"to the fit; costs {[round(float(c), 1) for c in batch.cost]}")
+    return [float(c) for c in batch.cost]
 
 
 def stacked_lanes(torch, t_start):
@@ -1854,16 +1873,156 @@ def same_fit(torch, a, b) -> bool:
             and torch.equal(a.cost, b.cost))
 
 
-def check_launches(label, counts, solves, t, pairwise=0) -> None:
+def check_launches(label, counts, solves, t, pairwise=0, shards=1) -> None:
     """`solves` rejection solves of one lane each (or lane-batched: the
-    lanes share launches) and `pairwise` k-means|| rounds, nothing else."""
+    lanes share launches) over `shards` shards (each sweep launched once a
+    shard, the accept once a round) and `pairwise` `pairwise_argmin`
+    launches, nothing else."""
     lsh = counts["lsh_bucket_accept"]
     want = dict({name: 0 for name in counts}, lsh_bucket_accept=lsh,
-                tree_sep_update=solves * (t - 1) * K,
-                tree_sep_update_tiles=solves * K, pairwise_argmin=pairwise)
+                tree_sep_update=solves * shards * (t - 1) * K,
+                tree_sep_update_tiles=solves * shards * K,
+                pairwise_argmin=pairwise)
     if counts != want or lsh < solves * (K - 1):
         raise AssertionError(f"{label}: launches {counts}, expected {want} "
                              f"and lsh_bucket_accept >= {solves * (K - 1)}")
+
+
+def sharded_phase(torch, t_start, points, device_plan, fit, km_fit,
+                  lane_costs, t) -> dict:
+    """Phase 8g: the sharded backend at full width on `kddcup_shaped(0)`,
+    k = 1000, over a mesh of `SHARDS` shards on cuda:0, and the rejection
+    solve on one shard of phase 8's prepared artifacts.  Returns the
+    launches of its rejection fit (rows 1 to 3) and of its k-means|| fit
+    (row 5)."""
+    from repro_torch.core import sharded_seeding as shs
+    from repro_torch.core.device_seeding import _generator
+    from repro_torch.core.plan import ClusterPlan, ClusterSpec, ExecutionSpec
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_seeding_mesh
+
+    t_phase = time.perf_counter()
+    log(f"[{t_phase - t_start:.1f} s] the sharded backend: n={N}, d={D}, "
+        f"k={K}, {SHARDS} shards on cuda:0 (make_seeding_mesh({SHARDS}, "
+        "device='cuda:0'))")
+    mesh = make_seeding_mesh(SHARDS, device="cuda:0")
+
+    def sharded_plan(seeder, shards_mesh):
+        plan = ClusterPlan(ClusterSpec(k=K, seeder=seeder, seed=SEED),
+                           ExecutionSpec(backend="sharded",
+                                         mesh=shards_mesh))
+        prep = plan.prepare(points).prepare_data(points)
+        return plan, prep
+
+    def timed_fit(plan, seed=None):
+        ops.reset_launch_counts()
+        res = plan.fit(seed=seed)
+        torch.cuda.synchronize()
+        return res, ops.launch_counts()
+
+    plan, prep = sharded_plan("rejection", mesh)
+    data = prep.artifacts
+    if not (data.mesh.size == SHARDS and all(
+            a.device == torch.device("cuda", 0) for a in data.codes_lo)):
+        raise AssertionError(f"sharded artifacts on {data.mesh}")
+    res0, counts = timed_fit(plan)
+    rounds = sum(res0.extras["rounds_per_batch"].values())
+    check_launches("sharded rejection", counts, 1, t, shards=SHARDS)
+    if counts["lsh_bucket_accept"] != rounds:
+        raise AssertionError(f"sharded rejection: {rounds} accept rounds, "
+                             f"{counts['lsh_bucket_accept']} launches")
+    idx = res0.indices.cpu().numpy()
+    if len(np.unique(idx)) != K or idx.max() >= N or \
+            res0.extras["devices"] != SHARDS:
+        raise AssertionError("sharded rejection: indices or extras")
+    log(f"  rejection: prepare {prep.prepare_seconds:.3f} s (split onto "
+        f"{SHARDS} shards of {data.n_loc} rows), solve "
+        f"{res0.solve_seconds:.3f} s (phase 8's device fit "
+        f"{fit.solve_seconds:.3f} s), {rounds} accept rounds, "
+        f"launches={counts}, cost {float(res0.cost):.10g}")
+    costs = [float(res0.cost)]
+    for s in (1, 2, 3):
+        res, _ = timed_fit(plan, seed=s)
+        costs.append(float(res.cost))
+        log(f"  rejection refit(seed={s}): solve {res.solve_seconds:.3f} s, "
+            f"cost {costs[-1]:.10g}")
+    replay, _ = timed_fit(plan)
+    if not torch.equal(replay.indices, res0.indices):
+        raise AssertionError("sharded rejection: seed 0 did not replay")
+    mean, lanes = float(np.mean(costs)), float(np.mean(lane_costs[
+        "rejection"]))
+    if abs(mean / lanes - 1.0) > 0.05:
+        raise AssertionError(f"sharded rejection: mean cost of seeds 0 to 3 "
+                             f"{mean} against phase 8b's lanes {lanes}")
+    log(f"  seed 0 replayed (the same {K} indices, solve "
+        f"{replay.solve_seconds:.3f} s); mean cost of seeds 0 to 3 "
+        f"{mean:.10g}, {mean / lanes:.6f} of phase 8b's fit_batch(seeds="
+        f"[0, 1, 2, 3]) lanes' {lanes:.10g}")
+    main_counts = counts
+
+    # One shard of phase 8's prepared artifacts (no second host prepare),
+    # solved from the rng state phase 8's fit solved from.
+    dev_prep = device_plan.prepare_data(points)          # cached
+    art = dev_prep.artifacts
+    t0 = time.perf_counter()
+    one = shs.shard_arrays(
+        make_seeding_mesh(1, device="cuda:0"), plan.execution.tile, N,
+        codes_lo=art.codes_lo, codes_hi=art.codes_hi, points=art.points,
+        keys_lo=art.keys_lo, keys_hi=art.keys_hi, scale=art.scale,
+        num_levels=art.num_levels, m_init=art.m_init)
+    split_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED)
+    rng.bit_generator.state = dev_prep.rng_state
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    chosen, _ = shs.sharded_rejection_sampling(
+        one, K, _generator(rng, one.controller), c=device_plan.cluster.c)
+    torch.cuda.synchronize()
+    solve1 = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    check_launches("sharded rejection, one shard", counts, 1, t)
+    if not torch.equal(chosen, fit.indices):
+        raise AssertionError("one shard: other indices than phase 8's "
+                             "device fit at seed 0")
+    log(f"  rejection on one shard of phase 8's artifacts: split "
+        f"{split_s:.3f} s, solve {solve1:.3f} s, launches={counts}; the "
+        f"same {K} indices as phase 8's device fit")
+    del one, chosen
+
+    fast, prep_f = sharded_plan("fastkmeans++", mesh)
+    res_f, counts = timed_fit(fast)
+    want = dict({name: 0 for name in counts},
+                tree_sep_update=SHARDS * (t - 1) * K,
+                tree_sep_update_tiles=SHARDS * K)
+    if counts != want or len(torch.unique(res_f.indices)) != K:
+        raise AssertionError(f"sharded fastkmeans++: launches {counts}, "
+                             f"expected {want}")
+    fast_lanes = float(np.mean(lane_costs["fastkmeans++"]))
+    log(f"  fastkmeans++: prepare {prep_f.prepare_seconds:.3f} s, solve "
+        f"{res_f.solve_seconds:.3f} s, launches={counts}, cost "
+        f"{float(res_f.cost):.10g} ({float(res_f.cost) / fast_lanes:.6f} "
+        "of the mean of phase 8b's fastkmeans++ lanes)")
+    del fast, prep_f
+
+    kmp, prep_k = sharded_plan("kmeans||", mesh)
+    res_k, counts = timed_fit(kmp)
+    want = dict({name: 0 for name in counts},
+                pairwise_argmin=KMP_ROUNDS * SHARDS)
+    if counts != want or len(torch.unique(res_k.indices)) != K or \
+            not math.isfinite(float(res_k.cost)):
+        raise AssertionError(f"sharded kmeans||: launches {counts}, "
+                             f"expected {want}")
+    log(f"  kmeans||: prepare {prep_k.prepare_seconds:.3f} s, solve "
+        f"{res_k.solve_seconds:.3f} s (pool {res_k.extras['pool_size']}), "
+        f"launches={counts}, cost {float(res_k.cost):.10g} "
+        f"({float(res_k.cost) / float(km_fit.cost):.6f} of phase 8's "
+        "device k-means|| fit)")
+    del plan, prep, kmp, prep_k
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[{time.perf_counter() - t_start:.1f} s] sharded done "
+        f"({time.perf_counter() - t_phase:.1f} s)")
+    return dict(main_counts, pairwise_argmin=counts["pairwise_argmin"])
 
 
 def engine_phase(torch, t_start, points, plan, fit, refit, km_fit,

@@ -26,6 +26,7 @@ from typing import Any, Optional
 import numpy as np
 
 from repro_torch.core import device_seeding  # noqa: F401  registers "device"
+from repro_torch.core import sharded_seeding  # noqa: F401  registers "sharded"
 from repro_torch.core import registry
 from repro_torch.core.batch_schedule import BatchSchedule
 from repro_torch.core.lloyd import LloydResult, assign, lloyd
@@ -65,8 +66,10 @@ def resolve_seeder(name: str, backend: str = "device"):
     ``backend="device"`` (the default; the JAX package's is ``"cpu"``,
     but the port's entry points run on the card unless asked for the CPU)
     returns the facade that runs the seeder on a device through its
-    registered prepare and solve; ``backend="cpu"`` the faithful NumPy
-    implementation.  Composite keys like ``"rejection/device"`` resolve
+    registered prepare and solve; ``backend="sharded"`` the same over a
+    seeding mesh of shards (``mesh=`` a `SeedingMesh`, default
+    ``make_seeding_mesh(device=device)``); ``backend="cpu"`` the faithful
+    NumPy implementation.  Composite keys like ``"rejection/device"`` resolve
     through `SEEDERS` directly.
     """
     if backend not in BACKENDS:
@@ -83,13 +86,15 @@ class KMeansConfig:
     Frozen and hashable: `seeder_kwargs` accepts a mapping and is stored as
     a sorted tuple of (key, value) pairs.  `backend` defaults to
     ``"device"`` (the JAX package's default is ``"cpu"``), and `device`,
-    the port's own field, places the device seeders (``"cuda"`` unless
-    the caller asks for ``"cpu"``).
+    the port's own field, places the device and sharded seeders
+    (``"cuda"`` unless the caller asks for ``"cpu"``; a sharded fit's
+    shards are ``make_seeding_mesh(device=device)`` unless
+    `seeder_kwargs` gives a ``mesh``).
     """
 
     k: int
     seeder: str = "rejection"           # any registered seeder name
-    backend: str = "device"             # "cpu" (NumPy) | "device"
+    backend: str = "device"             # "cpu" (NumPy) | "device" | "sharded"
     lloyd_iters: int = 0                # 0 = seeding only (paper experiments)
     quantize: bool = True               # Appendix-F aspect-ratio control
     c: float = 2.0                      # LSH approximation factor (rejection)
@@ -109,13 +114,17 @@ class KMeansConfig:
                                tuple(self.seeder_kwargs))
 
     def to_specs(self) -> tuple[ClusterSpec, ExecutionSpec]:
-        """The plan-API equivalent of this config (migration helper)."""
+        """The plan-API equivalent of this config (migration helper); a
+        ``mesh`` in `seeder_kwargs` moves to the `ExecutionSpec`."""
+        options = dict(self.seeder_kwargs)
+        mesh = options.pop("mesh", None)
         return (
             ClusterSpec(k=self.k, seeder=self.seeder, c=self.c,
                         schedule=self.schedule, lloyd_iters=self.lloyd_iters,
                         quantize=self.quantize, seed=self.seed,
-                        options=self.seeder_kwargs),
-            ExecutionSpec(backend=self.backend, device=self.device),
+                        options=options),
+            ExecutionSpec(backend=self.backend, device=self.device,
+                          mesh=mesh),
         )
 
 
@@ -148,7 +157,7 @@ def fit(points: np.ndarray, config: KMeansConfig) -> KMeans:
         "fits", DeprecationWarning, stacklevel=2)
     seed_fn = resolve_seeder(config.seeder, config.backend)
     kwargs = dict(config.seeder_kwargs)
-    if config.backend == "device":
+    if config.backend in ("device", "sharded"):
         resolve_device(config.device)      # raises when CUDA is absent
         kwargs.setdefault("device", config.device)
     rng = np.random.default_rng(config.seed)

@@ -53,7 +53,7 @@ import torch
 from repro_torch.core import registry
 from repro_torch.core.batch_schedule import BatchSchedule, shape_bucket
 from repro_torch.core.lsh import MonotoneLSH
-from repro_torch.core.plan import ExecutionSpec
+from repro_torch.core.plan import ExecutionSpec, resolve_execution
 from repro_torch.core.sample_tree import TiledSampleTree
 from repro_torch.core.seeding import (
     SEEDERS,
@@ -760,11 +760,19 @@ def _kmeans_parallel_picks(points, d2, generator, ell: float, cap: int):
     () int32)``, one uniform per point; the slots hold the `live` =
     min(wanted, cap) picks in index order and `_FAR` past them.  `live`
     stays on the device."""
+    phi = d2.sum()
+    u = torch.rand(points.shape[0], generator=generator, dtype=torch.float32,
+                   device=points.device)
+    return _coin_picks(points, d2, phi, u, ell, cap)
+
+
+def _coin_picks(points, d2, phi, u, ell: float, cap: int):
+    """`_kmeans_parallel_picks` given the round's total `phi` (a 0-d
+    tensor) and one uniform per point `u`: a shard of the sharded rounds
+    passes the total over every shard and its own coins."""
     n = points.shape[0]
     dev = points.device
-    phi = d2.sum()
     p = torch.clamp(ell * d2 / phi.clamp_min(1e-30), max=1.0)
-    u = torch.rand(n, generator=generator, dtype=torch.float32, device=dev)
     want = (u < p) & (phi > 0)
     rank = torch.cumsum(want, dim=0) - 1
     picked = want & (rank < cap)
@@ -855,15 +863,18 @@ def _solve_kmeans_parallel(points_dev, pts, k, rng, *, c, schedule, options,
 
 # ---------------------------------------------------------------------------
 # seed_fn facades: `(points, k, rng, **kw) -> SeedingResult` with NumPy
-# indices, as the JAX package's `DEVICE_SEEDERS`, each running its seeder's
-# registered prepare and solve; `device` and `tile` place the work.
+# indices, as the JAX package's `DEVICE_SEEDERS` and `SHARDED_SEEDERS`,
+# each running its seeder's registered prepare and solve; `device`, `tile`
+# and (on the sharded backend) `mesh` place the work.
 # ---------------------------------------------------------------------------
 
-def _seed_fn(name: str):
+def _seed_fn(name: str, backend: str = "device"):
     def seed_fn(points, k, rng, *, c=1.2, schedule=None, resolution=None,
-                device="cuda", tile=ExecutionSpec.tile, **options):
-        impl = registry.get_seeder_spec(name).impl("device")
-        execution = ExecutionSpec(device=device, tile=tile)
+                device="cuda", tile=ExecutionSpec.tile, mesh=None,
+                **options):
+        impl = registry.get_seeder_spec(name).impl(backend)
+        execution = resolve_execution(ExecutionSpec(
+            backend=backend, device=device, tile=tile, mesh=mesh))
         t0 = time.perf_counter()
         pts = np.asarray(points, dtype=np.float64)
         artifacts = impl.prepare(pts, rng, resolution=resolution,
@@ -874,14 +885,19 @@ def _seed_fn(name: str):
                                     execution=execution)
         idx = chosen.cpu().numpy().astype(np.int64)
         seconds = time.perf_counter() - t0
+        extras = dict(extras, backend=backend)
+        if "trials" in extras:
+            per_center = extras["trials"].cpu().numpy().astype(np.int64)
+            extras.update(per_center_trials=per_center,
+                          trials_per_center=per_center.sum() / k)
         return SeedingResult(
             centers=pts[idx].copy(), indices=idx, seconds=seconds,
             num_candidates=extras["num_candidates"], prepare_seconds=t_prep,
-            solve_seconds=seconds - t_prep,
-            extras=dict(extras, backend="device"))
+            solve_seconds=seconds - t_prep, extras=extras)
 
-    seed_fn.__doc__ = (f"`{name}` on the card through its registered "
-                       "prepare and solve; `SeedingResult` facade.")
+    seed_fn.__doc__ = (f"`{name}` on the {backend} backend through its "
+                       "registered prepare and solve; `SeedingResult` "
+                       "facade.")
     return seed_fn
 
 

@@ -34,7 +34,7 @@ block / reject / shed-oldest backpressure, input quarantine at
 `submit()`, per-request monotonic deadlines, transient-failure retries
 on attempt-derived rng streams, and a circuit breaker per
 (seeder, backend) that degrades an unhealthy target down the
-registry-declared fallback chain (``device → cpu``,
+registry-declared fallback chain (``sharded → device → cpu``,
 ``rejection → kmeans|| → kmeans++``) — correctness-preserving, since
 every chained seeder carries the same O(log k) guarantee.  An engine on
 the card skips the chain's ``"cpu"`` rungs: nothing it serves falls
@@ -790,11 +790,13 @@ class ClusterEngine:
         return chain
 
     def _execution_for(self, backend: str) -> ExecutionSpec:
-        # The fallback keeps the device (and dtype, tile): only the backend
-        # changes.
+        # The fallback keeps the device (and dtype, tile): the backend
+        # changes, and the mesh stays only on a sharded target.
         if backend == self.execution.backend:
             return self.execution
-        return dataclasses.replace(self.execution, backend=backend)
+        return dataclasses.replace(
+            self.execution, backend=backend,
+            mesh=self.execution.mesh if backend == "sharded" else None)
 
     def _breaker(self, target: tuple) -> CircuitBreaker:
         with self._lock:

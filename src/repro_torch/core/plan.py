@@ -29,15 +29,17 @@ A stream (`prepare_streaming`, `extend`, `retire`; `core.streaming`) is a
 `PreparedData` whose artifacts are patched in place; its solves cover the
 live rows, and its cost masks out the retired ones.
 
-Two backends: ``"device"`` (the default) runs the seeders on
-`ExecutionSpec.device` through the hand-written kernels; ``"cpu"`` runs
-the faithful NumPy seeders of `core.seeding` on the host, which build
-their structures and sample in one pass, so only the quantisation is
-cached for them.  The device is explicit: `ExecutionSpec.device` defaults
-to ``"cuda"`` and a plan raises when CUDA is absent, unless the caller
-asked for ``"cpu"`` — then every kernel wrapper runs its plain PyTorch
-version.  Results are `FitResult`s holding tensors on that device (the
-cpu backend's gather and cost run there too).
+Three backends: ``"device"`` (the default) runs the seeders on
+`ExecutionSpec.device` through the hand-written kernels; ``"sharded"``
+runs them over the shards of `ExecutionSpec.mesh` (`core.sharded_seeding`;
+the plan resolves a mesh of the device's type when none is given);
+``"cpu"`` runs the faithful NumPy seeders of `core.seeding` on the host,
+which build their structures and sample in one pass, so only the
+quantisation is cached for them.  The device is explicit:
+`ExecutionSpec.device` defaults to ``"cuda"`` and a plan raises when CUDA
+is absent, unless the caller asked for ``"cpu"`` — then every kernel
+wrapper runs its plain PyTorch version.  Results are `FitResult`s holding
+tensors on that device (the cpu backend's gather and cost run there too).
 """
 
 from __future__ import annotations
@@ -65,6 +67,7 @@ __all__ = [
     "ensure_host_f64",
     "data_fingerprint",
     "resolve_device",
+    "resolve_execution",
 ]
 
 
@@ -137,22 +140,46 @@ class ExecutionSpec:
     `device` is where the artifacts live and the kernels run: ``"cuda"``
     (the default) launches the hand-written kernels, ``"cpu"`` runs their
     plain PyTorch versions.  `tile` is the sweep kernel's tile of points
-    (a multiple of 32, at most 1024).
+    (a multiple of 32, at most 1024).  `mesh`, a
+    `repro_torch.launch.mesh.SeedingMesh`, places the sharded backend's
+    shards; `None` resolves to ``make_seeding_mesh(device=device)`` when
+    a plan is built (`resolve_execution`).
     """
 
     backend: str = "device"
     device: str = "cuda"
     dtype: str = "float32"
     tile: int = 512
+    mesh: Any = None
 
     def __post_init__(self):
-        if self.backend == "sharded":
-            raise ValueError("the sharded backend is not ported yet "
-                             "(ROADMAP Queue 1 item 10); expected one of "
-                             f"{registry.BACKENDS}")
         if self.backend not in registry.BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r}; expected "
                              f"{registry.BACKENDS}")
+
+
+def resolve_execution(execution: ExecutionSpec) -> ExecutionSpec:
+    """The execution a backend sees.  On the sharded backend the mesh is
+    resolved (``make_seeding_mesh(device=execution.device)`` when None)
+    and checked: its shards must be of `execution.device`'s type, and each
+    must exist on this machine.  Other backends keep theirs as given."""
+    if execution.backend != "sharded":
+        return execution
+    mesh = execution.mesh
+    if mesh is None:
+        from repro_torch.launch.mesh import make_seeding_mesh
+
+        mesh = make_seeding_mesh(device=execution.device)
+    want = torch.device(execution.device).type
+    if mesh.device_type != want:
+        raise ValueError(f"a mesh of {mesh.device_type} shards for an "
+                         f"execution on {execution.device!r}")
+    for dev in mesh.devices:
+        resolve_device(dev)
+        if dev.type == "cuda" and dev.index >= torch.cuda.device_count():
+            raise RuntimeError(f"shard device {dev} does not exist: "
+                               f"{torch.cuda.device_count()} card(s) visible")
+    return dataclasses.replace(execution, mesh=mesh)
 
 
 @dataclasses.dataclass
@@ -250,6 +277,8 @@ def _load_backend(backend: str) -> None:
     """Importing a backend module registers its impls (idempotent)."""
     if backend == "device":
         import repro_torch.core.device_seeding  # noqa: F401
+    elif backend == "sharded":
+        import repro_torch.core.sharded_seeding  # noqa: F401
     else:
         import repro_torch.core.seeding  # noqa: F401
 
@@ -274,8 +303,8 @@ class ClusterPlan:
         _load_backend(execution.backend)
         spec = registry.get_seeder_spec(cluster.seeder)
         self.cluster = cluster
-        self.execution = execution
         self.device = resolve_device(execution.device)
+        self.execution = resolve_execution(execution)
         self.caps = spec.caps
         self.impl = spec.impl(execution.backend)
         self._prepared: dict[str, PreparedData] = {}

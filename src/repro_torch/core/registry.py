@@ -6,8 +6,9 @@ whether it takes the LSH approximation factor ``c`` or a `BatchSchedule`;
 each backend attaches its ``run`` seed_fn and, where it has one, a cached
 prepare/solve pair.  Registration happens where the implementations live:
 `core.seeding` registers the faithful CPU algorithms (NumPy, as in the JAX
-package), `core.device_seeding` the seeders on the card.  This module
-depends on neither, so everything can import it without cycles.
+package), `core.device_seeding` the seeders on the card and
+`core.sharded_seeding` the seeders over a mesh of shards.  This module
+depends on none of them, so everything can import it without cycles.
 
 The legacy ``SEEDERS`` dict of `core.seeding` is filled by the same
 registration calls, with the composite ``"<name>/<backend>"`` keys (the
@@ -32,8 +33,7 @@ __all__ = [
     "capability_table",
 ]
 
-# The JAX package's third backend, "sharded", is ROADMAP Queue 1 item 10.
-BACKENDS = ("cpu", "device")
+BACKENDS = ("cpu", "device", "sharded")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,7 +80,9 @@ class BackendImpl:
     ``retire``/``solve`` over a capacity-padded `StreamState` whose leaf
     weights are patched by `TiledSampleTree` scatter updates instead of
     re-fingerprinting.  ``None`` means `ClusterPlan.extend`/`retire` are
-    unavailable on this backend.
+    unavailable on this backend.  Ops with ``native=False`` (the sharded
+    fallback) re-shard on the next solve with a logged reason instead of
+    patching.
     """
 
     run: Callable
@@ -191,8 +193,8 @@ def resolve(name: str, backend: str = "device") -> Callable:
 
 def capability_table() -> str:
     """Markdown capability matrix generated from the live registry, with
-    the JAX package's columns (its sharded backend, whose streaming
-    column reads "sharded (fallback)", is ROADMAP Queue 1 item 10)."""
+    the JAX package's columns; a backend whose streaming ops are not
+    native reads "<backend> (fallback)"."""
     header = ("| seeder | backends | device-native | cached prepare "
               "| stacked | streaming | quantize | accepts `c` "
               "| accepts schedule | degrades to |")
@@ -203,7 +205,8 @@ def capability_table() -> str:
         prep = [b for b in spec.backends if spec.impls[b].preparable]
         stacked = [b for b in spec.backends
                    if spec.impls[b].supports_stacked]
-        streaming = [b for b in spec.backends
+        streaming = [b if spec.impls[b].streaming.native
+                     else f"{b} (fallback)" for b in spec.backends
                      if spec.impls[b].supports_streaming]
         fallback = f"`{spec.fallback}`" if spec.fallback else "—"
         rows.append(

@@ -35,8 +35,8 @@ under real traffic:
   (tests/test_torch_resilience.py) and `chip_smoke.py`'s engine phase are
   driven by it.
 
-See docs/resilience.md for the end-to-end semantics (the JAX package's;
-the port has no ``sharded`` rung until its multi-GPU backend exists).
+See docs/resilience.md for the end-to-end semantics (the JAX package's,
+the ``sharded → device → cpu`` ladder included).
 """
 
 from __future__ import annotations
@@ -457,9 +457,8 @@ class CircuitBreaker:
 # Registry-declared degradation ladder.
 # ---------------------------------------------------------------------------
 
-#: Backend degradation ladder: single device -> faithful CPU.  The JAX
-#: package's ``"sharded"`` rung comes with the port's multi-GPU backend.
-BACKEND_FALLBACKS = {"device": "cpu"}
+#: Backend degradation ladder: mesh -> single device -> faithful CPU.
+BACKEND_FALLBACKS = {"sharded": "device", "device": "cpu"}
 
 
 def _backend_ladder(backend: str) -> list[str]:
@@ -472,7 +471,7 @@ def _backend_ladder(backend: str) -> list[str]:
 def fallback_chain(seeder: str, backend: str) -> list[tuple[str, str]]:
     """Degradation targets for a failing (seeder, backend), in order.
 
-    Walks the backend ladder (``device → cpu``) for the current
+    Walks the backend ladder (``sharded → device → cpu``) for the current
     seeder first, then moves down the registry-declared seeder chain
     (`SeederSpec.fallback`, e.g. ``rejection → kmeans|| → kmeans++``)
     re-trying each seeder's ladder.  Only registered (seeder, backend)

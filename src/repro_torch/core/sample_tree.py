@@ -244,21 +244,30 @@ class TiledSampleTree:
         depend on how many rows it is given.
         """
         dev = w_pad.device
-        blocks = [(j, size) for j, size in enumerate(sizes) if size]
         u_tile, u_leaf = [], []
-        for j, size in blocks:
-            for draws in (u_tile, u_leaf):
-                draws.append(torch.rand(size, generator=generators[j],
-                                        dtype=torch.float32, device=dev))
+        for j, size in enumerate(sizes):
+            if size:
+                for draws in (u_tile, u_leaf):
+                    draws.append(torch.rand(size, generator=generators[j],
+                                            dtype=torch.float32, device=dev))
         u_tile, u_leaf = (d[0] if len(d) == 1 else torch.cat(d)
                           for d in (u_tile, u_leaf))
+        return self.locate(heaps, w_pad, u_tile, u_leaf, sizes, lanes)
+
+    def locate(self, heaps: torch.Tensor, w_pad: torch.Tensor,
+               u_tile: torch.Tensor, u_leaf: torch.Tensor, sizes,
+               lanes: torch.Tensor) -> torch.Tensor:
+        """The point indices that given uniforms pick: `sample_lanes`
+        after its draws, u_tile and u_leaf (S,) in [0, 1) on the weights'
+        device, one pair a draw, the lanes' blocks in lane order."""
         tiles = self.coarse.descend(heaps, u_tile, lanes)
         wt = w_pad.reshape(w_pad.shape[0], self.num_tiles,
                            self.tile)[lanes, tiles]                  # (S, tile)
         csum, start = [], 0
-        for _, size in blocks:
-            csum.append(torch.cumsum(wt[start: start + size], dim=1))
-            start += size
+        for size in sizes:
+            if size:
+                csum.append(torch.cumsum(wt[start: start + size], dim=1))
+                start += size
         csum = csum[0] if len(csum) == 1 else torch.cat(csum)
         # A fresh intra-tile uniform over the tile's exact mass keeps the
         # conditional leaf law exact even where a coarse tile sum rounds

@@ -1,9 +1,10 @@
 """Online / streaming clustering: incremental extend/retire over a
 prepared plan, drift-triggered reseeding, and dynamic k.
 
-The port of the JAX package's `core/streaming.py` on the ``"cpu"`` and
-``"device"`` backends (its sharded fallback waits for the sharded
-backend).  The prepared artifacts become a *mutable stream* while every
+The port of the JAX package's `core/streaming.py`: native streams on the
+``"cpu"`` and ``"device"`` backends, and the ``"sharded"`` backend's
+fallback, which re-shards the live rows on the next solve instead of
+patching.  The prepared artifacts become a *mutable stream* while every
 statistical guarantee holds:
 
   * **Frozen pow2 quantisation.**  `prepare` fixes an exact power-of-two
@@ -101,15 +102,16 @@ class StreamingOps:
     builds the mutable stream; ``extend(state, pts, *, execution)`` and
     ``retire(state, indices, *, execution)`` mutate it in place;
     ``solve(state, k, rng, *, c, schedule, options, execution) ->
-    (indices, extras)`` draws k centers over the live rows.  (The JAX
-    package's sharded fallback, which re-prepares on the next solve
-    instead of patching in place, adds a ``native`` flag with item 10.)
+    (indices, extras)`` draws k centers over the live rows.  ``native``
+    is False for the sharded fallback, which re-shards on the next solve
+    (with a logged reason) instead of patching artifacts in place.
     """
 
     prepare: Callable
     extend: Callable
     retire: Callable
     solve: Callable
+    native: bool = True
 
 
 @dataclasses.dataclass
@@ -121,7 +123,9 @@ class StreamState:
     `live` mask -- global row ids are stable across retire (rows are
     never compacted).  Device truth (device backend only): capacity-padded
     code/key/point tensors on `device` plus the patched `w0` leaf weights
-    and their coarse `base_heap`.  All mutations hold `lock`.
+    and their coarse `base_heap`.  The sharded fallback keeps the
+    `artifacts` and `live_snapshot` of its last re-shard and a `dirty`
+    flag.  All mutations hold `lock`.
     """
 
     seeder: str
@@ -152,6 +156,10 @@ class StreamState:
     w0: Any = None                    # (n_pad,) f32 base leaf weights
     base_heap: Any = None             # patched coarse heap over w0
     mask_dev: Any = None              # (n_rows,) f32 live mask (lazy)
+    # --- sharded fallback ---
+    artifacts: Any = None
+    live_snapshot: Any = None         # live_ids at the last (re-)shard
+    dirty: bool = False
 
     @property
     def dim(self) -> int:
@@ -532,6 +540,89 @@ def _cpu_solve(state: StreamState, k, rng, *, c, schedule, options,
 
 
 # ---------------------------------------------------------------------------
+# Sharded backend: the fallback -- no native patch path; mutations mark the
+# stream dirty and the next solve re-shards the live rows.
+# ---------------------------------------------------------------------------
+
+def _sh_impl(state: StreamState):
+    return registry.SEEDER_SPECS[state.seeder].impl("sharded")
+
+
+def _sh_reshard(state: StreamState, *, execution) -> None:
+    rng = np.random.default_rng((state.reseed_root, state.generation))
+    live_ids = state.live_ids()
+    opts = _scaled_options(state.options, state.scale)
+    state.artifacts = _sh_impl(state).prepare(
+        state.host_scaled[live_ids], rng, resolution=opts.get("resolution"),
+        options=opts, execution=execution)
+    state.live_snapshot = live_ids
+    state.dirty = False
+
+
+def _sh_prepare(pts, rng, *, resolution, options, execution) -> StreamState:
+    """Streaming prepare (sharded): the host stream plus one first split
+    onto the shards."""
+    state = _cpu_prepare(pts, rng, resolution=resolution, options=options,
+                         execution=execution)
+    state.backend = "sharded"
+    _sh_reshard(state, execution=execution)
+    return state
+
+
+def _mark_dirty(state: StreamState, what: str) -> None:
+    with state.lock:
+        if not state.dirty:
+            logger.warning(
+                "sharded backend has no native streaming %s: stream will "
+                "re-shard %d live rows on next solve "
+                "(reason=mesh-placed artifacts)", what, state.live_count)
+        state.dirty = True
+
+
+def _sh_extend(state: StreamState, pts, *, execution) -> None:
+    """Fallback extend: a host append and the dirty flag (the shards'
+    artifacts have no in-place patch path; re-shard on the next solve,
+    logged once)."""
+    pts = np.asarray(pts, dtype=np.float64)
+    if pts.shape[0] == 0:
+        return
+    _cpu_extend(state, pts, execution=execution)
+    _mark_dirty(state, "extend")
+
+
+def _sh_retire(state: StreamState, indices, *, execution) -> None:
+    """Fallback retire: a host mask flip and the dirty flag."""
+    ids = np.asarray(indices, dtype=np.int64).ravel()
+    if ids.size == 0:
+        return
+    _cpu_retire(state, ids, execution=execution)
+    _mark_dirty(state, "retire")
+
+
+def _sh_solve(state: StreamState, k, rng, *, c, schedule, options,
+              execution):
+    """Solve: re-shard if dirty (a generator from the stream's reseed root
+    and generation), then the sharded solve over the snapshot's rows,
+    mapped back to global ids."""
+    if k > state.live_count:
+        raise ValueError(
+            f"k={k} exceeds {state.live_count} live rows in stream")
+    with state.lock:
+        if state.dirty or state.artifacts is None:
+            _sh_reshard(state, execution=execution)
+    live_ids = state.live_snapshot
+    opts = _scaled_options({**state.options, **options}, state.scale)
+    idx, extras = _sh_impl(state).solve(
+        state.artifacts, state.host_scaled[live_ids], k, rng, c=c,
+        schedule=schedule, options=opts, execution=execution)
+    idx = live_ids[idx.cpu().numpy().astype(np.int64)]
+    extras = dict(extras)
+    extras.update(streaming=True, generation=state.generation,
+                  resharded=True)
+    return idx, extras
+
+
+# ---------------------------------------------------------------------------
 # Drift detection, mini-batch refinement, dynamic k.
 # ---------------------------------------------------------------------------
 
@@ -735,6 +826,8 @@ _DEVICE_OPS = StreamingOps(prepare=_dev_prepare, extend=_dev_extend,
                            retire=_dev_retire, solve=_dev_solve)
 _CPU_OPS = StreamingOps(prepare=_cpu_prepare, extend=_cpu_extend,
                         retire=_cpu_retire, solve=_cpu_solve)
+_SHARDED_OPS = StreamingOps(prepare=_sh_prepare, extend=_sh_extend,
+                            retire=_sh_retire, solve=_sh_solve, native=False)
 
 
 def _attach() -> None:
@@ -744,7 +837,8 @@ def _attach() -> None:
         spec = registry.SEEDER_SPECS.get(name)
         if spec is None:
             continue
-        for backend, ops in (("cpu", _CPU_OPS), ("device", _DEVICE_OPS)):
+        for backend, ops in (("cpu", _CPU_OPS), ("device", _DEVICE_OPS),
+                             ("sharded", _SHARDED_OPS)):
             impl = spec.impls.get(backend)
             if impl is not None and impl.streaming is None:
                 spec.impls[backend] = dataclasses.replace(

@@ -2,14 +2,16 @@
 
 A binding hands raw pointers to CUDA code, so every tensor is checked in
 Python first: dtype, rank and shape, contiguity, and — last — that all of
-them lie on one CUDA device.  Checks raise; nothing falls back.
+them lie on one CUDA device.  Checks raise; nothing falls back.  The launch
+itself goes through `launch_on`, which makes the tensors' device current.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["CudaLaunchError", "check_tensor", "check_cuda", "raise_on_error"]
+__all__ = ["CudaLaunchError", "check_tensor", "check_cuda", "raise_on_error",
+           "launch_on"]
 
 
 class CudaLaunchError(RuntimeError):
@@ -64,3 +66,18 @@ def raise_on_error(kernel: str, err: int) -> None:
     cudaError_t."""
     if err != 0:
         raise CudaLaunchError(kernel, err)
+
+
+def launch_on(kernel: str, device: torch.device, fn, *args) -> None:
+    """Call the C launch ``fn(*args, stream)`` with `device` current, on
+    that device's current stream, and raise when it returns a non-zero
+    cudaError_t.
+
+    A launch, and the `cudaFuncSetAttribute` and `cudaGetDevice` calls
+    inside it, act on the thread's current device, not on the device of
+    the pointers they are given: without the guard a tensor on cuda:1
+    would be swept by a kernel launched on cuda:0.
+    """
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    raise_on_error(kernel, err)

@@ -3,7 +3,8 @@
 `launch` and `launch_tiles` take CUDA tensors only: they check device,
 dtype, shape and contiguity, allocate the outputs (and the tiles entry's
 scratch of one float per 32 rows) with `torch.empty`, launch on the
-current stream and raise when the launch returns a CUDA error.  Any n,
+current stream of w's device (made current for the launch) and raise
+when the launch returns a CUDA error.  Any n,
 any d and any alignment of x and w: the kernel guards them, and nothing
 here pads or copies x.  The public wrappers, with dispatch and launch
 counts, are `ops.d2_update` and `ops.d2_update_tiles`.
@@ -16,7 +17,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._check import check_cuda, check_tensor, raise_on_error
+from repro_torch.kernels._check import check_cuda, check_tensor, launch_on
 
 __all__ = ["launch", "launch_tiles", "DTYPES"]
 
@@ -54,10 +55,9 @@ def launch(x, center, w) -> torch.Tensor:
     n, d = _check(x, center, w)
     check_cuda(x, center, w)
     out = torch.empty_like(w)
-    err = _fn(f"d2_update_{DTYPES[x.dtype]}_launch")(
-        x.data_ptr(), center.data_ptr(), w.data_ptr(), out.data_ptr(), n, d,
-        torch.cuda.current_stream(w.device).cuda_stream)
-    raise_on_error("d2_update", err)
+    launch_on("d2_update", w.device,
+              _fn(f"d2_update_{DTYPES[x.dtype]}_launch"), x.data_ptr(),
+              center.data_ptr(), w.data_ptr(), out.data_ptr(), n, d)
     return out
 
 
@@ -73,9 +73,8 @@ def launch_tiles(x, center, w, *, tile: int):
     out = torch.empty(n_pad, dtype=torch.float32, device=w.device)
     sums = torch.empty(n_pad // tile, dtype=torch.float32, device=w.device)
     units = torch.empty(-(-n // 32), dtype=torch.float32, device=w.device)
-    err = _fn(f"d2_update_tiles_{DTYPES[x.dtype]}_launch")(
-        x.data_ptr(), center.data_ptr(), w.data_ptr(), out.data_ptr(),
-        units.data_ptr(), sums.data_ptr(), n, d, tile,
-        torch.cuda.current_stream(w.device).cuda_stream)
-    raise_on_error("d2_update_tiles", err)
+    launch_on("d2_update_tiles", w.device,
+              _fn(f"d2_update_tiles_{DTYPES[x.dtype]}_launch"),
+              x.data_ptr(), center.data_ptr(), w.data_ptr(), out.data_ptr(),
+              units.data_ptr(), sums.data_ptr(), n, d, tile)
     return out, sums

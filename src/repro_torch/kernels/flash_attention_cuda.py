@@ -3,10 +3,11 @@
 `launch` takes CUDA tensors in the model's layout, q (B, S, H, D) and k, v
 (B, S, Hk, D), read through their strides (the head dimension must be
 contiguous, nothing else: any S, any D in 1..256, any alignment), allocates
-the f32 output with `torch.empty`, launches on the current stream and
-raises on a CUDA error.  bf16 runs on the tensor cores, f32 on the SIMT
-kernel; the source chooses 16-byte `cp.async` or element loads from the
-strides and pointers it is given.  The wrappers that count launches are
+the f32 output with `torch.empty`, launches on the current stream of q's
+device (made current for the launch) and raises on a CUDA error.  bf16
+runs on the tensor cores, f32 on the SIMT kernel; the source chooses
+16-byte `cp.async` or element loads from the strides and pointers it is
+given.  The wrappers that count launches are
 `ops.flash_attention` and `ops.attention_bshd`.
 """
 
@@ -17,7 +18,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._check import check_cuda, check_tensor, raise_on_error
+from repro_torch.kernels._check import check_cuda, check_tensor, launch_on
 
 __all__ = ["launch", "MAX_D", "DTYPES"]
 
@@ -72,9 +73,8 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty((b, s, h, d), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3],
                                       *v.stride()[:3])
-    err = _fn(DTYPES[q.dtype])(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h,
-        hk, d, ctypes.cast(strides, _P), float(scale), int(bool(causal)),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    raise_on_error("flash_attention", err)
+    launch_on("flash_attention", q.device, _fn(DTYPES[q.dtype]),
+              q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
+              h, hk, d, ctypes.cast(strides, _P), float(scale),
+              int(bool(causal)))
     return out

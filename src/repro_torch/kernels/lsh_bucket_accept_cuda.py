@@ -6,8 +6,10 @@ slots) and `launch_min` (the query alone) take CUDA tensors of any B and K
 and the number of live center slots, `count` (the dispatch and
 launch-count wrappers are `ops.lsh_bucket_accept`, its `_lanes` form and
 `ops.lsh_bucket_min`), allocate the outputs and the kernel's scratch with
-`torch.empty`, launch on the current stream and raise on a CUDA error.  The kernel guards both edges and reads no slot at
-or past `count`, so nothing is padded and no penalty row is built.
+`torch.empty`, launch on the current stream of q's device (made current
+for the launch) and raise on a CUDA error.  The kernel guards both edges
+and reads no slot at or past `count`, so nothing is padded and no penalty
+row is built.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._check import check_cuda, check_tensor, raise_on_error
+from repro_torch.kernels._check import check_cuda, check_tensor, launch_on
 
 __all__ = ["launch", "launch_lanes", "launch_min"]
 
@@ -72,14 +74,13 @@ def _accept(q_keys_lo, q_keys_hi, q, lanes, c_keys_lo, c_keys_hi, c, mtd2,
     check_cuda(*tensors, *(() if lanes is None else (lanes,)))
     d2_min = torch.empty(b, dtype=torch.float32, device=q.device)
     p = torch.empty_like(d2_min)
-    err = _fn("lsh_bucket_accept_launch")(
+    launch_on(
+        "lsh_bucket_accept", q.device, _fn("lsh_bucket_accept_launch"),
         q_keys_lo.data_ptr(), q_keys_hi.data_ptr(), q.data_ptr(),
         None if lanes is None else lanes.data_ptr(), c_keys_lo.data_ptr(),
         c_keys_hi.data_ptr(), c.data_ptr(), l * k, k * d, mtd2.data_ptr(),
         _scratch(b, count, q.device).data_ptr(), d2_min.data_ptr(),
-        p.data_ptr(), l, b, k, d, count, c2,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    raise_on_error("lsh_bucket_accept", err)
+        p.data_ptr(), l, b, k, d, count, c2)
     return d2_min, p
 
 
@@ -119,10 +120,10 @@ def launch_min(q_keys_lo, q_keys_hi, q, c_keys_lo, c_keys_hi, c, *,
                                c_keys_hi, c, count)
     check_cuda(q_keys_lo, q_keys_hi, q, c_keys_lo, c_keys_hi, c)
     d2_min = torch.empty(b, dtype=torch.float32, device=q.device)
-    err = _fn("lsh_bucket_min_launch")(
+    launch_on(
+        "lsh_bucket_min", q.device, _fn("lsh_bucket_min_launch"),
         q_keys_lo.data_ptr(), q_keys_hi.data_ptr(), q.data_ptr(),
         c_keys_lo.data_ptr(), c_keys_hi.data_ptr(), c.data_ptr(),
         _scratch(b, count, q.device).data_ptr(), d2_min.data_ptr(), l, b, k,
-        d, count, torch.cuda.current_stream(q.device).cuda_stream)
-    raise_on_error("lsh_bucket_min", err)
+        d, count)
     return d2_min

@@ -4,7 +4,8 @@
 padding, dispatch and launch-count wrapper is `ops.pairwise_argmin`),
 allocates the outputs and the kernel's scratch (the center rows padded to
 `PANEL_BYTES` and their |c|^2) with `torch.empty`, launches on the current
-stream and raises on a CUDA error.  Points are read in place: any n, any
+stream of x's device (made current for the launch) and raises on a CUDA
+error.  Points are read in place: any n, any
 row alignment.
 """
 
@@ -15,7 +16,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._check import check_cuda, check_tensor, raise_on_error
+from repro_torch.kernels._check import check_cuda, check_tensor, launch_on
 
 __all__ = ["launch", "BLOCK_K", "MAX_D", "DTYPES"]
 
@@ -72,10 +73,8 @@ def launch(x: torch.Tensor, c: torch.Tensor,
     c_sq = torch.empty(k, dtype=torch.float32, device=x.device)
     d2_min = torch.empty(n, dtype=torch.float32, device=x.device)
     arg = torch.empty(n, dtype=torch.int32, device=x.device)
-    err = _fn(DTYPES[x.dtype])(
-        x.data_ptr(), c.data_ptr(), c_pad.data_ptr(), c_sq.data_ptr(),
-        None if count is None else count.data_ptr(), d2_min.data_ptr(),
-        arg.data_ptr(), n, k, d,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    raise_on_error("pairwise_argmin", err)
+    launch_on("pairwise_argmin", x.device, _fn(DTYPES[x.dtype]),
+              x.data_ptr(), c.data_ptr(), c_pad.data_ptr(), c_sq.data_ptr(),
+              None if count is None else count.data_ptr(), d2_min.data_ptr(),
+              arg.data_ptr(), n, k, d)
     return d2_min, arg

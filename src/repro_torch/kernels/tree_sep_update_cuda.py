@@ -4,10 +4,11 @@
 `launch_lanes` and `launch_tiles_lanes` (B lanes in one launch, each
 opening its own point) take CUDA tensors only: they check device, dtype,
 shape and strides, allocate the outputs with `torch.empty`, launch on the
-current stream and raise when the launch returns a CUDA error.  All four
-run the same two kernels.  The public wrappers, with padding, dispatch and
-launch counts, are `ops.tree_sep_update`, `ops.tree_sep_update_tiles` and
-their `_lanes` forms.
+current stream of w's device (made current for the launch) and raise
+when the launch returns a CUDA error.  All four run the same two kernels.
+The public wrappers, with padding, dispatch and launch counts, are
+`ops.tree_sep_update`, `ops.tree_sep_update_tiles` and their `_lanes`
+forms.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._check import check_cuda, check_tensor, raise_on_error
+from repro_torch.kernels._check import check_cuda, check_tensor, launch_on
 
 __all__ = ["launch", "launch_tiles", "launch_lanes", "launch_tiles_lanes",
            "MAX_ROWS", "MAX_LANES"]
@@ -93,11 +94,9 @@ def _sweep(checked, w, scale, num_levels):
     h, n, b, tensors, ptrs = checked
     check_cuda(*tensors)
     out = torch.empty_like(w)
-    err = _fn("tree_sep_update_launch")(
-        *ptrs, w.data_ptr(), out.data_ptr(), h, n, b, scale,
-        2.0 ** (1.0 - num_levels),
-        torch.cuda.current_stream(w.device).cuda_stream)
-    raise_on_error("tree_sep_update", err)
+    launch_on("tree_sep_update", w.device, _fn("tree_sep_update_launch"),
+              *ptrs, w.data_ptr(), out.data_ptr(), h, n, b, scale,
+              2.0 ** (1.0 - num_levels))
     return out
 
 
@@ -110,11 +109,10 @@ def _sweep_tiles(checked, w, scale, num_levels, tile):
     out = torch.empty_like(w)
     sums = torch.empty(w.shape[:-1] + (n // tile,), dtype=torch.float32,
                        device=w.device)
-    err = _fn("tree_sep_update_tiles_launch")(
-        *ptrs, w.data_ptr(), out.data_ptr(), sums.data_ptr(), h, n, tile, b,
-        scale, 2.0 ** (1.0 - num_levels),
-        torch.cuda.current_stream(w.device).cuda_stream)
-    raise_on_error("tree_sep_update_tiles", err)
+    launch_on("tree_sep_update_tiles", w.device,
+              _fn("tree_sep_update_tiles_launch"), *ptrs, w.data_ptr(),
+              out.data_ptr(), sums.data_ptr(), h, n, tile, b, scale,
+              2.0 ** (1.0 - num_levels))
     return out, sums
 
 

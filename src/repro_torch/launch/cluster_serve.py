@@ -7,7 +7,10 @@ Serve mode binds a `ClusterServer` and blocks until interrupted:
         --tenants "bulk:50:100:1,interactive:200:40:4"
 
 The fits run on the card (``--backend device --device cuda``, the
-defaults) unless the caller asks for the CPU (``--device cpu``).
+defaults) unless the caller asks for the CPU (``--device cpu``);
+``--backend sharded --shards 4`` runs them over a seeding mesh of four
+shards (`repro_torch.launch.mesh.make_seeding_mesh`; without ``--shards``,
+one shard per visible card).
 
 Smoke mode (`--smoke`) runs a self-contained loopback exercise instead:
 it starts the server on an ephemeral port, drives a burst of concurrent
@@ -30,6 +33,7 @@ import time
 import numpy as np
 
 from repro_torch.core import ClusterSpec, ExecutionSpec
+from repro_torch.launch.mesh import make_seeding_mesh
 from repro_torch.serving.net import (
     ClusterClient,
     ClusterServer,
@@ -42,9 +46,12 @@ def _build_server(args) -> ClusterServer:
     admission = None
     if args.tenants:
         admission = TenantScheduler(parse_tenants(args.tenants))
+    mesh = None
+    if args.backend == "sharded":
+        mesh = make_seeding_mesh(args.shards, device=args.device)
     return ClusterServer(
         ClusterSpec(k=args.k, seeder=args.seeder),
-        ExecutionSpec(backend=args.backend, device=args.device),
+        ExecutionSpec(backend=args.backend, device=args.device, mesh=mesh),
         admission=admission, host=args.host, port=args.port,
         max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
         max_pending=args.max_pending, backpressure=args.backpressure)
@@ -124,7 +131,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--k", type=int, default=16)
     ap.add_argument("--seeder", default="fastkmeans++")
     ap.add_argument("--backend", default="device",
-                    help="execution backend (device | cpu)")
+                    choices=("device", "sharded", "cpu"),
+                    help="execution backend")
+    ap.add_argument("--shards", type=int, default=None,
+                    help="the sharded backend's shard count (default: one "
+                         "per visible card; one with --device cpu)")
     ap.add_argument("--device", default="cuda",
                     help="where the artifacts live and the kernels run "
                          "(cuda | cpu: the kernels' plain versions)")

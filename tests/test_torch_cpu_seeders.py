@@ -207,7 +207,7 @@ def test_tree_distance_helpers_match_jax_package():
 @pytest.mark.parametrize("algo", list(seeding.SEEDERS))
 def test_seeder_basic_contract(algo):
     pts = _clustered()
-    kw = {"device": "cpu"} if algo.endswith("/device") else {}
+    kw = {"device": "cpu"} if algo.endswith(("/device", "/sharded")) else {}
     res = seeding.SEEDERS[algo](pts, 30, np.random.default_rng(0), **kw)
     assert res.indices.shape == (30,)
     assert res.centers.shape == (30, pts.shape[1])

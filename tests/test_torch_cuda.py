@@ -1104,3 +1104,164 @@ def test_service_loopback_fits_through_the_server_on_the_card(cuda):
                                       want.centers[i].cpu().numpy())
         assert got.cost == float(want.cost[i])
         assert got.extras["lane_size"] == 4
+
+
+# -- the sharded backend (`-k sharded`) ------------------------------------------
+
+def _sharded_plan(seeder, mesh, k=24, seed=0):
+    return ClusterPlan(ClusterSpec(k=k, seeder=seeder, seed=seed),
+                       ExecutionSpec(backend="sharded", mesh=mesh))
+
+
+def _two_cards():
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs: cross-card shards and launches "
+                    f"on another card; {torch.cuda.device_count()} visible")
+
+
+@pytest.mark.parametrize("seeder", ["rejection", "fastkmeans++"])
+def test_sharded_replays_one_seed_on_the_card(cuda, seeder):
+    """Four shards on cuda:0: one seed replays the same indices, distinct
+    and in range, through the kernels."""
+    from repro_torch.launch.mesh import make_seeding_mesh
+
+    pts = _card_mixture(70, n=20_000)
+    mesh = make_seeding_mesh(4, device="cuda:0")
+    plan = _sharded_plan(seeder, mesh)
+    first = plan.fit(pts)
+    again = plan.refit(seed=0)
+    assert first.extras["devices"] == 4
+    assert torch.equal(first.indices, again.indices)
+    assert torch.equal(first.cost, again.cost)
+    idx = first.indices.cpu().numpy()
+    assert len(np.unique(idx)) == 24 and idx.max() < len(pts)
+
+
+def test_sharded_launch_counts_on_the_card(cuda):
+    """Per opened center D x (T-1) `tree_sep_update` and D
+    `tree_sep_update_tiles` launches, one `lsh_bucket_accept` a round,
+    and D `pairwise_argmin` a k-means|| round."""
+    from repro_torch.launch.mesh import make_seeding_mesh
+
+    pts = _card_mixture(71, n=20_000)
+    d, k = 4, 24
+    mesh = make_seeding_mesh(d, device="cuda:0")
+    plan = _sharded_plan("rejection", mesh, k=k)
+    plan.prepare(pts)
+    t = plan._active.artifacts.codes_lo[0].shape[0]
+    ops.reset_launch_counts()
+    res = plan.refit(seed=3)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["tree_sep_update"] == d * (t - 1) * k
+    assert counts["tree_sep_update_tiles"] == d * k
+    assert counts["lsh_bucket_accept"] == sum(
+        res.extras["rounds_per_batch"].values())
+    km = _sharded_plan("kmeans||", mesh, k=k)
+    km.prepare(pts)
+    ops.reset_launch_counts()
+    km.refit(seed=3)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["pairwise_argmin"] == d * 5
+    assert counts["tree_sep_update"] == counts["lsh_bucket_accept"] == 0
+
+
+@pytest.mark.parametrize("seeder", ["rejection", "fastkmeans++"])
+def test_sharded_one_shard_equals_the_device_backend_on_the_card(cuda,
+                                                                 seeder):
+    from repro_torch.launch.mesh import make_seeding_mesh
+
+    pts = _card_mixture(72, n=20_000)
+    sharded = _sharded_plan(seeder, make_seeding_mesh(1)).fit(pts)
+    device = ClusterPlan(ClusterSpec(k=24, seeder=seeder, seed=0),
+                         ExecutionSpec(backend="device")).fit(pts)
+    assert torch.equal(sharded.indices, device.indices)
+
+
+@pytest.mark.parametrize("d", [1, 2, 4])
+def test_sharded_sampler_law_on_the_card(cuda, d):
+    """The CPU test's shard sampler law on the card: 120,000 draws within
+    0.01 of w / total, no zero weight drawn, a whole empty shard
+    included."""
+    from repro_torch.core import sharded_seeding as shs
+    from repro_torch.core.sample_tree import TiledSampleTree
+    from repro_torch.launch.mesh import make_seeding_mesh
+
+    tile = 32
+    n = d * tile * 4
+    rng = np.random.default_rng(2)
+    w = rng.uniform(0, 2, size=n).astype(np.float32)
+    w[rng.choice(n, n // 5, replace=False)] = 0.0
+    if d > 1:
+        w[(d - 1) * n // d:] = 0.0
+    mesh = make_seeding_mesh(d, device="cuda:0")
+    data = shs.ShardedData(mesh=mesh, tile=tile, n_real=n, n_loc=n // d)
+    ts_loc = TiledSampleTree(n // d, tile=tile)
+    weights = list(torch.from_numpy(w).to(cuda).chunk(d))
+    heaps = [ts_loc.init(x) for x in weights]
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = shs._shard_sampler(data, ts_loc)(heaps, weights, g, 120_000)[0]
+    freq = np.bincount(x.cpu().numpy(), minlength=n) / 120_000
+    assert (freq[w == 0.0] == 0.0).all()
+    np.testing.assert_allclose(freq, w / w.sum(), atol=0.01)
+
+
+def test_sharded_kernels_launch_on_their_tensors_device(cuda):
+    """Each binding launches on its tensors' card, not the current one:
+    every kernel on the last card while cuda:0 is current, against its
+    plain version there."""
+    _two_cards()
+    last = torch.device("cuda", torch.cuda.device_count() - 1)
+    torch.cuda.set_device(0)
+    lo, hi, w = _codes(14, 1024, 5, last)
+    kw = dict(scale=7.5, num_levels=15)
+    assert torch.equal(ops.tree_sep_update(lo, hi, lo[:, 3], hi[:, 3], w,
+                                           **kw),
+                       ref.tree_sep_update_ref(lo, hi, lo[:, 3], hi[:, 3],
+                                               w, **kw))
+    tw, ts = ops.tree_sep_update_tiles(lo, hi, lo[:, 3], hi[:, 3], w,
+                                       block_n=256, **kw)
+    pw, pts_ = ref.tree_sep_update_tiles_ref(lo, hi, lo[:, 3], hi[:, 3], w,
+                                             block_n=256, **kw)
+    assert torch.equal(tw, pw)
+    torch.testing.assert_close(ts, pts_, rtol=1e-6, atol=0)
+    args = _lsh_args(64, 40, 15, 8, False, last)
+    args.append(torch.rand(64, device=last) + 0.5)             # mtd2
+    d2, p = ops.lsh_bucket_accept(*args, 30, c2=1.44)
+    pd2, pp = ref.lsh_bucket_accept_ref(*args, 30, c2=1.44)
+    torch.testing.assert_close(p, pp, rtol=1e-5, atol=1e-5)
+    x = torch.randn(3000, 20, device=last)
+    c = torch.randn(70, 20, device=last)
+    dmin, arg = ops.pairwise_argmin(x, c)
+    pmin, parg = ref.pairwise_argmin_ref(x, c)
+    torch.testing.assert_close(dmin, pmin, rtol=1e-5, atol=1e-4)
+    wd = torch.rand(3000, device=last)
+    torch.testing.assert_close(ops.d2_update(x, c[0], wd),
+                               ref.d2_update_ref(x, c[0], wd))
+    q = torch.randn(2, 64, 4, 32, device=last, dtype=torch.bfloat16)
+    kv = torch.randn(2, 64, 2, 32, device=last, dtype=torch.bfloat16)
+    out = ops.attention_bshd(q, kv, kv, scale=0.2, causal=True)
+    torch.testing.assert_close(out, ref.attention_bshd_ref(
+        q, kv, kv, scale=0.2, causal=True), rtol=1e-3, atol=1e-3)
+    torch.cuda.synchronize(last)
+    assert torch.cuda.current_device() == 0
+
+
+def test_sharded_mesh_of_two_cards(cuda):
+    """Shards on two cards: the fit runs, replays, and opens distinct
+    points; the shards' tensors sit on their cards."""
+    _two_cards()
+    from repro_torch.launch.mesh import make_seeding_mesh
+
+    mesh = make_seeding_mesh(2)
+    assert [d.index for d in mesh.devices] == [0, 1]
+    pts = _card_mixture(73, n=20_000)
+    for seeder in ("rejection", "fastkmeans++", "kmeans||"):
+        plan = _sharded_plan(seeder, mesh)
+        first = plan.fit(pts)
+        assert torch.equal(plan.refit(seed=0).indices, first.indices)
+        assert len(torch.unique(first.indices)) == 24
+        data = plan._active.artifacts
+        arrays = data.points or data.codes_lo
+        assert [a.device.index for a in arrays] == [0, 1]

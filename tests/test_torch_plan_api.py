@@ -3,7 +3,8 @@ package's, on the CPU.
 
   * The legacy `fit` and `ClusterPlan.fit` open the same indices for the
     nine (seeder, backend) pairs of `tests/test_plan.py:PAIRS` that are
-    not sharded, with ``device="cpu"``.
+    not sharded, with ``device="cpu"`` (the sharded three are
+    `tests/test_torch_sharded.py`'s).
   * The cpu backend's `ClusterPlan.fit` equals the JAX package's: indices
     exactly, cost to rtol 1e-5; so does `fit_batch(seeds)`.
   * `fit_batch(seeds)` lane i is bit-identical to `refit(seed=seeds[i])`
@@ -14,9 +15,8 @@ package's, on the CPU.
     False) and `prepare_stacked` raises.  The stacked lanes themselves are
     `tests/test_torch_stacked.py`'s.
   * `replace`, `forget`, `block_until_ready` (on tensors and on the NumPy
-    arrays of `to_numpy`), the capability table cell by cell (the sharded
-    backend aside), `no_retrace`, and every name of `repro.core.__all__`
-    exported by the port.
+    arrays of `to_numpy`), the capability table cell by cell, `no_retrace`,
+    and every name of `repro.core.__all__` exported by the port.
 """
 
 import dataclasses
@@ -46,6 +46,7 @@ from repro_torch.core import (
 )
 from repro_torch.core import seeding
 from repro_torch.core.tracing import count_trace
+from repro_torch.launch.mesh import make_seeding_mesh
 
 CPU_SEEDERS = ["kmeans++", "fastkmeans++", "rejection", "kmeans||", "afkmc2",
                "uniform"]
@@ -273,8 +274,9 @@ def test_plan_rejects_bad_pairs():
         _plan("device", k=3, seeder="kmeans++")
     with pytest.raises(KeyError):
         _plan(k=3, seeder="nope")
-    with pytest.raises(ValueError, match="item 10"):
-        ExecutionSpec(backend="sharded")
+    sharded = ClusterPlan(ClusterSpec(k=3), ExecutionSpec(backend="sharded",
+                                                          device="cpu"))
+    assert sharded.execution.mesh == make_seeding_mesh(device="cpu")
     with pytest.raises(ValueError):
         ExecutionSpec(backend="gpu-cluster")
     with pytest.raises(ValueError):
@@ -286,15 +288,11 @@ def test_plan_rejects_bad_pairs():
 # -- registry -----------------------------------------------------------------
 
 def _table_cells(table: str) -> dict:
-    """{seeder: [cell, ...]} of a capability table, the sharded backend
-    (and its streaming fallback) left out."""
+    """{seeder: [cell, ...]} of a capability table."""
     out = {}
     for line in table.replace("kmeans||", "kmeans-par").splitlines()[2:]:
         cells = [c.strip() for c in line.strip("|").split("|")]
-        kept = [", ".join(b for b in c.split(", ")
-                          if not b.startswith("sharded")) or "—"
-                for c in cells]
-        out[cells[0]] = kept
+        out[cells[0]] = cells
     return out
 
 
@@ -303,9 +301,10 @@ def test_capability_table_matches_jax_package_cell_by_cell():
     assert table.splitlines()[:2] == jcore.capability_table().splitlines()[:2]
     assert _table_cells(table) == _table_cells(jcore.capability_table())
     streaming = {name: cells[5] for name, cells in _table_cells(table).items()}
-    assert streaming == {"`afkmc2`": "—", "`fastkmeans++`": "cpu, device",
+    fallback = "cpu, device, sharded (fallback)"
+    assert streaming == {"`afkmc2`": "—", "`fastkmeans++`": fallback,
                          "`kmeans++`": "—", "`kmeans-par`": "—",
-                         "`rejection`": "cpu, device", "`uniform`": "—"}
+                         "`rejection`": fallback, "`uniform`": "—"}
 
 
 def test_every_registered_seeder_has_cpu_impl_and_doc():
@@ -313,11 +312,12 @@ def test_every_registered_seeder_has_cpu_impl_and_doc():
         assert "cpu" in spec.impls, name
         assert spec.doc, name
         assert not spec.impls["cpu"].preparable
-    assert core.BACKENDS == ("cpu", "device")
+    assert core.BACKENDS == ("cpu", "device", "sharded") == jcore.BACKENDS
     for name in DEVICE_SEEDERS:
-        impl = core.SEEDER_SPECS[name].impl("device")
-        assert impl.preparable
-        assert seeding.SEEDERS[f"{name}/device"] is impl.run
+        for backend in ("device", "sharded"):
+            impl = core.SEEDER_SPECS[name].impl(backend)
+            assert impl.preparable
+            assert seeding.SEEDERS[f"{name}/{backend}"] is impl.run
 
 
 # -- tracing --------------------------------------------------------------------

@@ -7,8 +7,8 @@ port, on the CPU.
     sequence; `RetryPolicy.delay`, `attempt_seed`, the circuit breaker's
     state machine on a fake clock, `validate_points` and the wire codes
     equal the JAX package's; `fallback_chain` equals the JAX package's for
-    every registered (seeder, backend) pair of the port (it has no
-    ``sharded`` rung);
+    every registered (seeder, backend) pair, the ``sharded`` rung
+    included;
   * `classify_failure` gives the JAX package's answer on every case of the
     JAX suite that is not an XLA error, plus the port's own: a CUDA
     out-of-memory and ``cudaError_t 2`` transient, 700 and 719 permanent;
@@ -250,19 +250,17 @@ def test_wire_codes_match_jax_package():
 def test_fallback_chain_matches_jax_package_on_every_registered_pair():
     pairs = [(s, b) for s, spec in SEEDER_SPECS.items() for b in BACKENDS
              if b in spec.impls]
-    assert len(pairs) == 9
+    assert len(pairs) == 12
     for seeder, backend in pairs:
         chain = fallback_chain(seeder, backend)
-        jchain = jcore.fallback_chain(seeder, backend)
-        assert chain == [p for p in jchain if p[1] != "sharded"]
+        assert chain == jcore.fallback_chain(seeder, backend)
         assert all(p[1] in BACKENDS for p in chain)
     assert fallback_chain("rejection", "device") == [
         ("rejection", "cpu"), ("kmeans||", "device"), ("kmeans||", "cpu"),
         ("kmeans++", "cpu")]
     assert fallback_chain("kmeans++", "cpu") == []
-    for bad in ("sharded", "gpu-cluster"):
-        with pytest.raises(KeyError, match="backend"):
-            fallback_chain("rejection", bad)
+    with pytest.raises(KeyError, match="backend"):
+        fallback_chain("rejection", "gpu-cluster")
 
 
 class XlaRuntimeError(Exception):      # shaped like jaxlib's
