@@ -5,7 +5,8 @@
 
 Drives the port's three paths (and, in phases 8d to 8g, the plan's
 streaming entry points, the clustering engine, the RPC server and the
-sharded backend on the first).  Two go through the plan, each at the shape
+sharded backend on the first; in phases 14b to 14e the LM variants:
+decode over KV codebooks built by fastkmeans++, MLA and MoE).  Two go through the plan, each at the shape
 of the paper's smallest real dataset (KDD Cup, 311,029 x 74, generated
 here from a seed as `benchmarks/datasets.py` does) with k = 1000: the
 paper's Algorithm 4,
@@ -170,6 +171,45 @@ against its plain PyTorch version on the card.  In order:
      and the two drift apart over the depth);
  14. reduced yi-9b in f32 on the card against the port on the CPU with
      the same weights: prefill logits to 1e-3 and the same greedy tokens;
+ 14b. the clustered KV cache on yi-9b (phase 12's weights, `cluster_kv`
+     with C = 64, topc = 16): `prefill` of one 2,048-token prompt, then
+     `build_clustered_cache` for each of the 48 layers from its K/V (192
+     fastkmeans++/device fits of k = 64 on 2,048 points of d = 128, 2
+     Lloyd steps; exactly 128 `tree_sep_update` and 64
+     `tree_sep_update_tiles` launches a fit), timed, with the dropped
+     share; rows 1 and 2 at the codebook fit's shape, for the first and
+     the last (layer, head): the fit again through its plan, its centroids
+     equal to the build's, and its 64 opened centers replayed through the
+     kernels and through the plain sweeps (the same weights bit for bit
+     after every center, tile sums to 1e-5), and the solo call forms at
+     the last weights; 32 `decode_step`s over the stacked codebooks timed
+     beside the plain decode at the same context, with the KV bytes each
+     reads a step; then, layer by layer with f32 activations over the bf16
+     weights, `attn_decode_clustered` at topc = C = 8 with a capacity of
+     S (nothing drops) against `attn_decode` on the same input, to 1e-3
+     of the layer's largest output;
+ 14c. deepseek-v2-lite-16b at full width (27 layers, MLA with kv_lora 512,
+     64 routed experts top-6 and 2 shared, the first layer dense;
+     15,647,895,040 random bf16 parameters from seed 0): `prefill` on 4 x
+     2,048 tokens (exactly 27 `flash_attention` launches, q and k of head
+     dim 192 and v of 128), timed, with peak memory; `Engine.generate`
+     (replay prefill) on 4 x 64-token prompts, 16 new, twice with the same
+     tokens; the MLA layer check (each layer's prefill attention, one
+     launch, against the absorbed decode on the same input, to 1e-3); and
+     the kernel at MLA's shape against its plain version, timed beside
+     `scaled_dot_product_attention`, with its bound;
+ 14d. qwen2-moe-a2.7b at full width (24 layers, 60 routed experts padded
+     to 64, top-4, 4 shared; 15,146,403,840 parameters): `Engine.generate`
+     on 4 x 2,048 tokens, 32 new, greedy, twice with the same tokens
+     (exactly 24 `flash_attention` launches), its steps timed apart, peak
+     memory, no token routed to experts 60 to 63, and the kernel at the
+     prefill's shape (4 x 2,048, 16 heads of 128, g = 1, bf16, causal)
+     against its plain version;
+ 14e. reduced deepseek-v2-lite-16b and qwen2-moe-a2.7b in f32 on the card
+     against the port on the CPU: the same greedy tokens, and prefill
+     logits to 1e-3 on 2 x 16-token prompts (at 4 x 64 reduced
+     qwen2-moe's logits move by about 6e-3 under 1e-7 relative weight
+     noise on the CPU alone, PERF.md section 4);
  15. one JSON line per the eight kernels, the card's line again, and last
      ``{"ok": true, "device": {...}}``.  A row's `launches` is its main
      path's count, each path's counts set to 0 just before it and read
@@ -177,8 +217,12 @@ against its plain PyTorch version on the card.  In order:
      fit for row 5, phase 12's `generate` for row 8.  `launches_by_path`
      gives every path's own count: ``main`` and ``kmeans||`` (phase 8),
      ``streaming`` (8d), ``engine`` (8e), ``service`` (8f), ``sharded``
-     (8g: its rejection fit for rows 1 to 3, its k-means|| fit for row 5)
-     and ``generate`` (12).
+     (8g: its rejection fit for rows 1 to 3, its k-means|| fit for row 5),
+     ``generate`` (12), ``cluster_kv`` (14b's build), ``mla`` (14c's
+     prefill) and ``moe`` (14d's generate).  Row 8 also carries its
+     numbers at MLA's shape (``at_mla_shape``) and its error at
+     qwen2-moe's (``at_moe_shape``); its ``max_abs_err`` is the largest
+     of all its checks.
 
 Any failure raises and exits non-zero before the last line is printed.
 Without CUDA, or without the rest of the repository beside it, the script
@@ -250,6 +294,18 @@ ATTN_TOL = 1e-4
 LAYER_TOL = 1e-3
 # f32 on the card against f32 on the CPU, 4 layers (tests/test_torch_models)
 SMALL_TOL = 1e-3
+CKV_PROMPT, CKV_CLUSTERS, CKV_TOPC, CKV_STEPS = 2048, 64, 16, 32   # 14b
+CKV_EXACT_CLUSTERS = 8                  # 14b's exactness check: topc = C
+MOE_ARCHS = ("deepseek-v2-lite-16b", "qwen2-moe-a2.7b")
+MOE_BATCH, MOE_PROMPT = 4, 2048         # 14c's prefill, 14d's generate
+MOE_SHORT, MOE_SHORT_NEW = 64, 16       # 14c's generate (replay prefill)
+# 14e's logits gate: the shape of tests/test_torch_models.py, where 1e-7
+# weight noise moves the reduced MoE models' logits by about 1e-4 on the
+# CPU; at 4 x 64 it moves reduced qwen2-moe's by about 6e-3 (attention
+# near one-hot in the random model), past any 1e-3 comparison
+MOE_GATE_SHAPE = (2, 16)
+DEEPSEEK_PARAMS = 15_647_895_040
+QWEN_MOE_PARAMS = 15_146_403_840
 
 
 def log(*parts) -> None:
@@ -2417,6 +2473,45 @@ def attention_prefill_vs_replay(torch, params, cfg, short) -> float:
     return worst
 
 
+def timed_steps(torch, params, cfg, toks, serve, tokens) -> tuple:
+    """`Engine.generate`'s steps again, timed apart: the prefill, the first
+    token, then the decode steps (greedy, so `tokens` again, or raise).
+    Returns (prefill s, time to first token s, decode s)."""
+    from repro_torch.models import decode_step
+    from repro_torch.serving.prefill import prefill
+
+    b, s = toks.shape
+    new = tokens.shape[1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, cfg, {"tokens": toks},
+                            max_seq=serve.max_seq)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    cur = torch.argmax(logits, dim=-1)
+    cur.cpu()
+    ttft_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    steps = [cur]
+    for _ in range(new - 1):
+        logits, cache = decode_step(params, cfg, cur, cache)
+        cur = torch.argmax(logits, dim=-1)
+        steps.append(cur)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t1
+    split = torch.stack(steps, dim=1).cpu().numpy()
+    if not np.array_equal(split, tokens):
+        raise AssertionError("the timed steps gave other tokens than "
+                             "generate")
+    log(f"  prefill {prefill_s:.4f} s ({b * s / prefill_s:.1f} prompt "
+        f"tokens/s); time to first token {ttft_s:.4f} s; decode "
+        f"{new - 1} steps in {decode_s:.4f} s, "
+        f"{b * (new - 1) / decode_s:.2f} tokens/s "
+        f"({decode_s / (new - 1) * 1e3:.3f} ms per step of {b} tokens); "
+        f"the same tokens as generate")
+    return prefill_s, ttft_s, decode_s
+
+
 def serving_path(torch, t_start: float) -> dict:
     """Phases 10 to 14: the `flash_attention` kernel against its plain
     version and timed at the serving path's shape, then yi-9b at full
@@ -2427,11 +2522,10 @@ def serving_path(torch, t_start: float) -> dict:
 
     import torch.nn.functional as F
 
-    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention_cuda as fa_cuda
     from repro_torch.kernels import ops, ref
-    from repro_torch.models import (decode_step, init_params, param_specs,
-                                    params_from_numpy)
+    from repro_torch.models import decode_step, init_params, param_specs
     from repro_torch.serving.engine import Engine, ServeConfig
     from repro_torch.serving.prefill import prefill
 
@@ -2530,12 +2624,8 @@ def serving_path(torch, t_start: float) -> dict:
     tokens = eng.generate(prompts)
     gen_s = time.perf_counter() - t0
     counts = ops.launch_counts()
-    if counts["flash_attention"] != cfg.num_layers or \
-            sum(counts.values()) != cfg.num_layers:
-        raise AssertionError(f"generate: launches {counts}, expected "
-                             f"{cfg.num_layers} flash_attention and no other")
+    expect_launches("generate", counts, {"flash_attention": cfg.num_layers})
     row["launches"] = counts["flash_attention"]
-    row["launches_by_path"] = {"generate": counts["flash_attention"]}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     if tokens.shape != (b, new) or tokens.min() < 0 or \
             tokens.max() >= cfg.vocab_size:
@@ -2551,34 +2641,7 @@ def serving_path(torch, t_start: float) -> dict:
     # The engine's own steps again, timed apart: prefill, the first token,
     # then the decode steps; greedy, so the same tokens as generate.
     toks = torch.as_tensor(prompts, dtype=torch.int64, device=dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    logits, cache = prefill(params, cfg, {"tokens": toks},
-                            max_seq=serve.max_seq)
-    torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
-    cur = torch.argmax(logits, dim=-1)
-    out = [cur.cpu()]
-    ttft_s = time.perf_counter() - t0
-    t1 = time.perf_counter()
-    steps = [cur]
-    for _ in range(new - 1):
-        logits, cache = decode_step(params, cfg, cur, cache)
-        cur = torch.argmax(logits, dim=-1)
-        steps.append(cur)
-    torch.cuda.synchronize()
-    decode_s = time.perf_counter() - t1
-    split = torch.stack(steps, dim=1).cpu().numpy()
-    if not np.array_equal(split, tokens):
-        raise AssertionError("the timed steps gave other tokens than "
-                             "generate")
-    log(f"  prefill {prefill_s:.4f} s ({b * s / prefill_s:.1f} prompt "
-        f"tokens/s); time to first token {ttft_s:.4f} s; decode "
-        f"{new - 1} steps in {decode_s:.4f} s, "
-        f"{b * (new - 1) / decode_s:.2f} tokens/s "
-        f"({decode_s / (new - 1) * 1e3:.3f} ms per step of {b} tokens); "
-        f"the same tokens as generate")
-    del logits, cache, out, steps
+    timed_steps(torch, params, cfg, toks, serve, tokens)
 
     # Where the time goes: the prefill and TRACE_STEPS decode steps again,
     # each traced with torch.profiler.
@@ -2619,35 +2682,600 @@ def serving_path(torch, t_start: float) -> dict:
     short = toks[:, :REPLAY_PROMPT]
     attention_prefill_vs_replay(torch, params, cfg, short)
     prefill_vs_replay(torch, params, cfg, short)
-    del params, eng, toks, short
-    gc.collect()
-    torch.cuda.empty_cache()
+    del eng, toks, short
 
     # -- 14. reduced yi-9b on the card against the port on the CPU ----------
-    small = reduce_for_smoke(cfg)
+    reduced_on_card(torch, cfg.name, b)
+    # -- 14b. the clustered KV cache over phase 12's weights -----------------
+    paths = {"generate": counts,
+             "cluster_kv": cluster_kv_phase(torch, t_start, params, cfg)}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # -- 14c to 14e. MLA and MoE at full width, then reduced ----------------
+    paths["mla"], row["at_mla_shape"] = deepseek_phase(torch, t_start)
+    paths["moe"], moe_err = qwen_moe_phase(torch, t_start)
+    row["at_moe_shape"] = {"max_abs_err": moe_err}
+    row["max_abs_err"] = max(row["max_abs_err"], moe_err,
+                             row["at_mla_shape"]["max_abs_err"])
+    for arch in MOE_ARCHS:
+        reduced_on_card(torch, arch, b, gate_shape=MOE_GATE_SHAPE)
+    log("clocks/power after the serving path: " + smi(
+        "clocks.sm,power.draw,power.limit,temperature.gpu"))
+    return row, paths
+
+
+def reduced_on_card(torch, arch: str, b: int, gate_shape=None) -> None:
+    """Phases 14 and 14e: the reduced config of `arch` in f32 on the card
+    against the port on the CPU with the same weights: the same `generate`
+    tokens (b prompts of 64, 16 new), and prefill logits to `SMALL_TOL` on
+    prompts of `gate_shape` (default: the generate's prompts)."""
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.models import init_params, param_specs, params_from_numpy
+    from repro_torch.serving.engine import Engine, ServeConfig
+    from repro_torch.serving.prefill import prefill
+
+    dev = torch.device("cuda")
+    small = reduce_for_smoke(get_config(arch))
     p_cpu = init_params(param_specs(small),
-                        torch.Generator().manual_seed(SEED), f32, "cpu")
+                        torch.Generator().manual_seed(SEED), torch.float32,
+                        "cpu")
     p_card = params_from_numpy(p_cpu, dev)
-    toks = np.random.default_rng(SEED).integers(1, small.vocab_size, (b, 64))
-    cpu_last, _ = prefill(p_cpu, small, {"tokens": torch.from_numpy(toks)},
-                          max_seq=88)
-    card_last, _ = prefill(p_card, small, {"tokens": torch.from_numpy(
-        toks).to(dev)}, max_seq=88)
-    small_err = float((card_last.cpu() - cpu_last).abs().max())
+
+    def last_logits(params, toks):
+        return prefill(params, small, {"tokens": torch.from_numpy(toks).to(
+            params["embed"]["tokens"].device)}, max_seq=88)[0].cpu()
+
+    def compare(shape):
+        toks = np.random.default_rng(SEED).integers(1, small.vocab_size,
+                                                    shape)
+        err = float((last_logits(p_card, toks) - last_logits(p_cpu, toks))
+                    .abs().max())
+        return toks, err
+
+    toks, err = compare((b, 64))
+    gate = err if gate_shape is None else compare(gate_shape)[1]
     sv = ServeConfig(max_new_tokens=16, max_seq=88)
     on_card = Engine(p_card, small, sv).generate(toks)
     on_cpu = Engine(p_cpu, small, sv, device="cpu").generate(toks)
-    if small_err > SMALL_TOL or not np.array_equal(on_card, on_cpu):
-        raise AssertionError(f"reduced {cfg.name}, card against CPU: logits "
-                             f"{small_err}, tokens equal "
+    if gate > SMALL_TOL or not np.array_equal(on_card, on_cpu):
+        raise AssertionError(f"reduced {arch}, card against CPU: logits "
+                             f"{gate}, tokens equal "
                              f"{np.array_equal(on_card, on_cpu)}")
-    log(f"  reduced {cfg.name} (f32, {small.num_layers} layers, d_model "
-        f"{small.d_model}) on the card against the port on the CPU: prefill "
-        f"logits max abs diff {small_err:.3g} (tol {SMALL_TOL}), the same "
-        f"{b} x 16 greedy tokens")
-    log("clocks/power after the serving path: " + smi(
-        "clocks.sm,power.draw,power.limit,temperature.gpu"))
-    return row
+    shape = "the same prompts" if gate_shape is None else \
+        f"{gate_shape[0]} x {gate_shape[1]} tokens"
+    log(f"  reduced {arch} (f32, {small.num_layers} layers, d_model "
+        f"{small.d_model}) on the card against the port on the CPU: the same "
+        f"{b} x 16 greedy tokens from {b} x 64-token prompts (prefill logits "
+        f"max abs diff {err:.3g}, information); on {shape}: logits max abs "
+        f"diff {gate:.3g} (tol {SMALL_TOL})")
+
+
+def expect_launches(label: str, counts: dict, want: dict) -> None:
+    """Raise unless `counts` has exactly `want`'s launches and no other."""
+    got = {name: n for name, n in counts.items() if n}
+    if got != {name: n for name, n in want.items() if n}:
+        raise AssertionError(f"{label}: launches {got}, expected {want}")
+
+
+def codebook_sweeps(torch, label, pts, spec, built) -> float:
+    """Rows 1 and 2 at one codebook fit's shape: the (layer, head) fit of
+    `spec` on `pts` (n, d) float64 again through its plan, its centroids
+    equal to `built` (the build's), then its opened centers replayed
+    through the kernels (one lane, as the fit launches them) and through
+    the plain sweeps: the same weights bit for bit after every center,
+    tile sums to `RTOL`; and the solo call forms at the last weights
+    against the plain versions.  Returns the largest abs error."""
+    from repro_torch.core import device_seeding as ds
+    from repro_torch.core.plan import ClusterPlan, ExecutionSpec
+    from repro_torch.kernels import ops, ref
+
+    plan = ClusterPlan(spec, ExecutionSpec())
+    prep = plan.prepare_data(pts)
+    res = plan.fit_prepared(prep)
+    centers = torch.from_numpy(res.centers.cpu().numpy().astype(np.float64))
+    if not torch.equal(centers.to(device=built.device, dtype=built.dtype),
+                       built):
+        raise AssertionError(f"{label}: the fit again gave other centroids "
+                             "than the build")
+    lo_raw, hi_raw, meta = prep.artifacts
+    tile = plan.execution.tile
+    kw = dict(scale=meta["scale"], num_levels=meta["num_levels"])
+    ts, open_k, w_k, _ = ds._initial_state(lo_raw, hi_raw, m_init=meta[
+        "m_init"], tile=tile, **kw)
+    lo = ds._pad_axis(lo_raw, 2, ts.n_pad)
+    hi = ds._pad_axis(hi_raw, 2, ts.n_pad)
+    t = lo.shape[0]
+    w_p, worst_rel = w_k.clone(), 0.0
+    for step, x in enumerate(res.indices.tolist()):
+        w_k, s_k = open_k(w_k, x)
+        for ti in range(t - 1):
+            w_p = ref.tree_sep_update_ref(lo[ti], hi[ti], lo[ti, :, x],
+                                          hi[ti, :, x], w_p, **kw)
+        w_p, s_p = ref.tree_sep_update_tiles_ref(
+            lo[t - 1], hi[t - 1], lo[t - 1, :, x], hi[t - 1, :, x], w_p,
+            block_n=tile, **kw)
+        rel = float(((s_k - s_p).abs()
+                     / s_p.abs().clamp_min(1e-30)).max())
+        worst_rel = max(worst_rel, rel)
+        if not torch.equal(w_k, w_p) or rel > RTOL:
+            raise AssertionError(f"{label}: center {step} (point {x}): "
+                                 f"weights equal {torch.equal(w_k, w_p)}, "
+                                 f"tile sums rel {rel}")
+    x = int(res.indices[len(res.indices) // 2])
+    errs = []
+    for ti in range(t - 1):
+        out = ops.tree_sep_update(lo[ti], hi[ti], lo[ti, :, x], hi[ti, :, x],
+                                  w_p, **kw)
+        plain = ref.tree_sep_update_ref(lo[ti], hi[ti], lo[ti, :, x],
+                                        hi[ti, :, x], w_p, **kw)
+        errs.append(float((out - plain).abs().max()))
+        if not torch.equal(out, plain):
+            raise AssertionError(f"{label}: tree_sep_update, tree {ti}: "
+                                 f"max abs {errs[-1]}")
+    out, sums = ops.tree_sep_update_tiles(
+        lo[t - 1], hi[t - 1], lo[t - 1, :, x], hi[t - 1, :, x], w_p,
+        block_n=tile, **kw)
+    plain, psums = ref.tree_sep_update_tiles_ref(
+        lo[t - 1], hi[t - 1], lo[t - 1, :, x], hi[t - 1, :, x], w_p,
+        block_n=tile, **kw)
+    rel = float(((sums - psums).abs() / psums.abs().clamp_min(1e-30)).max())
+    errs += [float((out - plain).abs().max()),
+             float((sums - psums).abs().max())]
+    if not torch.equal(out, plain) or rel > RTOL:
+        raise AssertionError(f"{label}: tree_sep_update_tiles: w' equal "
+                             f"{torch.equal(out, plain)}, tile sums rel {rel}")
+    log(f"  {label}: the fit again, the build's centroids; its "
+        f"{len(res.indices)} centers replayed through the kernels ({t - 1} "
+        f"tree_sep_update and 1 tree_sep_update_tiles launch a center, "
+        f"n_pad {ts.n_pad}, H-1 {lo.shape[1]}) and the plain sweeps: weights "
+        f"bit-identical after every center, tile sums max rel err "
+        f"{worst_rel:.3g} (rtol {RTOL}); the solo call forms at the last "
+        f"weights: w' bit-identical, tile sums rel {rel:.3g}")
+    return max(errs)
+
+
+def cluster_kv_phase(torch, t_start, params, cfg) -> dict:
+    """Phase 14b: yi-9b (phase 12's weights) with `cluster_kv`: a prompt
+    of `CKV_PROMPT` tokens through `prefill`, each layer's clustered cache
+    built from its K/V on the card (one fastkmeans++/device fit a KV head:
+    2C and C sweep launches), `CKV_STEPS` decode steps over the stacked
+    caches timed beside the plain decode at the same context, then the
+    exactness check layer by layer.  Returns the build's launch counts."""
+    import dataclasses
+
+    from repro_torch.core.plan import ClusterSpec
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention, decode_step
+    from repro_torch.models import cluster_attn as CA
+    from repro_torch.models.layers import apply_mlp, apply_norm
+    from repro_torch.models.model import layer_slice
+    from repro_torch.serving.prefill import prefill
+
+    dev = torch.device("cuda")
+    n, c, topc, steps = CKV_PROMPT, CKV_CLUSTERS, CKV_TOPC, CKV_STEPS
+    hk, hd, depth = cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
+    ccfg = dataclasses.replace(cfg, cluster_kv=True, cluster_kv_clusters=c,
+                               cluster_kv_topc=topc)
+    kv_cfg = CA.ClusterKVConfig(num_clusters=c, topc=topc)
+    log(f"[{time.perf_counter() - t_start:.1f} s] clustered KV on "
+        f"{cfg.name}: 1 prompt of {n} tokens, C = {c}, topc = {topc}")
+    prompt = torch.as_tensor(np.random.default_rng(SEED + 1).integers(
+        1, cfg.vocab_size, (1, n)), device=dev)
+    logits, cache = prefill(params, cfg, {"tokens": prompt}, max_seq=n)
+    k_all, v_all = cache["groups"]["pos00"]["k"], cache["groups"]["pos00"]["v"]
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    layers, dropped = [], []
+    for layer in range(depth):
+        info = {}
+        layers.append(CA.build_clustered_cache(
+            k_all[layer], v_all[layer], kv_cfg, seed=SEED + layer,
+            info=info))
+        dropped.append(info["dropped_frac"])
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    fits = depth * hk
+    expect_launches("the clustered build", counts, {
+        "tree_sep_update": 2 * c * fits, "tree_sep_update_tiles": c * fits})
+    cap = layers[0]["k_slots"].shape[3]
+    log(f"  build: {fits} fastkmeans++/device fits of k = {c} on {n} points "
+        f"of d = {hd} (+ {kv_cfg.lloyd_iters} Lloyd steps, float64 assign) "
+        f"in {build_s:.3f} s ({build_s / fits * 1e3:.2f} ms a fit; budget "
+        f"60 s{'' if build_s <= 60 else ', OVER'}); launches "
+        f"{ {k: v for k, v in counts.items() if v} } ({2 * c} and {c} a "
+        f"fit); capacity {cap} slots a cluster; dropped share mean "
+        f"{sum(dropped) / depth:.4f}, max {max(dropped):.4f}")
+    # Rows 1 and 2 at this path's shape, on the first and the last fit.
+    for layer, h in ((0, 0), (depth - 1, hk - 1)):
+        spec = ClusterSpec(k=c, seeder=kv_cfg.seeder,
+                           lloyd_iters=kv_cfg.lloyd_iters,
+                           seed=SEED + layer + h)
+        codebook_sweeps(torch, f"layer {layer}, KV head {h}",
+                        k_all[layer][0, :, h, :].double().cpu().numpy(), spec,
+                        layers[layer]["centroids"][0, h])
+    stacked = {"index": torch.tensor(n, device=dev), "groups": {"pos00": {
+        leaf: torch.stack([lc[leaf] for lc in layers])
+        for leaf in layers[0]}}}
+    del layers, cache, k_all, v_all
+
+    def decode_run(run_cfg, run_cache, first):
+        cur, out = first, []
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(steps):
+            lg, run_cache = decode_step(params, run_cfg, cur, run_cache)
+            cur = torch.argmax(lg, dim=-1)
+            out.append(cur)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t1
+        if not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"decode ({run_cfg.cluster_kv}): logits "
+                                 "not finite")
+        return secs, torch.stack(out, dim=1).cpu().numpy(), run_cache
+
+    first = torch.argmax(logits, dim=-1)
+    ops.reset_launch_counts()
+    ckv_s, ckv_tokens, stacked = decode_run(ccfg, stacked, first)
+    expect_launches("clustered decode", ops.launch_counts(), {})
+    ring = stacked["groups"]["pos00"]["recent_len"]
+    if not bool((ring == steps).all()) or ckv_tokens.max() >= cfg.vocab_size:
+        raise AssertionError(f"clustered decode: ring {ring.tolist()}")
+    del stacked
+    _, plain_cache = prefill(params, cfg, {"tokens": prompt},
+                             max_seq=n + steps)
+    plain_s, plain_tokens, _ = decode_run(cfg, plain_cache, first)
+    del plain_cache
+    # KV bytes a step reads in bf16: the plain decode reads the whole
+    # cache of max_seq rows; the clustered one the centroids, the topc
+    # clusters' slots (K, V and the valid byte) and the ring.
+    plain_bytes = depth * 2 * (n + steps) * hk * hd * 2
+    ckv_bytes = depth * hk * (c * hd * 2 + topc * cap * (2 * hd * 2 + 1)
+                              + 2 * kv_cfg.recent_window * hd * 2)
+    same = float((ckv_tokens == plain_tokens).mean())
+    log(f"  decode {steps} steps of 1 token at context {n}: clustered "
+        f"{ckv_s:.4f} s ({ckv_s / steps * 1e3:.3f} ms a step, {ckv_bytes} "
+        f"KV bytes a step), plain {plain_s:.4f} s "
+        f"({plain_s / steps * 1e3:.3f} ms a step, {plain_bytes} KV bytes a "
+        f"step); greedy tokens equal in {same:.3f} of the steps "
+        f"(information)")
+
+    # Exactness, layer by layer: at topc = C with a capacity of S (nothing
+    # can drop), a layer's clustered decode of token n - 1 over the
+    # codebooks of tokens 0..n-2 and the ring holding token n - 1 (the
+    # second call; the first appended it) attends exactly the tokens the
+    # plain decode attends.  f32 activations over the bf16 weights.
+    ce = CKV_EXACT_CLUSTERS
+    ecfg = dataclasses.replace(cfg, dtype="float32", cluster_kv=True,
+                               cluster_kv_clusters=ce, cluster_kv_topc=ce)
+    exact_kv = CA.ClusterKVConfig(num_clusters=ce, topc=ce,
+                                  capacity_slack=float(ce))
+    m = n - 1
+    at = torch.tensor(m, device=dev)
+    worst, first_rel = 0.0, []
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        x = params["embed"]["tokens"][prompt].to(torch.float32)
+        for layer in range(depth):
+            lp = layer_slice(params["groups"]["pos00"], layer)
+            h = apply_norm(lp["norm1"], x, ecfg)
+            y_f, kv = attention.attn_forward(lp["attn"], h, ecfg,
+                                             return_cache=True)
+            info = {}
+            cc = CA.build_clustered_cache(kv["k"][:, :m], kv["v"][:, :m],
+                                          exact_kv, seed=SEED + layer,
+                                          info=info)
+            if info["dropped_frac"] != 0.0:
+                raise AssertionError(f"layer {layer}: dropped {info}")
+            plain = {leaf: torch.zeros_like(kv[leaf]) for leaf in ("k", "v")}
+            for leaf in ("k", "v"):
+                plain[leaf][:, :m] = kv[leaf][:, :m]
+            xt = h[:, m:]
+            y_p, _ = attention.attn_decode(lp["attn"], xt, plain, at, ecfg)
+            attention.attn_decode_clustered(lp["attn"], xt, cc, at, ecfg)
+            y_c, _ = attention.attn_decode_clustered(lp["attn"], xt, cc, at,
+                                                     ecfg)
+            rel = float((y_c - y_p).abs().max() / y_p.abs().max())
+            worst = max(worst, rel)
+            if layer < 3:
+                first_rel.append(f"{rel:.3g}")
+            x = x + y_f
+            x = x + apply_mlp(lp["mlp"], apply_norm(lp["norm2"], x, ecfg),
+                              ecfg)
+            del kv, cc, plain
+    torch.cuda.synchronize()
+    exact_s = time.perf_counter() - t0
+    expect_launches("the exactness check", ops.launch_counts(), {
+        "flash_attention": depth, "tree_sep_update": 2 * ce * fits,
+        "tree_sep_update_tiles": ce * fits})
+    if worst > LAYER_TOL:
+        raise AssertionError(f"clustered decode against attn_decode: worst "
+                             f"relative difference {worst}")
+    log(f"  exactness through all {depth} layers, f32 activations over the "
+        f"bf16 weights: attn_decode_clustered at topc = C = {ce}, capacity "
+        f"{m} (no drops), against attn_decode on the same input at "
+        f"position {m}: worst max abs diff {worst:.3g} of the layer's "
+        f"largest output (tol {LAYER_TOL}; layers 0 to 2: "
+        f"{', '.join(first_rel)}); {fits} more fits, {exact_s:.3f} s")
+    log(f"[{time.perf_counter() - t_start:.1f} s] clustered KV done")
+    return counts
+
+
+def deepseek_phase(torch, t_start) -> tuple:
+    """Phase 14c: deepseek-v2-lite-16b at full width, random bf16 weights
+    drawn on the card: `prefill` on `MOE_BATCH` x `MOE_PROMPT` tokens (one
+    flash launch a layer, q and k of 192 and v of 128), `Engine.generate`
+    (replay prefill) twice with the same tokens, the MLA layer check, and
+    the kernel at MLA's shape against its plain version, SDPA and its
+    bound.  Returns (the prefill's launch counts, the kernel's numbers at
+    that shape)."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention_cuda as fa_cuda
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import init_params, param_specs
+    from repro_torch.serving.engine import Engine, ServeConfig
+    from repro_torch.serving.prefill import prefill
+
+    dev = torch.device("cuda")
+    cfg = get_config("deepseek-v2-lite-16b")
+    b, s = MOE_BATCH, MOE_PROMPT
+    if cfg.param_count() != DEEPSEEK_PARAMS:
+        raise AssertionError(f"{cfg.name}: {cfg.param_count()} parameters")
+    log(f"[{time.perf_counter() - t_start:.1f} s] {cfg.name} at full width")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = init_params(param_specs(cfg), gen, torch.bfloat16, dev)
+    torch.cuda.synchronize()
+    log(f"  parameters: {cfg.param_count()} in bf16 drawn on the card in "
+        f"{time.perf_counter() - t0:.2f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    rng = np.random.default_rng(SEED)
+    toks = torch.as_tensor(rng.integers(1, cfg.vocab_size, (b, s)),
+                           device=dev)
+    prefill(params, cfg, {"tokens": toks[:, :64]}, max_seq=64)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    last, cache = prefill(params, cfg, {"tokens": toks}, max_seq=s)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    expect_launches(f"{cfg.name} prefill", counts,
+                    {"flash_attention": cfg.num_layers})
+    if not bool(torch.isfinite(last).all()):
+        raise AssertionError(f"{cfg.name} prefill: logits not finite")
+    log(f"  prefill {b} x {s} tokens: {prefill_s:.4f} s "
+        f"({b * s / prefill_s:.1f} tokens/s), launches "
+        f"{ {k: v for k, v in counts.items() if v} }, latent cache "
+        f"{tuple(cache['groups']['pos00']['c_kv'].shape)} and dense0 "
+        f"{tuple(cache['dense0']['c_kv'].shape)}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    del last, cache
+
+    prompts = rng.integers(1, cfg.vocab_size, (b, MOE_SHORT)).astype(np.int32)
+    eng = Engine(params, cfg, ServeConfig(max_new_tokens=MOE_SHORT_NEW,
+                                          max_seq=MOE_SHORT + MOE_SHORT_NEW
+                                          + 8))
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = eng.generate(prompts)
+    gen_s = time.perf_counter() - t0
+    expect_launches(f"{cfg.name} generate (replay prefill)",
+                    ops.launch_counts(), {})
+    again = eng.generate(prompts)
+    if not np.array_equal(out, again) or out.max() >= cfg.vocab_size:
+        raise AssertionError(f"{cfg.name} generate: a second run gave "
+                             "other tokens")
+    log(f"  generate (replay prefill: the leading dense layer): {b} prompts "
+        f"x {MOE_SHORT} tokens, {MOE_SHORT_NEW} new: {gen_s:.4f} s "
+        f"({MOE_SHORT + MOE_SHORT_NEW} decode steps, no kernel); a second "
+        f"run gave the same tokens; first sequence starts "
+        f"{out[0, :8].tolist()}")
+    del eng
+    mla_layers(torch, params, cfg, toks[:, :REPLAY_PROMPT])
+    del params, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The kernel at MLA's shape: q, k (B, S, 16, 192) and v (B, S, 16, 128).
+    nope, rope, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    h, d = cfg.num_heads, nope + rope
+    q, k = (torch.randn((b, s, h, d), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    v = torch.randn((b, s, h, vd), generator=gen, device=dev).to(
+        torch.bfloat16)
+    err = check_attention(torch, ops, ref, q, k, v, True,
+                          "at MLA's prefill shape, causal", ATTN_TOL)
+    scale = d ** -0.5
+    ms = cuda_ms(torch, lambda i: fa_cuda.launch(q, k, v, scale=scale,
+                                                 causal=True), 20)
+    plain_ms = cuda_ms(torch, lambda i: ref.attention_bshd_ref(
+        q, k, v, scale=scale, causal=True), 3)
+    ms_again = cuda_ms(torch, lambda i: fa_cuda.launch(q, k, v, scale=scale,
+                                                       causal=True), 20)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    try:
+        lib_ms = cuda_ms(torch, lambda i: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, scale=scale), 20)
+    except RuntimeError as exc:     # the yardstick only, never in the port
+        log(f"  scaled_dot_product_attention refused v's width: {exc}")
+        lib_ms = None
+    ops_count = s * (s + 1) * (d + vd) * b * h
+    nbytes = 2 * (q.numel() + k.numel() + v.numel()) + 4 * b * s * h * vd
+    b_ms, b_by = bound(nbytes, ops_count, BF16_OPS_PER_S)
+    log(f"time flash_attention at MLA's shape (q, k {tuple(q.shape)}, v "
+        f"{tuple(v.shape)}, bf16, causal): kernel {ms:.6f} / "
+        f"{ms_again:.6f} ms, plain {plain_ms:.6f} ms, library "
+        f"(scaled_dot_product_attention, bf16 out) {lib_ms} ms, bound "
+        f"{b_ms:.6f} ms ({b_by}; {ops_count} operations on the bf16 tensor "
+        f"cores, {nbytes} bytes), {b_ms / min(ms, ms_again):.4f} of the "
+        f"bound")
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    log(f"[{time.perf_counter() - t_start:.1f} s] {cfg.name} done")
+    return counts, {"ms": min(ms, ms_again), "plain_ms": plain_ms,
+                    "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+                    "max_abs_err": err}
+
+
+def mla_layers(torch, params, cfg, short) -> float:
+    """MLA's attention layer by layer through the whole depth (the dense
+    layer, then the MoE groups): each layer's prefill attention
+    (`attn_forward`, one kernel launch) against its absorbed decode
+    (`attn_decode` over its latent cache, one step a token, no kernel) on
+    the same normed input, f32 activations over the bf16 weights; raises
+    past `LAYER_TOL` of the layer's largest output."""
+    import dataclasses
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention
+    from repro_torch.models.layers import apply_mlp, apply_norm
+    from repro_torch.models.model import layer_slice
+    from repro_torch.models.moe import apply_moe
+
+    dev = short.device
+    f32cfg = dataclasses.replace(cfg, dtype="float32")
+    b, n = short.shape
+    at = torch.arange(n, device=dev)
+    layers = [(params[f"dense{i}"], False) for i in range(cfg.first_k_dense)]
+    layers += [(layer_slice(params["groups"]["pos00"], g), True)
+               for g in range(cfg.num_layers - cfg.first_k_dense)]
+    worst, first = 0.0, []
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        x = params["embed"]["tokens"][short].to(torch.float32)
+        for i, (lp, is_moe) in enumerate(layers):
+            h = apply_norm(lp["norm1"], x, f32cfg)
+            y_f, _ = attention.attn_forward(lp["attn"], h, f32cfg)
+            cache = {"c_kv": torch.zeros((b, n, cfg.kv_lora_rank),
+                                         device=dev),
+                     "k_rope": torch.zeros((b, n, cfg.qk_rope_dim),
+                                           device=dev)}
+            y_d = torch.empty_like(y_f)
+            for t in range(n):
+                y_d[:, t: t + 1], cache = attention.attn_decode(
+                    lp["attn"], h[:, t: t + 1], cache, at[t], f32cfg)
+            rel = float((y_f - y_d).abs().max() / y_f.abs().max())
+            worst = max(worst, rel)
+            if i < 3:
+                first.append(f"{rel:.3g}")
+            x = x + y_f
+            h2 = apply_norm(lp["norm2"], x, f32cfg)
+            x = x + (apply_moe(lp["moe"], h2, f32cfg)[0] if is_moe
+                     else apply_mlp(lp["mlp"], h2, f32cfg))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    expect_launches("MLA layer by layer", counts,
+                    {"flash_attention": cfg.num_layers})
+    if worst > LAYER_TOL:
+        raise AssertionError(f"MLA layer by layer: worst relative "
+                             f"difference {worst}")
+    log(f"  MLA layer by layer through all {cfg.num_layers} layers, f32 "
+        f"activations over the bf16 weights, {b} x {n} tokens: prefill "
+        f"attention ({counts['flash_attention']} kernel launches, D "
+        f"{cfg.qk_nope_dim + cfg.qk_rope_dim}, Dv {cfg.v_head_dim}) against "
+        f"the absorbed decode ({n} steps a layer, no kernel): worst max abs "
+        f"diff {worst:.3g} of the layer's largest output (tol {LAYER_TOL}; "
+        f"layers 0 to 2: {', '.join(first)})")
+    return worst
+
+
+def qwen_moe_phase(torch, t_start) -> dict:
+    """Phase 14d: qwen2-moe-a2.7b at full width (60 routed experts padded to
+    64, 4 shared), random bf16 weights drawn on the card: `Engine.generate`
+    on `MOE_BATCH` x `MOE_PROMPT` tokens, 32 new, greedy, twice with the
+    same tokens (one flash launch a layer in the fused prefill), no token
+    routed to a padded expert, and the engine's steps timed apart.  Returns
+    the generate's launch counts and the kernel's max abs error against its
+    plain version at the prefill's shape."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import decode_step, init_params, moe, param_specs
+    from repro_torch.serving.engine import Engine, ServeConfig
+    from repro_torch.serving.prefill import prefill
+
+    dev = torch.device("cuda")
+    cfg = get_config("qwen2-moe-a2.7b")
+    b, s, new = MOE_BATCH, MOE_PROMPT, SERVE_NEW
+    if cfg.param_count() != QWEN_MOE_PARAMS:
+        raise AssertionError(f"{cfg.name}: {cfg.param_count()} parameters")
+    log(f"[{time.perf_counter() - t_start:.1f} s] {cfg.name} at full width")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = init_params(param_specs(cfg), gen, torch.bfloat16, dev)
+    torch.cuda.synchronize()
+    log(f"  parameters: {cfg.param_count()} in bf16 drawn on the card in "
+        f"{time.perf_counter() - t0:.2f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    prompts = np.random.default_rng(SEED).integers(
+        1, cfg.vocab_size, (b, s)).astype(np.int32)
+    serve = ServeConfig(max_new_tokens=new, max_seq=s + 40)
+    eng = Engine(params, cfg, serve)
+    eng.serve = dataclasses.replace(serve, max_new_tokens=1)
+    eng.generate(prompts)                       # warm-up
+    eng.serve = serve
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    tokens = eng.generate(prompts)
+    gen_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    expect_launches(f"{cfg.name} generate", counts,
+                    {"flash_attention": cfg.num_layers})
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    again = eng.generate(prompts)
+    if not np.array_equal(tokens, again) or tokens.max() >= cfg.vocab_size:
+        raise AssertionError(f"{cfg.name} generate: a second run gave "
+                             "other tokens")
+    log(f"  generate: {b} prompts x {s} tokens, {new} new each: "
+        f"{gen_s:.4f} s; launches {counts}; peak device memory "
+        f"{peak_gib:.3f} GiB; a second run gave the same tokens; first "
+        f"sequence starts {tokens[0, :8].tolist()}")
+    toks = torch.as_tensor(prompts, dtype=torch.int64, device=dev)
+    timed_steps(torch, params, cfg, toks, serve, tokens)
+
+    # Routing: the experts each prefill token and decode token chose.
+    seen, route = [], moe.route
+
+    def spy(p, xf, c):
+        out = route(p, xf, c)
+        seen.append(out[1].max())
+        return out
+
+    moe.route = spy
+    try:
+        _, cache = prefill(params, cfg, {"tokens": toks}, max_seq=s + 8)
+        decode_step(params, cfg, toks[:, -1], cache)
+    finally:
+        moe.route = route
+    top = int(torch.stack(seen).max())
+    if top >= cfg.num_experts or len(seen) != 2 * cfg.num_layers:
+        raise AssertionError(f"{cfg.name}: a token routed to expert {top} "
+                             f"({len(seen)} routings)")
+    log(f"  routing: the highest expert any prefill or decode token chose is "
+        f"{top}, of {cfg.num_experts} routed and {moe.phys_experts(60)} "
+        f"physical ({len(seen)} routings)")
+    del params, eng, cache, toks
+    gc.collect()
+    torch.cuda.empty_cache()
+    # The kernel at the prefill's shape against its plain version.
+    q, k, v = (torch.randn((b, s, n, cfg.head_dim), generator=gen,
+                           device=dev).to(torch.bfloat16)
+               for n in (cfg.num_heads, cfg.num_kv_heads, cfg.num_kv_heads))
+    err = check_attention(torch, ops, ref, q, k, v, True,
+                          f"at {cfg.name}'s prefill shape, causal", ATTN_TOL)
+    del q, k, v
+    torch.cuda.empty_cache()
+    log(f"[{time.perf_counter() - t_start:.1f} s] {cfg.name} done")
+    return counts, err
 
 
 def main() -> int:
@@ -2684,7 +3312,11 @@ def main() -> int:
     log(f"[{time.perf_counter() - t_start:.1f} s] device memory after the "
         f"seeding paths: {torch.cuda.memory_allocated() / 2**20:.1f} MiB "
         f"allocated, {torch.cuda.memory_reserved() / 2**20:.1f} MiB reserved")
-    rows.append(serving_path(torch, t_start))
+    row, paths = serving_path(torch, t_start)
+    rows.append(row)
+    for r in rows:
+        r.setdefault("launches_by_path", {}).update(
+            {path: counts.get(r["name"], 0) for path, counts in paths.items()})
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
     log(card)

@@ -15,7 +15,11 @@
 // h reads key/value head h / (H / Hk).  q, k and v are read through their
 // (batch, seq, head) strides with the head dimension contiguous, so the
 // model's (B, S, H, D) layout and the TPU kernel's (BH, S, D) layout both
-// come in without a copy; the output is a contiguous (B, S, H, D) f32.
+// come in without a copy; the output is a contiguous (B, S, H, Dv) f32.
+// v may be narrower than q and k (Dv <= D: MLA's q and k carry 128 + 64
+// columns, its v 128): V's tile loads Dv columns and zero-pads the rest in
+// shared memory, as the head dimension is padded, so the accumulator's
+// padded columns stay 0 and are never stored.
 //
 // What bounds it on the card: operations.  At the serving path's prefill
 // (B = 4, S = 2048, 32 query heads over 4 KV heads, D = 128, bf16, causal)
@@ -65,8 +69,10 @@
 //     first, so that the grid's tail is short.
 //   - Any D in 1..256: the head dimension is zero-padded in shared memory
 //     to 64, 128 or 256 (zero columns add nothing to a score, and padded
-//     output columns are not written).  Any S: rows past S load as zeros
-//     and are never written; keys past S get p = 0.  Tiles load with
+//     output columns are not written); V's tiles are padded past Dv, so
+//     at MLA's D 192 / Dv 128 the P V products run over 256 columns, half
+//     of them zeros.  Any S: rows past S load as zeros and are never
+//     written; keys past S get p = 0.  Tiles load with
 //     16-byte `cp.async` when D and every stride are multiples of 8 and the
 //     pointers are 16-byte aligned, else element by element.
 // The block takes 102 KB of shared memory at D = 128 (one block of 8
@@ -107,18 +113,21 @@ constexpr int kBK = 64;        // key rows per tile
 constexpr int kThreads = 256;  // 16 x 16: ty picks 4 rows, tx 4 keys
 constexpr int kPStride = kBK + 1;
 
-// rows [row0, row0 + 64) of a (seq, D) view with row stride `stride`,
-// multiplied by `mul`, into dst[r * (D + 1) + d]; rows at or past S are 0.
+// rows [row0, row0 + 64) of a (seq, cols) view with row stride `stride`,
+// multiplied by `mul`, into dst[r * (D + 1) + d] for d < D; rows at or
+// past S and columns at or past `cols` (<= D) are 0.
 __device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
                                               long long stride, int row0,
-                                              int S, int D, float mul) {
+                                              int S, int D, int cols,
+                                              float mul) {
   const int ld = D + 1;
   for (int idx = threadIdx.x; idx < kBQ * D; idx += kThreads) {
     const int r = idx / D;
     const int d = idx - r * D;
     const int row = row0 + r;
-    dst[r * ld + d] =
-        row < S ? src[static_cast<long long>(row) * stride + d] * mul : 0.0f;
+    dst[r * ld + d] = row < S && d < cols
+                          ? src[static_cast<long long>(row) * stride + d] * mul
+                          : 0.0f;
   }
 }
 
@@ -139,8 +148,8 @@ template <int NC>
 __global__ void __launch_bounds__(kThreads)
     simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, float* __restrict__ out, int S,
-                int H, int Hk, int D, Strides qs_, Strides ks_, Strides vs_,
-                float scale, int causal) {
+                int H, int Hk, int D, int Dv, Strides qs_, Strides ks_,
+                Strides vs_, float scale, int causal) {
   extern __shared__ float smem[];
   const int ld = D + 1;
   float* qs = smem;             // kBQ x ld, the scaled queries
@@ -158,7 +167,7 @@ __global__ void __launch_bounds__(kThreads)
   const float* kb = k + b * ks_.b + hk * ks_.h;
   const float* vb = v + b * vs_.b + hk * vs_.h;
 
-  load_tile_f32(qs, qb, qs_.s, q0, S, D, scale);
+  load_tile_f32(qs, qb, qs_.s, q0, S, D, D, scale);
 
   float m[4], l[4], acc[4][NC];
 #pragma unroll
@@ -174,7 +183,7 @@ __global__ void __launch_bounds__(kThreads)
   const int k_end = causal ? min(S, q0 + kBQ) : S;
   for (int k0 = 0; k0 < k_end; k0 += kBK) {
     __syncthreads();  // q is staged; the last tile's V and p are read
-    load_tile_f32(kvs, kb, ks_.s, k0, S, D, 1.0f);
+    load_tile_f32(kvs, kb, ks_.s, k0, S, D, D, 1.0f);
     __syncthreads();
 
     float s[4][4];
@@ -222,7 +231,7 @@ __global__ void __launch_bounds__(kThreads)
     }
 
     __syncthreads();  // K is read and p is written
-    load_tile_f32(kvs, vb, vs_.s, k0, S, D, 1.0f);
+    load_tile_f32(kvs, vb, vs_.s, k0, S, D, Dv, 1.0f);
     __syncthreads();
 
     for (int j = 0; j < kBK; ++j) {
@@ -232,7 +241,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
         const int col = tx + 16 * c;
-        if (col < D) {
+        if (col < Dv) {
           const float vv = kvs[j * ld + col];
 #pragma unroll
           for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(p[i], vv, acc[i][c]);
@@ -246,19 +255,20 @@ __global__ void __launch_bounds__(kThreads)
     const int qpos = q0 + ty * 4 + i;
     if (qpos >= S) continue;
     const float den = fmaxf(l[i], 1e-30f);
-    float* orow = out + ((static_cast<long long>(b) * S + qpos) * H + h) * D;
+    float* orow = out + ((static_cast<long long>(b) * S + qpos) * H + h) * Dv;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int col = tx + 16 * c;
-      if (col < D) orow[col] = acc[i][c] / den;
+      if (col < Dv) orow[col] = acc[i][c] / den;
     }
   }
 }
 
 template <int NC>
 int launch_simt(const float* q, const float* k, const float* v, float* out,
-                int B, int S, int H, int Hk, int D, Strides qs_, Strides ks_,
-                Strides vs_, float scale, int causal, cudaStream_t stream) {
+                int B, int S, int H, int Hk, int D, int Dv, Strides qs_,
+                Strides ks_, Strides vs_, float scale, int causal,
+                cudaStream_t stream) {
   const int smem = static_cast<int>(sizeof(float)) *
                    ((kBQ + kBK) * (D + 1) + kBQ * kPStride);
   cudaError_t err = cudaFuncSetAttribute(
@@ -266,7 +276,7 @@ int launch_simt(const float* q, const float* k, const float* v, float* out,
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
   simt_kernel<NC><<<grid, kThreads, smem, stream>>>(
-      q, k, v, out, S, H, Hk, D, qs_, ks_, vs_, scale, causal);
+      q, k, v, out, S, H, Hk, D, Dv, qs_, ks_, vs_, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -500,8 +510,9 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     tc_kernel(const __nv_bfloat16* __restrict__ q,
               const __nv_bfloat16* __restrict__ k,
               const __nv_bfloat16* __restrict__ v, float* __restrict__ out,
-              int B, int S, int H, int Hk, int D, Strides qs_, Strides ks_,
-              Strides vs_, float scale_log2, int causal, int vec_in) {
+              int B, int S, int H, int Hk, int D, int Dv, Strides qs_,
+              Strides ks_, Strides vs_, float scale_log2, int causal,
+              int vec_in) {
   using C = Tc<DP>;
   constexpr int BK = C::kBK;
   constexpr int LD = C::kLd;
@@ -537,7 +548,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   load_tile_bf16<kTcBQ, DP, LD>(qs, qg, qs_.s, q0, S, D, vec);
   load_tile_bf16<BK, DP, LD>(ks, kg, ks_.s, 0, S, D, vec);
   cp_async_commit();
-  load_tile_bf16<BK, DP, LD>(vs, vg, vs_.s, 0, S, D, vec);
+  load_tile_bf16<BK, DP, LD>(vs, vg, vs_.s, 0, S, Dv, vec);
   if (n_tiles > 1)
     load_tile_bf16<BK, DP, LD>(ks + BK * LD, kg, ks_.s, BK, S, D, vec);
   cp_async_commit();
@@ -578,7 +589,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     __syncthreads();     // ... for every warp; stages of t - 1 are free
     if (t + 1 < n_tiles)
       load_tile_bf16<BK, DP, LD>(vs + ((t + 1) & 1) * BK * LD, vg, vs_.s,
-                                 (t + 1) * BK, S, D, vec);
+                                 (t + 1) * BK, S, Dv, vec);
     if (t + 2 < n_tiles)
       load_tile_bf16<BK, DP, LD>(ks + (t & 1) * BK * LD, kg, ks_.s,
                                  (t + 2) * BK, S, D, vec);
@@ -617,17 +628,17 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   for (int r = 0; r < 2; ++r) {
     const int row = row_a + 8 * r;
     if (row >= S) continue;
-    float* orow = out + ((static_cast<long long>(b) * S + row) * H + h) * D;
+    float* orow = out + ((static_cast<long long>(b) * S + row) * H + h) * Dv;
 #pragma unroll
     for (int j = 0; j < NO; ++j) {
       const int col = j * 8 + (lane & 3) * 2;
       const float x0 = acc[j][2 * r] * l[r];
       const float x1 = acc[j][2 * r + 1] * l[r];
-      if (col + 1 < D && (D & 1) == 0) {
+      if (col + 1 < Dv && (Dv & 1) == 0) {
         *reinterpret_cast<float2*>(orow + col) = make_float2(x0, x1);
       } else {
-        if (col < D) orow[col] = x0;
-        if (col + 1 < D) orow[col + 1] = x1;
+        if (col < Dv) orow[col] = x0;
+        if (col + 1 < Dv) orow[col + 1] = x1;
       }
     }
   }
@@ -636,8 +647,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 template <int DP>
 int launch_tc(const __nv_bfloat16* q, const __nv_bfloat16* k,
               const __nv_bfloat16* v, float* out, int B, int S, int H, int Hk,
-              int D, Strides qs_, Strides ks_, Strides vs_, float scale,
-              int causal, int vec, cudaStream_t stream) {
+              int D, int Dv, Strides qs_, Strides ks_, Strides vs_,
+              float scale, int causal, int vec, cudaStream_t stream) {
   constexpr int smem = Tc<DP>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
       tc_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -646,21 +657,22 @@ int launch_tc(const __nv_bfloat16* q, const __nv_bfloat16* k,
   const long long nqb = (S + kTcBQ - 1) / kTcBQ;
   const unsigned grid = static_cast<unsigned>(nqb * H * B);
   tc_kernel<DP><<<grid, kTcThreads, smem, stream>>>(
-      q, k, v, out, B, S, H, Hk, D, qs_, ks_, vs_, scale * kLog2e, causal,
-      vec);
+      q, k, v, out, B, S, H, Hk, D, Dv, qs_, ks_, vs_, scale * kLog2e,
+      causal, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q (B, S, H, D), k and v (B, S, Hk, D), read through `strides`: nine
-// element strides, (batch, seq, head) of q, then of k, then of v; the head
-// dimension is contiguous.  out is a contiguous (B, S, H, D) f32.
-// 1 <= D <= 256 and H % Hk == 0 (the Python binding checks both).  Returns
-// the cudaError_t of the attribute call or the launch.
+// q (B, S, H, D), k (B, S, Hk, D) and v (B, S, Hk, Dv), read through
+// `strides`: nine element strides, (batch, seq, head) of q, then of k,
+// then of v; the head dimension is contiguous.  out is a contiguous
+// (B, S, H, Dv) f32.  1 <= Dv <= D <= 256 and H % Hk == 0 (the Python
+// binding checks them).  Returns the cudaError_t of the attribute call or
+// the launch.
 extern "C" int flash_attention_f32_launch(const float* q, const float* k,
                                           const float* v, float* out, int B,
-                                          int S, int H, int Hk, int D,
+                                          int S, int H, int Hk, int D, int Dv,
                                           const long long* strides,
                                           float scale, int causal,
                                           void* stream) {
@@ -670,26 +682,26 @@ extern "C" int flash_attention_f32_launch(const float* q, const float* k,
   const Strides vs_{strides[6], strides[7], strides[8]};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D <= 64)
-    return launch_simt<4>(q, k, v, out, B, S, H, Hk, D, qs_, ks_, vs_, scale,
-                          causal, st);
+    return launch_simt<4>(q, k, v, out, B, S, H, Hk, D, Dv, qs_, ks_, vs_,
+                          scale, causal, st);
   if (D <= 128)
-    return launch_simt<8>(q, k, v, out, B, S, H, Hk, D, qs_, ks_, vs_, scale,
-                          causal, st);
-  return launch_simt<16>(q, k, v, out, B, S, H, Hk, D, qs_, ks_, vs_, scale,
-                         causal, st);
+    return launch_simt<8>(q, k, v, out, B, S, H, Hk, D, Dv, qs_, ks_, vs_,
+                          scale, causal, st);
+  return launch_simt<16>(q, k, v, out, B, S, H, Hk, D, Dv, qs_, ks_, vs_,
+                         scale, causal, st);
 }
 
 extern "C" int flash_attention_bf16_launch(const void* q, const void* k,
                                            const void* v, float* out, int B,
                                            int S, int H, int Hk, int D,
-                                           const long long* strides,
+                                           int Dv, const long long* strides,
                                            float scale, int causal,
                                            void* stream) {
   if (B <= 0 || S <= 0) return 0;
   const Strides qs_{strides[0], strides[1], strides[2]};
   const Strides ks_{strides[3], strides[4], strides[5]};
   const Strides vs_{strides[6], strides[7], strides[8]};
-  bool vec = D % 8 == 0;
+  bool vec = D % 8 == 0 && Dv % 8 == 0;
   for (int i = 0; i < 9; ++i) vec = vec && strides[i] % 8 == 0;
   vec = vec && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
         reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
@@ -699,11 +711,11 @@ extern "C" int flash_attention_bf16_launch(const void* q, const void* k,
   const auto* vb = static_cast<const __nv_bfloat16*>(v);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D <= 64)
-    return launch_tc<64>(qb, kb, vb, out, B, S, H, Hk, D, qs_, ks_, vs_,
+    return launch_tc<64>(qb, kb, vb, out, B, S, H, Hk, D, Dv, qs_, ks_, vs_,
                          scale, causal, vec, st);
   if (D <= 128)
-    return launch_tc<128>(qb, kb, vb, out, B, S, H, Hk, D, qs_, ks_, vs_,
+    return launch_tc<128>(qb, kb, vb, out, B, S, H, Hk, D, Dv, qs_, ks_, vs_,
                           scale, causal, vec, st);
-  return launch_tc<256>(qb, kb, vb, out, B, S, H, Hk, D, qs_, ks_, vs_, scale,
-                        causal, vec, st);
+  return launch_tc<256>(qb, kb, vb, out, B, S, H, Hk, D, Dv, qs_, ks_, vs_,
+                        scale, causal, vec, st);
 }

@@ -1,9 +1,10 @@
 """Binding of `csrc/flash_attention.cu`: argument checks and the launch.
 
-`launch` takes CUDA tensors in the model's layout, q (B, S, H, D) and k, v
-(B, S, Hk, D), read through their strides (the head dimension must be
-contiguous, nothing else: any S, any D in 1..256, any alignment), allocates
-the f32 output with `torch.empty`, launches on the current stream of q's
+`launch` takes CUDA tensors in the model's layout, q and k (B, S, H, D)
+and (B, S, Hk, D) and v (B, S, Hk, Dv), read through their strides (the
+head dimension must be contiguous, nothing else: any S, any D in 1..256,
+any Dv in 1..D, any alignment), allocates the f32 output (B, S, H, Dv)
+with `torch.empty`, launches on the current stream of q's
 device (made current for the launch) and raises on a CUDA error.  bf16
 runs on the tensor cores, f32 on the SIMT kernel; the source chooses
 16-byte `cp.async` or element loads from the strides and pointers it is
@@ -34,7 +35,7 @@ def _fn(name: str):
     fn = _bound.get(name)
     if fn is None:
         fn = getattr(_build.library("flash_attention"), name)
-        fn.argtypes = [_P] * 4 + [ctypes.c_int] * 5 + [_P, ctypes.c_float,
+        fn.argtypes = [_P] * 4 + [ctypes.c_int] * 6 + [_P, ctypes.c_float,
                                                         ctypes.c_int, _P]
         fn.restype = ctypes.c_int
         _bound[name] = fn
@@ -50,9 +51,11 @@ def _check(name: str, t, dtype, shape) -> None:
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            scale: float, causal: bool) -> torch.Tensor:
-    """Attention of q (B, S, H, D) over k, v (B, S, Hk, D): (B, S, H, D) f32.
+    """Attention of q (B, S, H, D) over k (B, S, Hk, D) and v
+    (B, S, Hk, Dv): (B, S, H, Dv) f32.
 
-    q, k and v are all f32 or all bf16; 1 <= D <= `MAX_D`; Hk divides H.
+    q, k and v are all f32 or all bf16; 1 <= Dv <= D <= `MAX_D`; Hk
+    divides H.
     """
     if not isinstance(q, torch.Tensor) or q.dtype not in DTYPES:
         raise TypeError(f"q must be a tensor of one of "
@@ -64,17 +67,20 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check("q", q, q.dtype, (b, s, h, d))
     _check("k", k, q.dtype, (b, s, None, d))
     hk = k.shape[2]
-    _check("v", v, q.dtype, (b, s, hk, d))
+    _check("v", v, q.dtype, (b, s, hk, None))
+    dv = v.shape[3]
     if not 1 <= d <= MAX_D:
         raise ValueError(f"head dimension {d} outside 1..{MAX_D}")
+    if not 1 <= dv <= d:
+        raise ValueError(f"v's head dimension {dv} outside 1..{d} (q's)")
     if hk < 1 or h % hk:
         raise ValueError(f"{hk} KV heads do not divide {h} query heads")
     check_cuda(q, k, v)
-    out = torch.empty((b, s, h, d), dtype=torch.float32, device=q.device)
+    out = torch.empty((b, s, h, dv), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3],
                                       *v.stride()[:3])
     launch_on("flash_attention", q.device, _fn(DTYPES[q.dtype]),
               q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
-              h, hk, d, ctypes.cast(strides, _P), float(scale),
+              h, hk, d, dv, ctypes.cast(strides, _P), float(scale),
               int(bool(causal)))
     return out

@@ -316,8 +316,9 @@ def lsh_bucket_accept_lanes(q_keys_lo, q_keys_hi, q, lanes, c_keys_lo,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: float, causal: bool = True) -> torch.Tensor:
-    """Exact softmax attention on (BH, S, D), f32 out: the TPU kernel's
-    signature.  Any S (the kernel guards its ragged edge), D <= 256."""
+    """Exact softmax attention on q, k (BH, S, D) and v (BH, S, Dv), f32
+    out (BH, S, Dv): the TPU kernel's signature.  Any S (the kernel guards
+    its ragged edge), Dv <= D <= 256."""
     if not _on_card(q):
         return ref.flash_attention_ref(q, k, v, scale=scale, causal=causal)
     from repro_torch.kernels import flash_attention_cuda as binding
@@ -331,8 +332,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    scale: float, causal: bool,
                    prefix_len: int = 0) -> torch.Tensor:
-    """The model's attention: q (B, S, H, D) over k, v (B, S, Hk, D), GQA
-    head h reading KV head h // (H // Hk); (B, S, H, D) f32 out.
+    """The model's attention: q (B, S, H, D) over k (B, S, Hk, D) and v
+    (B, S, Hk, Dv), Dv <= D (MLA's v is narrower than its q and k), GQA
+    head h reading KV head h // (H // Hk); (B, S, H, Dv) f32 out.
 
     The CUDA kernel reads all three through their strides, so nothing is
     copied.  `prefix_len` > 0 (the vlm prefix with full attention) is not
@@ -341,7 +343,7 @@ def attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if prefix_len:
         raise NotImplementedError(
             "attention over a vlm prefix (prefix_len > 0) is not ported "
-            "yet: ROADMAP Queue 1 item 11")
+            "yet: ROADMAP Queue 1 item 11 (the vlm prefix)")
     if not _on_card(q):
         return ref.attention_bshd_ref(q, k, v, scale=scale, causal=causal)
     from repro_torch.kernels import flash_attention_cuda as binding

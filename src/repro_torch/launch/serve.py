@@ -1,12 +1,15 @@
 """Serving launcher: batched generation with a registered arch.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 
 The counterpart of `repro.launch.serve`, with the same flags and defaults
 plus `--device` (default ``cuda``; it raises when CUDA is absent).  The
 config is cut to the smoke size only under `--smoke`: one H100 holds
-yi-9b at full width and depth.  Weights are random, drawn on the device
+yi-9b (17.7 GB in bf16), deepseek-v2-lite-16b (31.3 GB; MLA and MoE, its
+`generate` replays the prompt) and qwen2-moe-a2.7b (30.3 GB) at full
+width and depth.  Weights are random, drawn on the device
 from seed 0 in the config's `param_dtype` (bf16 for the full configs, f32
 for the smoke ones).  A one-token `generate` warms up first, then the
 timed `generate` runs.

@@ -1,4 +1,5 @@
-"""Model stack for inference: layers, GQA attention, composition."""
+"""Model stack for inference: layers, GQA and MLA attention, the clustered
+KV cache, MoE, composition."""
 
 from repro_torch.models.model import (  # noqa: F401
     decode_step,

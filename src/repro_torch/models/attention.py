@@ -1,26 +1,28 @@
-"""Attention blocks: GQA/MQA (+qk-norm, +qkv-bias).
+"""Attention blocks: GQA/MQA (+qk-norm, +qkv-bias), MLA (DeepSeek-V2) and
+decode over the clustered KV cache.
 
 The counterpart of the JAX package's `models/attention.py`.  Prefill
 attention is the hand-written flash kernel (`ops.attention_bshd`: the CUDA
 kernel on the card, the chunked online-softmax scan of the JAX package's
-`_flash_attention` on the CPU).  Decode is a single-query attention over
-the KV cache in plain PyTorch, as the JAX package computes it outside any
-kernel; the new token's K/V are written into the cache in place (JAX
-returns an updated copy), so a cache is used once, in order.
-
-MLA (DeepSeek-V2) and the clustered KV cache are not ported yet (ROADMAP
-Queue 1 item 11): their entries raise.
+`_flash_attention` on the CPU); MLA's prefill runs it with q and k of
+head dim ``qk_nope_dim + qk_rope_dim`` and v of ``v_head_dim``.  Decode is
+a single-query attention over the cache in plain PyTorch, as the JAX
+package computes it outside any kernel: GQA over the K/V cache, MLA in
+the absorbed-weight form over the latent cache (the per-head K/V are
+never materialised), and `attn_decode_clustered` over the codebooks of
+`cluster_attn`.  The new token's entries are written into the cache in
+place (JAX returns an updated copy), so a cache is used once, in order.
 """
 
 from __future__ import annotations
 
-import collections
 from typing import Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.models import cluster_attn as CA
 from repro_torch.models.layers import (
     apply_head_norm,
     apply_rope,
@@ -28,7 +30,7 @@ from repro_torch.models.layers import (
     matmul,
     rotary,
 )
-from repro_torch.models.params import ParamSpec
+from repro_torch.models.params import ParamSpec, TensorSpec
 
 __all__ = [
     "attn_specs",
@@ -43,19 +45,20 @@ _NEG_INF = -1.0e30
 KV_CHUNK = 1024
 
 
-# (shape, dtype) of a cache leaf: the port's `jax.ShapeDtypeStruct`.
-TensorSpec = collections.namedtuple("TensorSpec", "shape dtype")
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP Queue 1 "
-                               "item 11")
-
-
 def attn_specs(cfg: ModelConfig) -> dict:
-    if cfg.use_mla:
-        raise _not_ported(f"{cfg.name}: MLA attention")
     d, hd = cfg.d_model, cfg.head_dim
+    if cfg.use_mla:
+        rope, nope, vdim = cfg.qk_rope_dim, cfg.qk_nope_dim, cfg.v_head_dim
+        r, h = cfg.kv_lora_rank, cfg.num_heads
+        return {
+            "wq": ParamSpec((d, h, nope + rope), ("embed", "heads", None)),
+            "w_dkv": ParamSpec((d, r), ("embed", "kv_lora")),
+            "w_kr": ParamSpec((d, rope), ("embed", None)),
+            "w_uk": ParamSpec((r, h, nope), ("kv_lora", "heads", None)),
+            "w_uv": ParamSpec((r, h, vdim), ("kv_lora", "heads", None)),
+            "wo": ParamSpec((h, vdim, d), ("heads", None, "embed")),
+            "kv_norm": {"scale": ParamSpec((r,), (None,), init="ones")},
+        }
     specs = {
         "wq": ParamSpec((d, cfg.num_heads, hd), ("embed", "heads", None)),
         "wk": ParamSpec((d, cfg.num_kv_heads, hd), ("embed", "kv_heads", None)),
@@ -79,7 +82,10 @@ def init_kv_cache_spec(cfg: ModelConfig, batch: int, max_seq: int,
                        dtype: torch.dtype) -> dict:
     """Per-layer KV cache leaves (stacked over layers by the caller)."""
     if cfg.use_mla:
-        raise _not_ported(f"{cfg.name}: the MLA latent cache")
+        return {
+            "c_kv": TensorSpec((batch, max_seq, cfg.kv_lora_rank), dtype),
+            "k_rope": TensorSpec((batch, max_seq, cfg.qk_rope_dim), dtype),
+        }
     shape = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
     return {"k": TensorSpec(shape, dtype), "v": TensorSpec(shape, dtype)}
 
@@ -117,9 +123,8 @@ def _qkv(params: dict, x: torch.Tensor, pos: torch.Tensor,
 def attn_forward(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
                  positions: Optional[torch.Tensor] = None,
                  return_cache: bool = False):
-    """(y (B, S, d_model), {"k", "v"} or None) for x (B, S, d_model)."""
-    if cfg.use_mla:
-        raise _not_ported(f"{cfg.name}: MLA attention")
+    """(y (B, S, d_model), cache entries or None) for x (B, S, d_model):
+    {"k", "v"}, or MLA's {"c_kv", "k_rope"}."""
     b, s, _ = x.shape
     chunk = min(KV_CHUNK, s)
     if s % chunk:
@@ -129,6 +134,8 @@ def attn_forward(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
                          f"{chunk}")
     pos = positions if positions is not None else \
         torch.arange(s, device=x.device)[None, :]
+    if cfg.use_mla:
+        return _mla_forward(params, x, cfg, pos, return_cache)
     q, k, v = _qkv(params, x, pos, cfg)
     if cfg.attn_repeat_kv and cfg.num_kv_heads < cfg.num_heads:
         g = cfg.num_heads // cfg.num_kv_heads
@@ -150,7 +157,7 @@ def attn_decode(params: dict, x: torch.Tensor, cache: dict,
     positions past `index` are masked.
     """
     if cfg.use_mla:
-        raise _not_ported(f"{cfg.name}: MLA decode")
+        return _mla_decode(params, x, cache, index, cfg)
     b = x.shape[0]
     q, k, v = _qkv(params, x, index.expand(b, 1), cfg)
     ck, cv = cache["k"], cache["v"]
@@ -172,7 +179,103 @@ def attn_decode(params: dict, x: torch.Tensor, cache: dict,
     return _unheads(out, params["wo"]), cache
 
 
-def attn_decode_clustered(params, x, cache, index, cfg: ModelConfig):
-    """Decode against a clustered KV cache (the JAX package's
-    `cluster_attn`): not ported yet."""
-    raise _not_ported("decode against the clustered KV cache (cluster_kv)")
+def attn_decode_clustered(params: dict, x: torch.Tensor, cache: dict,
+                          index: torch.Tensor, cfg: ModelConfig):
+    """Decode against a clustered KV cache (`cluster_attn`), GQA only.
+
+    q scores the k-means centroids, the top clusters' tokens are attended
+    exactly with the recent ring, and then the token's K/V are appended to
+    the ring in place: as in the JAX package, a token does not attend to
+    itself in its own step.  Returns (y (B, 1, d_model), cache).
+    """
+    b = x.shape[0]
+    q, k, v = _qkv(params, x, index.expand(b, 1), cfg)
+    ckv = CA.ClusterKVConfig(num_clusters=cfg.cluster_kv_clusters,
+                             topc=cfg.cluster_kv_topc)
+    out = CA.clustered_attention(q[:, 0], cache, ckv,
+                                 scale=1.0 / (cfg.head_dim ** 0.5))
+    CA.append_recent(cache, k[:, 0], v[:, 0])
+    return _unheads(out.to(x.dtype)[:, None], params["wo"]), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2): a low-rank latent KV shared by the heads.
+# ---------------------------------------------------------------------------
+
+def _rms(x: torch.Tensor, scale: torch.Tensor,
+         eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm over the last dim in f32, cast back (the latent's norm)."""
+    dt = x.dtype
+    x = x.to(torch.float32)
+    inv = torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps)
+    return (x * inv * scale.to(torch.float32)).to(dt)
+
+
+def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """`torch.einsum` in the promoted type of the two, as `jnp` does."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.einsum(eq, a.to(dt), b.to(dt))
+
+
+def _mla_latent(params: dict, x: torch.Tensor, sin, cos) -> tuple:
+    """The normed latent c_kv (B, S, R) and the shared roped key k_rope
+    (B, S, rope) of x (B, S, d_model)."""
+    c_kv = _rms(matmul(x, params["w_dkv"]), params["kv_norm"]["scale"])
+    k_rope = matmul(x, params["w_kr"])
+    k_rope = apply_rope(k_rope[:, :, None, :], sin, cos)[:, :, 0, :]
+    return c_kv, k_rope
+
+
+def _mla_forward(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                 pos: torch.Tensor, return_cache: bool):
+    b, s, _ = x.shape
+    nope, rope = cfg.qk_nope_dim, cfg.qk_rope_dim
+    q = _heads(x, params["wq"])
+    sin, cos = rotary(pos, rope, cfg.rope_theta)
+    q_rope = apply_rope(q[..., nope:], sin, cos)
+    c_kv, k_rope = _mla_latent(params, x, sin, cos)
+    k_nope = _heads(c_kv, params["w_uk"])
+    v = _heads(c_kv, params["w_uv"])
+    k_rope_h = k_rope[:, :, None, :].expand(b, s, cfg.num_heads, rope)
+    q_full = torch.cat([q[..., :nope], q_rope], dim=-1)
+    k_full = torch.cat([k_nope, k_rope_h], dim=-1)
+    # q, k (B, S, H, nope + rope) and v (B, S, H, v_head_dim): the kernel
+    # reads v's narrower head dimension as it is
+    out = ops.attention_bshd(q_full, k_full, v, causal=cfg.causal,
+                             prefix_len=cfg.prefix_len,
+                             scale=1.0 / ((nope + rope) ** 0.5)).to(x.dtype)
+    y = _unheads(out, params["wo"])
+    return y, ({"c_kv": c_kv, "k_rope": k_rope} if return_cache else None)
+
+
+def _mla_decode(params: dict, x: torch.Tensor, cache: dict,
+                index: torch.Tensor, cfg: ModelConfig):
+    """Absorbed-weight MLA decode: q is mapped into the latent space
+    (W_uk^T q) and the output comes from the attended latent (W_uv
+    absorbed into wo's input), so per-head K/V are never formed.  The
+    token's latent and roped key are written at `index` in place."""
+    b = x.shape[0]
+    nope, rope = cfg.qk_nope_dim, cfg.qk_rope_dim
+    q = _heads(x, params["wq"])
+    sin, cos = rotary(index.expand(b, 1), rope, cfg.rope_theta)
+    q_rope = apply_rope(q[..., nope:], sin, cos)
+    c_new, kr_new = _mla_latent(params, x, sin, cos)
+    c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+    at = index.reshape(1)
+    c_kv.index_copy_(1, at, c_new.to(c_kv.dtype))
+    k_rope.index_copy_(1, at, kr_new.to(k_rope.dtype))
+
+    f32 = torch.float32
+    q_lat = _einsum("bshe,rhe->bhr", q[..., :nope],
+                    params["w_uk"]).to(f32)
+    c32 = c_kv.to(f32)
+    scores = torch.einsum("bhr,bsr->bhs", q_lat, c32)
+    scores = scores + torch.einsum("bshe,bte->bht", q_rope.to(f32),
+                                   k_rope.to(f32))
+    scores = scores / ((nope + rope) ** 0.5)
+    valid = torch.arange(c_kv.shape[1], device=x.device)[None, None, :] <= \
+        index
+    p = torch.softmax(torch.where(valid, scores, _NEG_INF), dim=-1)
+    lat = torch.einsum("bhs,bsr->bhr", p, c32)
+    out = torch.einsum("bhr,rhe->bhe", lat, params["w_uv"].to(f32))
+    return _unheads(out.to(x.dtype)[:, None], params["wo"]), cache

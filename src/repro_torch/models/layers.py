@@ -124,7 +124,8 @@ def embed_specs(cfg: ModelConfig) -> dict:
     if cfg.embedding_inputs:
         raise NotImplementedError(
             f"{cfg.name}: embedding inputs (the audio and vlm frontends) are "
-            "not ported yet: ROADMAP Queue 1 item 11")
+            "not ported yet: ROADMAP Queue 1 item 11 (the audio and vlm "
+            "inputs)")
     specs = {"tokens": ParamSpec((cfg.vocab_size, cfg.d_model),
                                  ("vocab", "embed"), scale=0.02)}
     if not cfg.tie_embeddings:

@@ -4,11 +4,14 @@ The counterpart of the JAX package's `models/model.py`, for inference:
   - `forward(params, cfg, batch)`           prefill; optionally returns the
                                             KV cache for decode;
   - `decode_step(params, cfg, tok, cache)`  one token for every sequence.
-Both run under `torch.inference_mode()`.  The JAX package's `lax.scan`
-over layer groups is a Python loop over the stacked leaves' first axis;
-its remat policies and barriers belong to training, as does `loss_fn`
-(a later slice).  Inputs are token batches, ``{"tokens": (B, S) int}``:
-the audio and vlm frontends are not ported yet.
+Both run under `torch.inference_mode()`.  The `first_k_dense` leading
+layers (DeepSeek's) are ungrouped ``dense{l}`` entries of the parameter
+and cache trees and run first; then the JAX package's `lax.scan` over
+layer groups is a Python loop over the stacked leaves' first axis.  The
+MoE aux loss is summed as in the JAX package.  Its remat policies and
+barriers belong to training, as does `loss_fn` (a later slice).  Inputs
+are token batches, ``{"tokens": (B, S) int}``: the audio and vlm
+frontends are not ported yet (ROADMAP Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -17,9 +20,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import transformer
-from repro_torch.models.attention import TensorSpec
 from repro_torch.models.layers import (apply_norm, embed_specs, matmul,
                                        norm_specs)
+from repro_torch.models.params import TensorSpec
 
 __all__ = [
     "param_specs",
@@ -61,7 +64,9 @@ def param_specs(cfg: ModelConfig) -> dict:
     for p, (bt, moe) in enumerate(layout.positions):
         specs["groups"][f"pos{p:02d}"] = transformer.stack_specs(
             transformer.block_specs(cfg, bt, moe), layout.num_groups)
-    # first_k_dense layers come only with MoE, which block_specs refuses.
+    for l in range(cfg.first_k_dense):
+        specs[f"dense{l}"] = transformer.block_specs(cfg, cfg.block_type(l),
+                                                     False)
     return specs
 
 
@@ -70,14 +75,15 @@ def make_batch_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
     if cfg.family in ("audio", "vlm"):
         raise NotImplementedError(
             f"{cfg.name}: {cfg.family} inputs are not ported yet: ROADMAP "
-            "Queue 1 item 11")
+            "Queue 1 item 11 (the vlm prefix and the audio and vlm inputs)")
     return {"tokens": TensorSpec((shape.global_batch, shape.seq_len),
                                  torch.int32)}
 
 
 def make_cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
-    """Decode cache tree: one stacked entry per layout position, plus the
-    current length ``index``."""
+    """Decode cache tree: one stacked entry per layout position, one
+    ``dense{l}`` entry per leading dense layer, and the current length
+    ``index``."""
     layout = transformer.layer_layout(cfg)
     dt = dtype_of(cfg.dtype)
     cache: dict = {"groups": {}, "index": TensorSpec((), torch.int64)}
@@ -86,6 +92,9 @@ def make_cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
         cache["groups"][f"pos{p:02d}"] = {
             key: TensorSpec((layout.num_groups,) + spec.shape, spec.dtype)
             for key, spec in leaf.items()}
+    for l in range(cfg.first_k_dense):
+        cache[f"dense{l}"] = transformer.block_cache_spec(
+            cfg, cfg.block_type(l), batch, max_seq, dt)
     return cache
 
 
@@ -123,39 +132,57 @@ def _logits(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 def forward(params: dict, cfg: ModelConfig, batch: dict, *,
             return_cache: bool = False):
     """Returns (logits (B, S, V), aux_loss, caches_or_None).  Caches hold
-    one (num_groups, B, S, Hk, hd) k and v per layout position."""
+    each layout position's attention entries stacked over groups, e.g.
+    (num_groups, B, S, Hk, hd) k and v, and each ``dense{l}`` layer's
+    unstacked."""
     layout = transformer.layer_layout(cfg)
     x = _embed_tokens(params, cfg, batch["tokens"])
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    caches: dict = {}
+    for l in range(cfg.first_k_dense):
+        x, c, aux = transformer.block_forward(
+            params[f"dense{l}"], x, cfg, cfg.block_type(l), False,
+            positions=positions, return_cache=return_cache)
+        aux_total = aux_total + aux
+        caches[f"dense{l}"] = c
     per_layer: dict = {f"pos{p:02d}": [] for p in range(layout.period)}
+    aux_groups = []
     for g in range(layout.num_groups):
         group = layer_slice(params["groups"], g)
+        aux_g = torch.zeros((), dtype=torch.float32, device=x.device)
         for p, (bt, moe) in enumerate(layout.positions):
             x, c, aux = transformer.block_forward(
                 group[f"pos{p:02d}"], x, cfg, bt, moe, positions=positions,
                 return_cache=return_cache)
-            aux_total += aux
+            aux_g = aux_g + aux
             if return_cache:
                 per_layer[f"pos{p:02d}"].append(c)
-    caches = None
+        aux_groups.append(aux_g)
+    aux_total = aux_total + torch.stack(aux_groups).sum()
     if return_cache:
-        caches = {"groups": {
+        caches["groups"] = {
             key: {leaf: torch.stack([c[leaf] for c in entries])
                   for leaf in entries[0]}
-            for key, entries in per_layer.items()}}
+            for key, entries in per_layer.items()}
     x = apply_norm(params["final_norm"], x, cfg)
-    return _logits(params, cfg, x), aux_total, caches
+    return (_logits(params, cfg, x), aux_total,
+            caches if return_cache else None)
 
 
 @torch.inference_mode()
 def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                 cache: dict):
     """One decode step for every sequence, `tokens` (B,) the newest token
-    of each; returns (logits (B, V), cache).  The cache's K/V are written
-    in place; the returned tree carries ``index + 1``."""
+    of each; returns (logits (B, V), cache).  The cache's entries are
+    written in place; the returned tree carries ``index + 1``."""
     index = cache["index"]
     x = _embed_tokens(params, cfg, tokens[:, None])
+    out: dict = {"index": index + 1}
+    for l in range(cfg.first_k_dense):
+        key = f"dense{l}"
+        x, out[key] = transformer.block_decode(
+            params[key], x, cache[key], index, cfg, cfg.block_type(l), False)
     layout = transformer.layer_layout(cfg)
     groups = cache["groups"]
     for g in range(layout.num_groups):
@@ -167,4 +194,5 @@ def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                 moe)
     x = apply_norm(params["final_norm"], x, cfg)
     logits = _logits(params, cfg, x)[:, 0, :]
-    return logits, {"index": index + 1, "groups": groups}
+    out["groups"] = groups
+    return logits, out

@@ -11,6 +11,7 @@ port runs on one device, so nothing is sharded.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
 
@@ -19,11 +20,17 @@ import torch
 
 __all__ = [
     "ParamSpec",
+    "TensorSpec",
     "init_params",
     "params_from_numpy",
     "spec_bytes",
     "spec_leaves",
 ]
+
+
+# (shape, dtype) of a cache leaf or an input: the port's
+# `jax.ShapeDtypeStruct`.
+TensorSpec = collections.namedtuple("TensorSpec", "shape dtype")
 
 
 @dataclasses.dataclass(frozen=True)

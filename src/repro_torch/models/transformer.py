@@ -1,15 +1,18 @@
-"""Block composition: attention residual blocks with a dense MLP, grouped
-into homogeneous layer layouts.
+"""Block composition: attention residual blocks (GQA or MLA, the KV or
+the clustered KV cache) with a dense MLP or an MoE FFN, grouped into
+homogeneous layer layouts.
 
 The counterpart of the JAX package's `models/transformer.py`.  A model's
 layers are a periodic *layout* of (block_type, is_moe) positions repeated
-`num_groups` times; each position's parameters are stacked over groups on a
+`num_groups` times, after `first_k_dense` leading dense layers
+(DeepSeek's); each position's parameters are stacked over groups on a
 leading "layers" axis, the JAX package's tree.  The port's model walks that
-axis in a Python loop where the JAX package scans it.
+axis in a Python loop where the JAX package scans it.  The clustered KV
+cache replaces the K/V cache exactly when ``cfg.cluster_kv and not
+cfg.use_mla`` (with MLA the latent cache stays), as in the JAX package.
 
-Only ``"attn"`` blocks with a dense MLP are ported: Mamba, RWKV-6, MoE and
-the clustered KV cache raise `NotImplementedError` (ROADMAP Queue 1
-item 11).
+Mamba and RWKV-6 blocks raise `NotImplementedError` (ROADMAP Queue 1
+item 11, their slice).
 """
 
 from __future__ import annotations
@@ -22,8 +25,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention
+from repro_torch.models import cluster_attn as CA
 from repro_torch.models.layers import (apply_mlp, apply_norm, mlp_specs,
                                        norm_specs)
+from repro_torch.models.moe import apply_moe, moe_specs
 from repro_torch.models.params import ParamSpec
 
 __all__ = ["layer_layout", "block_specs", "block_forward", "block_decode",
@@ -71,15 +76,15 @@ def stack_specs(specs, n: int):
             for key, node in specs.items()}
 
 
-def _check_block(cfg: ModelConfig, block_type: str, is_moe: bool) -> None:
+def _check_block(cfg: ModelConfig, block_type: str) -> None:
     if block_type != "attn":
         raise NotImplementedError(
             f"{cfg.name}: {block_type} blocks are not ported yet: ROADMAP "
-            "Queue 1 item 11")
-    if is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE blocks are not ported yet: ROADMAP Queue 1 "
-            "item 11")
+            "Queue 1 item 11 (Mamba and RWKV-6, the next slice)")
+
+
+def _clustered(cfg: ModelConfig) -> bool:
+    return cfg.cluster_kv and not cfg.use_mla
 
 
 # ---------------------------------------------------------------------------
@@ -87,47 +92,66 @@ def _check_block(cfg: ModelConfig, block_type: str, is_moe: bool) -> None:
 # ---------------------------------------------------------------------------
 
 def block_specs(cfg: ModelConfig, block_type: str, is_moe: bool) -> dict:
-    _check_block(cfg, block_type, is_moe)
-    return {"norm1": norm_specs(cfg), "norm2": norm_specs(cfg),
-            "attn": attention.attn_specs(cfg), "mlp": mlp_specs(cfg)}
+    _check_block(cfg, block_type)
+    specs = {"norm1": norm_specs(cfg), "norm2": norm_specs(cfg),
+             "attn": attention.attn_specs(cfg)}
+    if is_moe:
+        specs["moe"] = moe_specs(cfg)
+    else:
+        specs["mlp"] = mlp_specs(cfg)
+    return specs
 
 
 def block_cache_spec(cfg: ModelConfig, block_type: str, batch: int,
                      max_seq: int, dtype: torch.dtype) -> dict:
-    _check_block(cfg, block_type, False)
-    if cfg.cluster_kv:
-        raise NotImplementedError(
-            f"{cfg.name}: the clustered KV cache (cluster_kv) is not ported "
-            "yet: ROADMAP Queue 1 item 11")
+    _check_block(cfg, block_type)
+    if _clustered(cfg):
+        return CA.cluster_cache_specs(
+            batch, cfg.num_kv_heads, cfg.head_dim, cfg.head_dim, max_seq,
+            CA.ClusterKVConfig(num_clusters=cfg.cluster_kv_clusters,
+                               topc=cfg.cluster_kv_topc),
+            dtype)
     return attention.init_kv_cache_spec(cfg, batch, max_seq, dtype)
+
+
+def _ffn(params: dict, x: torch.Tensor, cfg: ModelConfig, is_moe: bool):
+    """The block's second half: (x + FFN(norm2(x)), aux loss)."""
+    h = apply_norm(params["norm2"], x, cfg)
+    if is_moe:
+        y, aux = apply_moe(params["moe"], h, cfg)
+    else:
+        y = apply_mlp(params["mlp"], h, cfg)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + y, aux
 
 
 def block_forward(params: dict, x: torch.Tensor, cfg: ModelConfig,
                   block_type: str, is_moe: bool, *,
                   positions: Optional[torch.Tensor] = None,
                   return_cache: bool = False):
-    """Returns (x, cache_entries_or_None, aux_loss); aux is 0 without MoE."""
-    _check_block(cfg, block_type, is_moe)
+    """Returns (x, cache_entries_or_None, aux_loss); aux is 0 without MoE.
+    The cache entries are the attention's (K/V, or MLA's latents) also
+    under `cluster_kv`: the clustered cache is built from them
+    (`cluster_attn.build_clustered_cache`)."""
+    _check_block(cfg, block_type)
     h = apply_norm(params["norm1"], x, cfg)
     y, cache = attention.attn_forward(params["attn"], h, cfg,
                                       positions=positions,
                                       return_cache=return_cache)
-    x = x + y
-    x = x + apply_mlp(params["mlp"], apply_norm(params["norm2"], x, cfg), cfg)
-    return x, cache, torch.zeros((), dtype=torch.float32, device=x.device)
+    x, aux = _ffn(params, x + y, cfg, is_moe)
+    return x, cache, aux
 
 
 def block_decode(params: dict, x: torch.Tensor, cache: dict,
                  index: torch.Tensor, cfg: ModelConfig, block_type: str,
                  is_moe: bool):
     """Single-token step.  Returns (x, cache), the cache updated in place."""
-    _check_block(cfg, block_type, is_moe)
+    _check_block(cfg, block_type)
     h = apply_norm(params["norm1"], x, cfg)
-    if cfg.cluster_kv:
+    if _clustered(cfg):
         y, cache = attention.attn_decode_clustered(params["attn"], h, cache,
                                                    index, cfg)
     else:
         y, cache = attention.attn_decode(params["attn"], h, cache, index, cfg)
-    x = x + y
-    x = x + apply_mlp(params["mlp"], apply_norm(params["norm2"], x, cfg), cfg)
+    x, _ = _ffn(params, x + y, cfg, is_moe)
     return x, cache

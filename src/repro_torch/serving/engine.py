@@ -5,7 +5,9 @@ drives `prefill` + `decode_step` for aligned prompt batches: greedy or
 temperature sampling, stop on max tokens.  `replay_prefill` builds the
 decode cache by replaying the prompt through `decode_step` token by token;
 `generate` takes it where the fused prefill does not apply, by the JAX
-package's rule (a stack of attention blocks only, no leading dense layers).
+package's rule (a stack of attention blocks only, no leading dense layers:
+deepseek-v2-lite-16b replays its prompt, qwen2-moe-a2.7b takes the fused
+prefill).
 
 Tokens stay on the device until `generate` returns, so a decode step waits
 for the host nowhere.  At temperature > 0 the draws come from a

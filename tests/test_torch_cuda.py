@@ -35,7 +35,12 @@ service on the card: `ClusterEngine`'s pipelined tickets against the
 serial fits, a real out-of-memory (the allocator capped) classified
 transient with the failed attempt's memory released before the retry and
 after the ticket fails, and four loopback requests through
-`ClusterServer` against their lane-batched solve.
+`ClusterServer` against their lane-batched solve.  The LM variants
+(`-k lm_variants`) hold the flash entries with v narrower than q and k
+(MLA's D 192 / Dv 128) to their plain versions, `apply_moe` on the card
+to itself bit for bit and to the CPU, reduced deepseek-v2-lite-16b and
+qwen2-moe-a2.7b `generate` on the card to the CPU's tokens, and the
+clustered KV build's sweep launches (2k and k a fit).
 """
 
 import numpy as np
@@ -1265,3 +1270,124 @@ def test_sharded_mesh_of_two_cards(cuda):
         data = plan._active.artifacts
         arrays = data.points or data.codes_lo
         assert [a.device.index for a in arrays] == [0, 1]
+
+
+# ---------------------------------------------------------------------------
+# LM variants: MLA's narrower v, MoE, the clustered KV cache.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,hk,causal", [
+    (2, 256, 16, 16, True), (1, 1000, 4, 4, False), (1, 333, 8, 2, True)])
+def test_lm_variants_attention_with_a_narrower_v(cuda, b, s, h, hk, causal,
+                                                 dtype):
+    """q, k of head dim 192 and v of 128 (MLA's prefill): both entries
+    against their plain versions within `ATTN_TOL`."""
+    gen = torch.Generator(device=cuda).manual_seed(s + h)
+    q, k = (torch.randn((b, s, n, 192), generator=gen, device=cuda).to(dtype)
+            for n in (h, hk))
+    v = torch.randn((b, s, hk, 128), generator=gen, device=cuda).to(dtype)
+    before = ops.launch_counts()["flash_attention"]
+    out = ops.attention_bshd(q, k, v, scale=192 ** -0.5, causal=causal)
+    plain = ref.attention_bshd_ref(q, k, v, scale=192 ** -0.5, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    assert out.shape == (b, s, h, 128) and out.dtype == torch.float32
+    torch.testing.assert_close(out, plain, rtol=ATTN_TOL, atol=ATTN_TOL)
+    flat = ops.flash_attention(q[:, :, 0], k[:, :, 0], v[:, :, 0],
+                               scale=0.07, causal=causal)
+    flat_plain = ref.flash_attention_ref(q[:, :, 0], k[:, :, 0], v[:, :, 0],
+                                         scale=0.07, causal=causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(flat, flat_plain, rtol=ATTN_TOL, atol=ATTN_TOL)
+
+
+def _reduced(arch):
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.models import init_params, param_specs
+
+    cfg = reduce_for_smoke(get_config(arch))
+    params = init_params(param_specs(cfg), torch.Generator().manual_seed(0),
+                         torch.float32, "cpu")
+    return cfg, params
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "deepseek-v2-lite-16b"])
+def test_lm_variants_apply_moe_on_the_card(cuda, arch):
+    """One MoE layer on 2 x 300 tokens (some dropped): two runs on the
+    card bit-identical (the ordered combine uses no atomics), and the CPU's
+    output to 1e-3 (f32 products in other orders)."""
+    from repro_torch.models import moe, params_from_numpy
+    from repro_torch.models.model import layer_slice
+
+    cfg, params = _reduced(arch)
+    layer = layer_slice(params["groups"]["pos00"], 0)["moe"]
+    on_card = params_from_numpy(layer, cuda)
+    x = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(2, 300, cfg.d_model)).astype(np.float32))
+    a, aux_a = moe.apply_moe(on_card, x.to(cuda), cfg)
+    b, aux_b = moe.apply_moe(on_card, x.to(cuda), cfg)
+    assert torch.equal(a, b) and torch.equal(aux_a, aux_b)
+    want, aux = moe.apply_moe(layer, x, cfg)
+    torch.testing.assert_close(a.cpu(), want, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(aux_a.cpu(), aux, rtol=1e-5, atol=1e-7)
+    half = params_from_numpy(layer, cuda, torch.bfloat16)
+    xb = x.to(cuda, torch.bfloat16)
+    assert torch.equal(moe.apply_moe(half, xb, cfg)[0],
+                       moe.apply_moe(half, xb, cfg)[0])
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "deepseek-v2-lite-16b"])
+def test_lm_variants_generate_on_the_card_matches_the_cpu(cuda, arch):
+    """Reduced model in f32 with the same weights on the card and the CPU:
+    prefill logits to 1e-3 with one kernel launch per layer, and the same
+    greedy tokens from `generate` (deepseek replays its prompt)."""
+    from repro_torch.models import params_from_numpy
+    from repro_torch.serving.engine import Engine, ServeConfig
+    from repro_torch.serving.prefill import prefill
+
+    cfg, params = _reduced(arch)
+    on_card = params_from_numpy(params, cuda)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        1, cfg.vocab_size, (3, 32)))
+    ops.reset_launch_counts()
+    lg_card, _ = prefill(on_card, cfg, {"tokens": toks.to(cuda)},
+                         max_seq=48)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == cfg.num_layers
+    lg_cpu, _ = prefill(params, cfg, {"tokens": toks}, max_seq=48)
+    torch.testing.assert_close(lg_card.cpu(), lg_cpu, rtol=1e-3, atol=1e-3)
+    serve = ServeConfig(max_new_tokens=8, max_seq=48)
+    np.testing.assert_array_equal(
+        Engine(on_card, cfg, serve).generate(toks.numpy()),
+        Engine(params, cfg, serve, device="cpu").generate(toks.numpy()))
+
+
+def test_lm_variants_clustered_build_on_the_card(cuda):
+    """`build_clustered_cache` on the device backend on the card: 2k
+    `tree_sep_update` and k `tree_sep_update_tiles` launches a fit (one fit
+    a head), no other kernel; the cache on the card, every kept token in
+    one valid slot."""
+    from repro_torch.models import cluster_attn as CA
+
+    rng = np.random.default_rng(2)
+    keys = torch.from_numpy(rng.normal(size=(1, 512, 2, 32)).astype(
+        np.float32)).to(cuda)
+    values = torch.from_numpy(rng.normal(size=(1, 512, 2, 32)).astype(
+        np.float32)).to(cuda)
+    cfg = CA.ClusterKVConfig(num_clusters=16, topc=16, capacity_slack=2.0)
+    ops.reset_launch_counts()
+    info = {}
+    cache = CA.build_clustered_cache(keys, values, cfg, info=info)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["tree_sep_update"] == 2 * 16 * 2
+    assert counts["tree_sep_update_tiles"] == 16 * 2
+    assert sum(counts.values()) == 3 * 16 * 2
+    assert all(t.is_cuda for t in cache.values())
+    kept = int(cache["slot_valid"].sum())
+    assert kept == round(2 * 512 * (1 - info["dropped_frac"]))
+    q = torch.from_numpy(rng.normal(size=(1, 4, 32)).astype(
+        np.float32)).to(cuda)
+    out = CA.clustered_attention(q, cache, cfg, scale=32 ** -0.5)
+    assert out.shape == (1, 4, 32) and bool(torch.isfinite(out).all())

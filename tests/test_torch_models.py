@@ -4,9 +4,11 @@ Weights are the JAX package's own `init_params` draws, carried across with
 `params_from_numpy(jax.tree.map(np.asarray, params))`, so both packages
 run the same function on the same numbers.  Configs are the JAX package's
 `reduce_for_smoke` cuts (4 layers, d_model 128, 4 heads of 32 over 2 KV
-heads) of the dense attention-only archs the port runs: yi-9b (GQA),
-olmo-1b (non-parametric layernorm, tied embeddings), qwen3-32b (qk-norm)
-and qwen1.5-110b (qkv-bias).
+heads) of the attention-block archs the port runs: yi-9b (GQA), olmo-1b
+(non-parametric layernorm, tied embeddings), qwen3-32b (qk-norm),
+qwen1.5-110b (qkv-bias), qwen2-moe-a2.7b (MoE with shared experts, 8
+experts at this size) and deepseek-v2-lite-16b (MLA, MoE and a leading
+dense layer).
 
 Tolerances: f32 logits to 1e-3 (absolute and relative).  The random
 weights let the hidden states grow to about 100 over four layers, so f32
@@ -48,7 +50,8 @@ from repro_torch.models.model import layer_slice
 from repro_torch.models.params import spec_leaves
 from repro_torch.models.transformer import block_forward
 
-PORTED = ["yi-9b", "olmo-1b", "qwen3-32b", "qwen1.5-110b"]
+PORTED = ["yi-9b", "olmo-1b", "qwen3-32b", "qwen1.5-110b", "qwen2-moe-a2.7b",
+          "deepseek-v2-lite-16b"]
 NOT_PORTED = [a for a in ARCH_IDS if a not in PORTED]
 TOL = dict(rtol=1e-3, atol=1e-3)
 
@@ -119,6 +122,27 @@ def test_batch_and_cache_specs_match_jax():
                          SHAPES["train_4k"])
 
 
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "deepseek-v2-lite-16b",
+                                  "yi-9b"])
+def test_cache_spec_trees_match_jax(arch):
+    """Every cache leaf, MLA's latents and the leading dense layer's
+    ungrouped entry included, with JAX's shape; yi-9b with `cluster_kv`
+    gets the clustered leaves."""
+    jcfg = jax_reduce(jax_get_config(arch))
+    cfg = reduce_for_smoke(get_config(arch))
+    if arch == "yi-9b":
+        jcfg = dataclasses.replace(jcfg, cluster_kv=True,
+                                   cluster_kv_clusters=16)
+        cfg = dataclasses.replace(cfg, cluster_kv=True,
+                                  cluster_kv_clusters=16)
+    want = {"/".join(str(k.key) for k in path): leaf.shape
+            for path, leaf in jax.tree_util.tree_leaves_with_path(
+                jax_cache_specs(jcfg, 2, 48))}
+    got = {path: leaf.shape
+           for path, leaf in spec_leaves(make_cache_specs(cfg, 2, 48))}
+    assert got == want
+
+
 def test_init_params_follows_the_law():
     """normal * 1/sqrt(fan_in) (fan_in the second-to-last dim) or the
     spec's own scale; ones and zeros as the spec says.  Each normal leaf
@@ -167,10 +191,13 @@ def test_params_from_numpy_keeps_keys_and_bf16():
 def test_forward_and_decode_match_jax(arch):
     jcfg, cfg, jparams, params = _setup(arch)
     toks = _tokens(cfg)
-    want, _, _ = jax_forward(jparams, jcfg, {"tokens": jnp.asarray(toks)},
-                             remat="none")
+    want, want_aux, _ = jax_forward(jparams, jcfg,
+                                    {"tokens": jnp.asarray(toks)},
+                                    remat="none")
     got, aux, _ = forward(params, cfg, {"tokens": torch.from_numpy(toks)})
-    assert got.dtype == torch.float32 and float(aux) == 0.0
+    assert got.dtype == torch.float32
+    assert (float(aux) == 0.0) == (not cfg.num_experts)
+    np.testing.assert_allclose(float(aux), float(want_aux), rtol=1e-5)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
     jcache = jax.tree.map(lambda s: jnp.zeros(s.shape, s.dtype),
@@ -183,9 +210,14 @@ def test_forward_and_decode_match_jax(arch):
                                 cache)
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
     assert int(cache["index"]) == int(jcache["index"]) == 4
+    leaf = "c_kv" if cfg.use_mla else "k"
     np.testing.assert_allclose(
-        cache["groups"]["pos00"]["k"].numpy(),
-        np.asarray(jcache["groups"]["pos00"]["k"]), **TOL)
+        cache["groups"]["pos00"][leaf].numpy(),
+        np.asarray(jcache["groups"]["pos00"][leaf]), **TOL)
+    for l in range(cfg.first_k_dense):
+        np.testing.assert_allclose(
+            cache[f"dense{l}"][leaf].numpy(),
+            np.asarray(jcache[f"dense{l}"][leaf]), **TOL)
 
 
 def test_forward_matches_jax_in_bf16():
@@ -258,9 +290,11 @@ def test_unsupported_families_raise(arch):
 
 def test_unsupported_options_raise():
     cfg = reduce_for_smoke(get_config("yi-9b"))
-    with pytest.raises(NotImplementedError, match="cluster_kv"):
-        make_cache_specs(dataclasses.replace(cfg, cluster_kv=True), 1, 8)
+    params = init_params(param_specs(cfg), torch.Generator(), torch.float32,
+                         "cpu")
+    with pytest.raises(NotImplementedError, match="vlm prefix"):
+        forward(params, dataclasses.replace(cfg, prefix_len=8),
+                {"tokens": torch.zeros((1, 16), dtype=torch.int64)})
     with pytest.raises(ValueError, match="multiple of 1024"):
-        forward(init_params(param_specs(cfg), torch.Generator(),
-                            torch.float32, "cpu"), cfg,
+        forward(params, cfg,
                 {"tokens": torch.zeros((1, 1500), dtype=torch.int64)})

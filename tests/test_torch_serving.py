@@ -2,12 +2,17 @@
 
 `prefill`, `Engine.generate` and `Engine.replay_prefill` on reduced yi-9b
 in f32, with the JAX package's weights carried across
-(`params_from_numpy`).  Logits and caches are held to 1e-3 (f32 rounding
+(`params_from_numpy`); the same for reduced qwen2-moe-a2.7b (fused
+prefill) and deepseek-v2-lite-16b (MLA latents, a leading dense layer:
+`generate` replays the prompt, the JAX package's rule), and the launcher's
+CPU smoke for all three.  Logits and caches are held to 1e-3 (f32 rounding
 over four layers whose hidden states grow to about 100; see
 `tests/test_torch_models.py`), prefill against replay to 2e-3 (the JAX
 package's own `test_prefill_matches_replay` tolerance), and greedy tokens
 exactly.
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -25,20 +30,31 @@ from repro.serving.prefill import prefill as jax_prefill
 from repro_torch.configs import get_config, reduce_for_smoke
 from repro_torch.launch import serve
 from repro_torch.models import params_from_numpy
+from repro_torch.models.params import spec_leaves
 from repro_torch.serving.engine import Engine, ServeConfig
 from repro_torch.serving.prefill import prefill
 
 TOL = dict(rtol=1e-3, atol=1e-3)
 
 
-@pytest.fixture(scope="module")
-def model():
-    jcfg = jax_reduce(jax_get_config("yi-9b"))
-    cfg = reduce_for_smoke(get_config("yi-9b"))
+def _model(arch):
+    jcfg = jax_reduce(jax_get_config(arch))
+    cfg = reduce_for_smoke(get_config(arch))
     jparams = jax_init_params(jax_param_specs(jcfg), jax.random.key(0),
                               jnp.float32)
     params = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
     return jcfg, cfg, jparams, params
+
+
+@pytest.fixture(scope="module")
+def model():
+    return _model("yi-9b")
+
+
+@pytest.fixture(scope="module", params=["qwen2-moe-a2.7b",
+                                        "deepseek-v2-lite-16b"])
+def moe_model(request):
+    return _model(request.param)
 
 
 def _prompts(n, s, seed, vocab=512):
@@ -133,3 +149,64 @@ def test_launcher_smoke_on_cpu(capsys):
     assert out.shape == (2, 4)
     text = capsys.readouterr().out
     assert "yi-9b on cpu" in text and "first sequence:" in text
+
+
+def test_moe_prefill_matches_jax(moe_model):
+    """Logits, the cache tree's leaves (K/V or MLA's latents, the dense
+    layer's ungrouped entry padded on its axis 1) and the index."""
+    jcfg, cfg, jparams, params = moe_model
+    toks = _prompts(2, 16, 0).astype(np.int32)
+    jl, jcache = jax_prefill(jparams, jcfg, {"tokens": jnp.asarray(toks)},
+                             max_seq=40)
+    tl, cache = prefill(params, cfg, {"tokens": torch.from_numpy(toks)},
+                        max_seq=40)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    want = {"/".join(str(k.key) for k in path): leaf for path, leaf in
+            jax.tree_util.tree_leaves_with_path(jcache)}
+    got = dict(spec_leaves(cache))
+    assert set(got) == set(want)
+    for path, leaf in got.items():
+        assert leaf.shape == want[path].shape, path
+        np.testing.assert_allclose(leaf.numpy(), np.asarray(want[path]),
+                                   **TOL)
+    assert int(cache["index"]) == 16
+    if cfg.first_k_dense:
+        assert cache["dense0"]["c_kv"].shape == (2, 40, cfg.kv_lora_rank)
+        assert not bool(cache["dense0"]["c_kv"][:, 16:].any())
+
+
+def test_moe_prefill_matches_replay(moe_model):
+    """With a capacity factor at which no expert can overflow: capacity
+    applies per dispatch window, so at the default factor the prefill's
+    one window of 32 tokens drops assignments that replay's windows of 2
+    keep (in the JAX package too)."""
+    _, cfg, _, params = moe_model
+    cfg = dataclasses.replace(
+        cfg, capacity_factor=cfg.num_experts / cfg.moe_top_k)
+    toks = torch.from_numpy(_prompts(2, 16, 2))
+    logits_f, _ = prefill(params, cfg, {"tokens": toks}, max_seq=24)
+    logits_r, cache_r = Engine(params, cfg, ServeConfig(max_seq=24),
+                               device="cpu").replay_prefill(toks)
+    np.testing.assert_allclose(logits_f.numpy(), logits_r.numpy(),
+                               rtol=2e-3, atol=2e-3)
+    assert int(cache_r["index"]) == 16
+
+
+def test_moe_generate_matches_jax(moe_model):
+    jcfg, cfg, jparams, params = moe_model
+    prompts = _prompts(3, 16, 1)
+    want = JaxEngine(jparams, jcfg, JaxServeConfig(
+        max_new_tokens=6, max_seq=32)).generate(prompts)
+    eng = Engine(params, cfg, ServeConfig(max_new_tokens=6, max_seq=32),
+                 device="cpu")
+    got = eng.generate(prompts)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(eng.generate(prompts), got)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "deepseek-v2-lite-16b"])
+def test_launcher_smoke_on_cpu_for_moe(arch, capsys):
+    out = serve.main(["--smoke", "--device", "cpu", "--arch", arch,
+                      "--batch", "2", "--prompt-len", "8", "--tokens", "3"])
+    assert out.shape == (2, 3)
+    assert f"{arch} on cpu" in capsys.readouterr().out
