@@ -6,7 +6,9 @@
 Drives the port's three paths (and, in phases 8d to 8g, the plan's
 streaming entry points, the clustering engine, the RPC server and the
 sharded backend on the first; in phases 14b to 14e the LM variants:
-decode over KV codebooks built by fastkmeans++, MLA and MoE).  Two go through the plan, each at the shape
+decode over KV codebooks built by fastkmeans++, MLA and MoE; in phases
+15a to 15d the rest of the model stack: RWKV-6, Mamba, the vlm prefix and
+the audio inputs).  Two go through the plan, each at the shape
 of the paper's smallest real dataset (KDD Cup, 311,029 x 74, generated
 here from a seed as `benchmarks/datasets.py` does) with k = 1000: the
 paper's Algorithm 4,
@@ -100,7 +102,8 @@ against its plain PyTorch version on the card.  In order:
      and read just after (2k, k and at least k - 1 launches), its indices
      live and distinct, its masked cost within 1e-4 of float64 over the
      live rows, a replay of its centers from `w0` through the kernels and
-     the plain sweeps (the same weights), seed 1 again (the same indices);
+     the plain sweeps (the same weights), seed 1 again (the same indices;
+     not repeated after the rebuild below, a cut for time);
      a from-scratch `prepare_data` of the live rows and its fit, timed
      beside; extend then retire of the same 10,000 rows (`w0` and the
      heap back bit for bit); an extend of 1,000 rows out of the frozen
@@ -171,9 +174,10 @@ against its plain PyTorch version on the card.  In order:
      and the two drift apart over the depth);
  14. reduced yi-9b in f32 on the card against the port on the CPU with
      the same weights: prefill logits to 1e-3 and the same greedy tokens;
- 14b. the clustered KV cache on yi-9b (phase 12's weights, `cluster_kv`
-     with C = 64, topc = 16): `prefill` of one 2,048-token prompt, then
-     `build_clustered_cache` for each of the 48 layers from its K/V (192
+ 14b. the clustered KV cache on yi-9b's first 24 layers (phase 12's
+     weights, depth cut from 48 for time, `cluster_kv` with C = 64, topc =
+     16): `prefill` of one 2,048-token prompt, then
+     `build_clustered_cache` for each of the 24 layers from its K/V (96
      fastkmeans++/device fits of k = 64 on 2,048 points of d = 128, 2
      Lloyd steps; exactly 128 `tree_sep_update` and 64
      `tree_sep_update_tiles` launches a fit), timed, with the dropped
@@ -184,10 +188,11 @@ against its plain PyTorch version on the card.  In order:
      after every center, tile sums to 1e-5), and the solo call forms at
      the last weights; 32 `decode_step`s over the stacked codebooks timed
      beside the plain decode at the same context, with the KV bytes each
-     reads a step; then, layer by layer with f32 activations over the bf16
-     weights, `attn_decode_clustered` at topc = C = 8 with a capacity of
-     S (nothing drops) against `attn_decode` on the same input, to 1e-3
-     of the layer's largest output;
+     reads a step; then, layer by layer through the first 8 layers with
+     f32 activations over the bf16 weights, `attn_decode_clustered` at
+     topc = C = 8 with a capacity of S (nothing drops) against
+     `attn_decode` on the same input, to 1e-3 of the layer's largest
+     output;
  14c. deepseek-v2-lite-16b at full width (27 layers, MLA with kv_lora 512,
      64 routed experts top-6 and 2 shared, the first layer dense;
      15,647,895,040 random bf16 parameters from seed 0): `prefill` on 4 x
@@ -204,13 +209,42 @@ against its plain PyTorch version on the card.  In order:
      (exactly 24 `flash_attention` launches), its steps timed apart, peak
      memory, no token routed to experts 60 to 63, and the kernel at the
      prefill's shape (4 x 2,048, 16 heads of 128, g = 1, bf16, causal)
-     against its plain version;
+     against its plain version, timed beside SDPA, with its bound;
  14e. reduced deepseek-v2-lite-16b and qwen2-moe-a2.7b in f32 on the card
      against the port on the CPU: the same greedy tokens, and prefill
      logits to 1e-3 on 2 x 16-token prompts (at 4 x 64 reduced
      qwen2-moe's logits move by about 6e-3 under 1e-7 relative weight
      noise on the CPU alone, PERF.md section 4);
- 15. one JSON line per the eight kernels, the card's line again, and last
+ 15a. rwkv6-3b at full width and depth (32 layers, d_model 2560, 40 wkv
+     heads of 64; 3,089,123,840 random bf16 parameters): `forward` on 4 x
+     2,048 tokens (the chunked wkv scan, no kernel), timed, the time mix of
+     one layer timed alone; `Engine.generate` on 4 prompts of 128 tokens,
+     32 new (the prompt replayed through `decode_step`, the states written
+     in place), timed, and the replay alone on the same prompts, timed (its
+     bf16 last logits against the forward's printed for information); and
+     the gate:
+     the forward's last logits against the replay's on the same prompts,
+     f32 activations over the bf16 weights, within 1e-3 of the largest;
+ 15b. jamba-1.5-large-398b at full width (d_model 8192, d_inner 16,384,
+     64 query heads over 8 KV heads, expert d_ff 24,576) cut to one period
+     of 8 of its 72 layers and 4 of its 16 experts, top-2 kept
+     (16,246,923,264 parameters): the same steps on 4 x 2,048 tokens
+     (exactly 1 `flash_attention` launch, the Mamba mixer timed per
+     layer), `generate` on 4 x 64 tokens, 16 new, and the same gate (MoE
+     capacity raised so that nothing drops);
+ 15c. paligemma-3b at full width and depth (18 layers; 2,511,022,080
+     parameters): `prefill` of 256 image patches (width 1152) ahead of 768
+     text tokens, 4 sequences (exactly 18 `flash_attention` launches with
+     the prefix of 256 attended fully), 32 decode steps, timed; row 8 at
+     that shape (q (4, 1024, 8, 256), k, v (4, 1024, 1, 256), bf16) with
+     prefixes 256, 200 (inside a query block) and 1000 against its plain
+     version, prefixes 0 and 1 bit-identical to the causal launch, its
+     numbers beside SDPA with a boolean mask;
+ 15d. hubert-xlarge at full width and depth (48 layers; 1,260,360,960
+     parameters): `forward` on 4 x 2,048 frame embeddings of width 512
+     (exactly 48 non-causal `flash_attention` launches, 16 heads of 80),
+     timed; row 8 at that shape against its plain version, its numbers;
+ 16. one JSON line per the eight kernels, the card's line again, and last
      ``{"ok": true, "device": {...}}``.  A row's `launches` is its main
      path's count, each path's counts set to 0 just before it and read
      just after: phase 8's rejection fit for rows 1 to 3, its k-means||
@@ -219,10 +253,13 @@ against its plain PyTorch version on the card.  In order:
      ``streaming`` (8d), ``engine`` (8e), ``service`` (8f), ``sharded``
      (8g: its rejection fit for rows 1 to 3, its k-means|| fit for row 5),
      ``generate`` (12), ``cluster_kv`` (14b's build), ``mla`` (14c's
-     prefill) and ``moe`` (14d's generate).  Row 8 also carries its
-     numbers at MLA's shape (``at_mla_shape``) and its error at
-     qwen2-moe's (``at_moe_shape``); its ``max_abs_err`` is the largest
-     of all its checks.
+     prefill), ``moe`` (14d's generate), ``rwkv6`` and ``jamba`` (15a's
+     and 15b's forward), ``paligemma`` (15c's prefill) and ``hubert``
+     (15d's forward).  Row 8 also carries its numbers at MLA's shape
+     (``at_mla_shape``), qwen2-moe's (``at_moe_shape``), paligemma's
+     with its prefix (``at_prefix_shape``) and hubert's
+     (``at_hubert_shape``); its ``max_abs_err`` is the largest of all its
+     checks.
 
 Any failure raises and exits non-zero before the last line is printed.
 Without CUDA, or without the rest of the repository beside it, the script
@@ -296,6 +333,9 @@ LAYER_TOL = 1e-3
 SMALL_TOL = 1e-3
 CKV_PROMPT, CKV_CLUSTERS, CKV_TOPC, CKV_STEPS = 2048, 64, 16, 32   # 14b
 CKV_EXACT_CLUSTERS = 8                  # 14b's exactness check: topc = C
+# 14b's depth, cut for time: the build and decode over yi-9b's first 24
+# of 48 layers, the exactness check over the first 8
+CKV_LAYERS, CKV_EXACT_LAYERS = 24, 8
 MOE_ARCHS = ("deepseek-v2-lite-16b", "qwen2-moe-a2.7b")
 MOE_BATCH, MOE_PROMPT = 4, 2048         # 14c's prefill, 14d's generate
 MOE_SHORT, MOE_SHORT_NEW = 64, 16       # 14c's generate (replay prefill)
@@ -306,6 +346,23 @@ MOE_SHORT, MOE_SHORT_NEW = 64, 16       # 14c's generate (replay prefill)
 MOE_GATE_SHAPE = (2, 16)
 DEEPSEEK_PARAMS = 15_647_895_040
 QWEN_MOE_PARAMS = 15_146_403_840
+# 15a and 15b: the chunked forward, then a replayed generate and its gate
+SSM_BATCH, SSM_FORWARD = 4, 2048
+SSM_PROMPT = {"rwkv6-3b": (128, 32), "jamba-1.5-large-398b": (64, 16)}
+# jamba-1.5-large-398b on one card: one period of its 72 layers, 4 of its
+# 16 experts (top-2 kept); every matrix keeps its full shape
+JAMBA_CUTS = {"num_layers": 8, "num_experts": 4}
+SSM_PARAMS = {"rwkv6-3b": 3_089_123_840,
+              "jamba-1.5-large-398b": 16_246_923_264}
+# the forward's last logits against the replay's, f32 activations over the
+# bf16 weights, as a share of the largest (f32 sums in other orders: the
+# chunked scans against the step recurrences)
+GATE_TOL = 1e-3
+VLM_PATCHES, VLM_TEXT, VLM_STEPS = 256, 768, 32       # 15c
+VLM_PREFIXES = (256, 200, 1000)        # the path's, inside a block, near S
+PALIGEMMA_PARAMS = 2_511_022_080
+AUDIO_FRAMES = 2048                    # 15d
+HUBERT_PARAMS = 1_260_360_960
 
 
 def log(*parts) -> None:
@@ -1815,11 +1872,13 @@ def streaming(torch, t_start, points) -> dict:
             f"the kernels and through the plain sweeps gives the same "
             f"weights; {int(dead.sum())} retired and padding rows stay 0")
 
-    def refit_checks(label, plan, prep, want):
+    def refit_checks(label, plan, prep, want, again=True):
         check_weights(label, prep.streaming)
         res, counts = refit(f"{label} fit_prepared(seed=1)", plan, prep, 1,
                             want)
         replay(label, prep.streaming, res.indices)
+        if not again:       # the repeated refit, cut for time
+            return res, counts
         again = plan.fit_prepared(prep, seed=1)
         if not torch.equal(again.indices, res.indices):
             raise AssertionError(f"{label}: seed 1 opened other indices the "
@@ -1871,7 +1930,7 @@ def streaming(torch, t_start, points) -> dict:
     log(f"  extend of {STREAM_OOD} rows out of the domain: rebuild over "
         f"{state.n_rows} rows in {ood_s:.3f} s (stream_rebuilds 1)")
     res_ood, _ = refit_checks("rejection stream after the rebuild", plan,
-                              prep, sweeps)
+                              prep, sweeps, again=False)
     if res_ood.extras["stream_rebuilds"] != 1:
         raise AssertionError(f"stream extras {res_ood.extras}")
     plan.forget(prep)
@@ -2367,12 +2426,14 @@ def service_phase(torch, t_start, points, stacked_plan) -> dict:
 
 
 def check_attention(torch, ops, ref, q, k, v, causal: bool, label: str,
-                    tol: float) -> float:
+                    tol: float, prefix_len: int = 0) -> float:
     """`attention_bshd` (the kernel) against its plain version on the same
     inputs, to `tol` absolute and relative; returns the max abs error."""
     scale = q.shape[-1] ** -0.5
-    out = ops.attention_bshd(q, k, v, scale=scale, causal=causal)
-    plain = ref.attention_bshd_ref(q, k, v, scale=scale, causal=causal)
+    out = ops.attention_bshd(q, k, v, scale=scale, causal=causal,
+                             prefix_len=prefix_len)
+    plain = ref.attention_bshd_ref(q, k, v, scale=scale, causal=causal,
+                                   prefix_len=prefix_len)
     torch.cuda.synchronize()
     err = float((out - plain).abs().max())
     if not bool(torch.isfinite(out).all()) or \
@@ -2694,12 +2755,20 @@ def serving_path(torch, t_start: float) -> dict:
     torch.cuda.empty_cache()
     # -- 14c to 14e. MLA and MoE at full width, then reduced ----------------
     paths["mla"], row["at_mla_shape"] = deepseek_phase(torch, t_start)
-    paths["moe"], moe_err = qwen_moe_phase(torch, t_start)
-    row["at_moe_shape"] = {"max_abs_err": moe_err}
-    row["max_abs_err"] = max(row["max_abs_err"], moe_err,
-                             row["at_mla_shape"]["max_abs_err"])
+    paths["moe"], row["at_moe_shape"] = qwen_moe_phase(torch, t_start)
     for arch in MOE_ARCHS:
         reduced_on_card(torch, arch, b, gate_shape=MOE_GATE_SHAPE)
+    # -- 15a to 15d. RWKV-6, Mamba, the vlm prefix and the audio inputs ----
+    paths["rwkv6"] = recurrent_phase(torch, t_start, "rwkv6-3b", {})
+    paths["jamba"] = recurrent_phase(torch, t_start, "jamba-1.5-large-398b",
+                                     JAMBA_CUTS)
+    paths["paligemma"], row["at_prefix_shape"] = paligemma_phase(torch,
+                                                                 t_start)
+    paths["hubert"], row["at_hubert_shape"] = hubert_phase(torch, t_start)
+    row["max_abs_err"] = max(
+        [row["max_abs_err"]] + [row[key]["max_abs_err"] for key in (
+            "at_mla_shape", "at_moe_shape", "at_prefix_shape",
+            "at_hubert_shape")])
     log("clocks/power after the serving path: " + smi(
         "clocks.sm,power.draw,power.limit,temperature.gpu"))
     return row, paths
@@ -2854,12 +2923,22 @@ def cluster_kv_phase(torch, t_start, params, cfg) -> dict:
 
     dev = torch.device("cuda")
     n, c, topc, steps = CKV_PROMPT, CKV_CLUSTERS, CKV_TOPC, CKV_STEPS
-    hk, hd, depth = cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
+    depth = CKV_LAYERS
+    cfg = dataclasses.replace(cfg, num_layers=depth)
+
+    def first_layers(tree):
+        return {key: first_layers(node) if isinstance(node, dict) else
+                node[:depth] for key, node in tree.items()}
+
+    params = dict(params,
+                  groups={"pos00": first_layers(params["groups"]["pos00"])})
+    hk, hd = cfg.num_kv_heads, cfg.head_dim
     ccfg = dataclasses.replace(cfg, cluster_kv=True, cluster_kv_clusters=c,
                                cluster_kv_topc=topc)
     kv_cfg = CA.ClusterKVConfig(num_clusters=c, topc=topc)
     log(f"[{time.perf_counter() - t_start:.1f} s] clustered KV on "
-        f"{cfg.name}: 1 prompt of {n} tokens, C = {c}, topc = {topc}")
+        f"{cfg.name}'s first {depth} layers: 1 prompt of {n} tokens, C = "
+        f"{c}, topc = {topc}")
     prompt = torch.as_tensor(np.random.default_rng(SEED + 1).integers(
         1, cfg.vocab_size, (1, n)), device=dev)
     logits, cache = prefill(params, cfg, {"tokens": prompt}, max_seq=n)
@@ -2959,7 +3038,7 @@ def cluster_kv_phase(torch, t_start, params, cfg) -> dict:
     t0 = time.perf_counter()
     with torch.inference_mode():
         x = params["embed"]["tokens"][prompt].to(torch.float32)
-        for layer in range(depth):
+        for layer in range(CKV_EXACT_LAYERS):
             lp = layer_slice(params["groups"]["pos00"], layer)
             h = apply_norm(lp["norm1"], x, ecfg)
             y_f, kv = attention.attn_forward(lp["attn"], h, ecfg,
@@ -2988,18 +3067,21 @@ def cluster_kv_phase(torch, t_start, params, cfg) -> dict:
             del kv, cc, plain
     torch.cuda.synchronize()
     exact_s = time.perf_counter() - t0
+    exact_fits = CKV_EXACT_LAYERS * hk
     expect_launches("the exactness check", ops.launch_counts(), {
-        "flash_attention": depth, "tree_sep_update": 2 * ce * fits,
-        "tree_sep_update_tiles": ce * fits})
+        "flash_attention": CKV_EXACT_LAYERS,
+        "tree_sep_update": 2 * ce * exact_fits,
+        "tree_sep_update_tiles": ce * exact_fits})
     if worst > LAYER_TOL:
         raise AssertionError(f"clustered decode against attn_decode: worst "
                              f"relative difference {worst}")
-    log(f"  exactness through all {depth} layers, f32 activations over the "
-        f"bf16 weights: attn_decode_clustered at topc = C = {ce}, capacity "
+    log(f"  exactness through the first {CKV_EXACT_LAYERS} layers, f32 "
+        f"activations over the bf16 weights: attn_decode_clustered at topc = C = {ce}, capacity "
         f"{m} (no drops), against attn_decode on the same input at "
         f"position {m}: worst max abs diff {worst:.3g} of the layer's "
         f"largest output (tol {LAYER_TOL}; layers 0 to 2: "
-        f"{', '.join(first_rel)}); {fits} more fits, {exact_s:.3f} s")
+        f"{', '.join(first_rel)}); {exact_fits} more fits, "
+        f"{exact_s:.3f} s")
     log(f"[{time.perf_counter() - t_start:.1f} s] clustered KV done")
     return counts
 
@@ -3012,28 +3094,16 @@ def deepseek_phase(torch, t_start) -> tuple:
     the kernel at MLA's shape against its plain version, SDPA and its
     bound.  Returns (the prefill's launch counts, the kernel's numbers at
     that shape)."""
-    import torch.nn.functional as F
-
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention_cuda as fa_cuda
     from repro_torch.kernels import ops, ref
-    from repro_torch.models import init_params, param_specs
     from repro_torch.serving.engine import Engine, ServeConfig
     from repro_torch.serving.prefill import prefill
 
     dev = torch.device("cuda")
     cfg = get_config("deepseek-v2-lite-16b")
     b, s = MOE_BATCH, MOE_PROMPT
-    if cfg.param_count() != DEEPSEEK_PARAMS:
-        raise AssertionError(f"{cfg.name}: {cfg.param_count()} parameters")
     log(f"[{time.perf_counter() - t_start:.1f} s] {cfg.name} at full width")
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    t0 = time.perf_counter()
-    params = init_params(param_specs(cfg), gen, torch.bfloat16, dev)
-    torch.cuda.synchronize()
-    log(f"  parameters: {cfg.param_count()} in bf16 drawn on the card in "
-        f"{time.perf_counter() - t0:.2f} s; "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    params, gen = draw_params(torch, cfg, DEEPSEEK_PARAMS)
     rng = np.random.default_rng(SEED)
     toks = torch.as_tensor(rng.integers(1, cfg.vocab_size, (b, s)),
                            device=dev)
@@ -3092,36 +3162,13 @@ def deepseek_phase(torch, t_start) -> tuple:
         torch.bfloat16)
     err = check_attention(torch, ops, ref, q, k, v, True,
                           "at MLA's prefill shape, causal", ATTN_TOL)
-    scale = d ** -0.5
-    ms = cuda_ms(torch, lambda i: fa_cuda.launch(q, k, v, scale=scale,
-                                                 causal=True), 20)
-    plain_ms = cuda_ms(torch, lambda i: ref.attention_bshd_ref(
-        q, k, v, scale=scale, causal=True), 3)
-    ms_again = cuda_ms(torch, lambda i: fa_cuda.launch(q, k, v, scale=scale,
-                                                       causal=True), 20)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    try:
-        lib_ms = cuda_ms(torch, lambda i: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, scale=scale), 20)
-    except RuntimeError as exc:     # the yardstick only, never in the port
-        log(f"  scaled_dot_product_attention refused v's width: {exc}")
-        lib_ms = None
-    ops_count = s * (s + 1) * (d + vd) * b * h
-    nbytes = 2 * (q.numel() + k.numel() + v.numel()) + 4 * b * s * h * vd
-    b_ms, b_by = bound(nbytes, ops_count, BF16_OPS_PER_S)
-    log(f"time flash_attention at MLA's shape (q, k {tuple(q.shape)}, v "
-        f"{tuple(v.shape)}, bf16, causal): kernel {ms:.6f} / "
-        f"{ms_again:.6f} ms, plain {plain_ms:.6f} ms, library "
-        f"(scaled_dot_product_attention, bf16 out) {lib_ms} ms, bound "
-        f"{b_ms:.6f} ms ({b_by}; {ops_count} operations on the bf16 tensor "
-        f"cores, {nbytes} bytes), {b_ms / min(ms, ms_again):.4f} of the "
-        f"bound")
-    del q, k, v, qt, kt, vt
+    numbers = attention_numbers(torch, q, k, v, causal=True,
+                                label="at MLA's shape (m)")
+    numbers["max_abs_err"] = err
+    del q, k, v
     torch.cuda.empty_cache()
     log(f"[{time.perf_counter() - t_start:.1f} s] {cfg.name} done")
-    return counts, {"ms": min(ms, ms_again), "plain_ms": plain_ms,
-                    "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
-                    "max_abs_err": err}
+    return counts, numbers
 
 
 def mla_layers(torch, params, cfg, short) -> float:
@@ -3192,29 +3239,21 @@ def qwen_moe_phase(torch, t_start) -> dict:
     on `MOE_BATCH` x `MOE_PROMPT` tokens, 32 new, greedy, twice with the
     same tokens (one flash launch a layer in the fused prefill), no token
     routed to a padded expert, and the engine's steps timed apart.  Returns
-    the generate's launch counts and the kernel's max abs error against its
-    plain version at the prefill's shape."""
+    the generate's launch counts and the kernel's numbers at the prefill's
+    shape (against its plain version, timed)."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops, ref
-    from repro_torch.models import decode_step, init_params, moe, param_specs
+    from repro_torch.models import decode_step, moe
     from repro_torch.serving.engine import Engine, ServeConfig
     from repro_torch.serving.prefill import prefill
 
     dev = torch.device("cuda")
     cfg = get_config("qwen2-moe-a2.7b")
     b, s, new = MOE_BATCH, MOE_PROMPT, SERVE_NEW
-    if cfg.param_count() != QWEN_MOE_PARAMS:
-        raise AssertionError(f"{cfg.name}: {cfg.param_count()} parameters")
     log(f"[{time.perf_counter() - t_start:.1f} s] {cfg.name} at full width")
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    t0 = time.perf_counter()
-    params = init_params(param_specs(cfg), gen, torch.bfloat16, dev)
-    torch.cuda.synchronize()
-    log(f"  parameters: {cfg.param_count()} in bf16 drawn on the card in "
-        f"{time.perf_counter() - t0:.2f} s; "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    params, gen = draw_params(torch, cfg, QWEN_MOE_PARAMS)
     prompts = np.random.default_rng(SEED).integers(
         1, cfg.vocab_size, (b, s)).astype(np.int32)
     serve = ServeConfig(max_new_tokens=new, max_seq=s + 40)
@@ -3272,10 +3311,374 @@ def qwen_moe_phase(torch, t_start) -> dict:
                for n in (cfg.num_heads, cfg.num_kv_heads, cfg.num_kv_heads))
     err = check_attention(torch, ops, ref, q, k, v, True,
                           f"at {cfg.name}'s prefill shape, causal", ATTN_TOL)
+    numbers = attention_numbers(torch, q, k, v, causal=True,
+                                label=f"at {cfg.name}'s prefill shape (q)")
+    numbers["max_abs_err"] = err
     del q, k, v
     torch.cuda.empty_cache()
     log(f"[{time.perf_counter() - t_start:.1f} s] {cfg.name} done")
-    return counts, err
+    return counts, numbers
+
+
+def attention_numbers(torch, q, k, v, *, causal: bool, label: str,
+                      prefix_len: int = 0) -> dict:
+    """Row 8 at one shape: the kernel's time (CUDA events, best of two
+    runs of 20 launches), the plain version's, one
+    `scaled_dot_product_attention` call's on the same inputs (a boolean
+    mask for a prefix; the yardstick only, the port never calls it) and
+    the bound: 2 (D + Dv) operations a visible (query, key) pair a head on
+    the bf16 tensor cores, or the bytes (each input read once, the f32
+    output written once)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention_cuda as fa_cuda
+    from repro_torch.kernels import ref
+
+    b, s, h, d = q.shape
+    dv = v.shape[3]
+    scale = d ** -0.5
+
+    def kernel(i):
+        fa_cuda.launch(q, k, v, scale=scale, causal=causal,
+                       prefix_len=prefix_len)
+
+    ms = cuda_ms(torch, kernel, 20)
+    plain_ms = cuda_ms(torch, lambda i: ref.attention_bshd_ref(
+        q, k, v, scale=scale, causal=causal, prefix_len=prefix_len), 3)
+    ms_again = cuda_ms(torch, kernel, 20)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    kw = {"scale": scale, "enable_gqa": k.shape[2] != h}
+    if prefix_len:
+        pos = torch.arange(s, device=q.device)
+        kw["attn_mask"] = ref.prefix_causal_mask(pos, pos, prefix_len)
+    else:
+        kw["is_causal"] = causal
+    try:
+        lib_ms = cuda_ms(torch, lambda i: F.scaled_dot_product_attention(
+            qt, kt, vt, **kw), 20)
+    except RuntimeError as exc:     # the yardstick only, never in the port
+        log(f"  scaled_dot_product_attention refused {label}: {exc}")
+        lib_ms = None
+    pairs = s * s if not causal else \
+        s * (s + 1) // 2 + prefix_len * (prefix_len - 1) // 2
+    ops_count = 2 * pairs * (d + dv) * b * h
+    nbytes = q.element_size() * (q.numel() + k.numel() + v.numel()) + \
+        4 * b * s * h * dv
+    b_ms, b_by = bound(nbytes, ops_count, BF16_OPS_PER_S)
+    log(f"time flash_attention {label}: q {tuple(q.shape)} k "
+        f"{tuple(k.shape)} v {tuple(v.shape)} {str(q.dtype)[6:]}, causal "
+        f"{causal}, prefix {prefix_len}: kernel {ms:.6f} / {ms_again:.6f} "
+        f"ms, plain {plain_ms:.6f} ms, library (scaled_dot_product_attention,"
+        f" bf16 out) {lib_ms} ms, bound {b_ms:.6f} ms ({b_by}; {pairs} "
+        f"visible pairs a head, {ops_count} operations on the bf16 tensor "
+        f"cores, {nbytes} bytes), {b_ms / min(ms, ms_again):.4f} of the "
+        f"bound")
+    return {"ms": min(ms, ms_again), "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def draw_params(torch, cfg, want: int):
+    """`cfg`'s random bf16 parameters drawn on the card from `SEED`, after
+    checking their count against `want`."""
+    from repro_torch.models import init_params, param_specs
+
+    if cfg.param_count() != want:
+        raise AssertionError(f"{cfg.name}: {cfg.param_count()} parameters")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = init_params(param_specs(cfg), gen, torch.bfloat16, dev)
+    torch.cuda.synchronize()
+    log(f"  parameters: {cfg.param_count()} in bf16 drawn on the card in "
+        f"{time.perf_counter() - t0:.2f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    return params, gen
+
+
+def mixer_times(torch, params, cfg, toks) -> None:
+    """Each block type's mixer alone on layer 0's normed input, the
+    chunked scan with its projections: ms a layer (CUDA events, best of
+    two runs of 2)."""
+    from repro_torch.models import mamba, rwkv6
+    from repro_torch.models.layers import apply_norm
+    from repro_torch.models.model import layer_slice
+    from repro_torch.models.transformer import layer_layout
+
+    positions = layer_layout(cfg).positions
+    with torch.inference_mode():
+        x = params["embed"]["tokens"][toks].to(torch.bfloat16)
+        for p, (bt, _) in enumerate(positions):
+            if bt == "attn" or bt in [t for t, _ in positions[:p]]:
+                continue
+            layer = layer_slice(params["groups"][f"pos{p:02d}"], 0)
+            h = apply_norm(layer["norm1"], x, cfg)
+            if bt == "mamba":
+                mix = lambda i: mamba.mamba_forward(layer["mixer"], h, cfg)
+            else:
+                mix = lambda i: rwkv6.rwkv_time_forward(layer["time_mix"], h,
+                                                        cfg)
+            mix_ms = min(cuda_ms(torch, mix, 2), cuda_ms(torch, mix, 2))
+            log(f"  {bt} mixer of one layer (the chunked scan and its "
+                f"projections) on {tuple(toks.shape)} tokens: "
+                f"{mix_ms:.3f} ms")
+
+
+def recurrent_phase(torch, t_start, arch: str, cuts: dict) -> dict:
+    """Phases 15a (rwkv6-3b at full width and depth) and 15b
+    (jamba-1.5-large-398b at full width, cut by `cuts`): `forward` on
+    `SSM_BATCH` x `SSM_FORWARD` tokens (the chunked scans; one
+    `flash_attention` launch for each attention layer), timed, with each
+    block type's mixer timed alone on layer 0; `Engine.generate` (the
+    prompt replayed through `decode_step`, no kernel), timed whole, and
+    `Engine.replay_prefill` alone on the same prompts, timed; and the gate:
+    the forward's last logits against the replay's on the same prompts,
+    f32 activations over the
+    bf16 weights, within `GATE_TOL` of the largest (MoE capacity raised so
+    that nothing drops, since the forward's one window and the replay's
+    windows of one token drop differently).  Returns the forward's launch
+    counts."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import forward
+    from repro_torch.models.transformer import layer_layout
+    from repro_torch.serving.engine import Engine, ServeConfig
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config(arch), **cuts)
+    layout = layer_layout(cfg)
+    n_attn = layout.num_groups * sum(bt == "attn" for bt, _ in
+                                     layout.positions)
+    log(f"[{time.perf_counter() - t_start:.1f} s] {cfg.name} at full width"
+        + (f", cut to {cuts}" if cuts else " and depth"))
+    params, _ = draw_params(torch, cfg, SSM_PARAMS[arch])
+    rng = np.random.default_rng(SEED)
+    b, s = SSM_BATCH, SSM_FORWARD
+    toks = torch.as_tensor(rng.integers(1, cfg.vocab_size, (b, s)),
+                           device=dev)
+    forward(params, cfg, {"tokens": toks[:, :64]})           # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, _, _ = forward(params, cfg, {"tokens": toks})
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    expect_launches(f"{cfg.name} forward", counts,
+                    {"flash_attention": n_attn})
+    if logits.shape != (b, s, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{cfg.name} forward: bad logits")
+    log(f"  forward {b} x {s} tokens: {fwd_s:.4f} s "
+        f"({b * s / fwd_s:.1f} tokens/s), launches "
+        f"{ {k: v for k, v in counts.items() if v} }; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    del logits
+
+    mixer_times(torch, params, cfg, toks)
+    prompt, new = SSM_PROMPT[arch]
+    prompts = rng.integers(1, cfg.vocab_size, (b, prompt)).astype(np.int32)
+    eng = Engine(params, cfg, ServeConfig(max_new_tokens=new,
+                                          max_seq=prompt + new + 8))
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    tokens = eng.generate(prompts)
+    gen_s = time.perf_counter() - t0
+    expect_launches(f"{cfg.name} generate (replay prefill)",
+                    ops.launch_counts(), {})
+    if tokens.shape != (b, new) or tokens.max() >= cfg.vocab_size:
+        raise AssertionError(f"{cfg.name} generate: bad tokens {tokens}")
+    # The replay alone on the same prompts: its seconds, and its last
+    # logits for the bf16 comparison below.
+    short = torch.as_tensor(prompts, dtype=torch.int64, device=dev)
+    t0 = time.perf_counter()
+    last = eng.replay_prefill(short)[0]
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    decode_s = gen_s - replay_s
+    log(f"  generate: {b} prompts x {prompt} tokens, {new} new each: "
+        f"{gen_s:.4f} s; the replay prefill alone {replay_s:.4f} s "
+        f"({replay_s / prompt * 1e3:.3f} ms a step), the rest {new} decode "
+        f"steps {decode_s:.4f} s ({decode_s / new * 1e3:.3f} ms a step of "
+        f"{b} tokens); first sequence starts {tokens[0, :8].tolist()}")
+
+    # The gate: forward (the chunked scans) against replay (the step
+    # recurrences, the states written in place) on the same prompts, in f32
+    # activations; in bf16 against the replay above, for information.
+    gcfg = dataclasses.replace(cfg, dtype="float32")
+    if cfg.num_experts:
+        gcfg = dataclasses.replace(
+            gcfg, capacity_factor=cfg.num_experts / cfg.moe_top_k)
+    info = {}
+    for label, c in (("f32 activations", gcfg), ("bf16", cfg)):
+        lf = forward(params, c, {"tokens": short})[0][:, -1].float()
+        lr = last if c is cfg else Engine(
+            params, c, ServeConfig(max_seq=prompt + 8)).replay_prefill(
+                short)[0]
+        lr = lr.float()
+        info[label] = (float((lf - lr).abs().max() / lf.abs().max()),
+                       int((lf.argmax(-1) == lr.argmax(-1)).sum()))
+    rel, same = info["f32 activations"]
+    if not rel <= GATE_TOL:
+        raise AssertionError(f"{cfg.name}: forward against replay {rel}")
+    log(f"  gate: the forward's last logits against the replay's on {b} x "
+        f"{prompt} tokens, f32 activations over the bf16 weights: max abs "
+        f"diff {rel:.3g} of the largest (tol {GATE_TOL}), argmax equal in "
+        f"{same} of {b} rows; in bf16 (information) {info['bf16'][0]:.3g}, "
+        f"argmax equal in {info['bf16'][1]} of {b}")
+    del params, eng, last, toks, short
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[{time.perf_counter() - t_start:.1f} s] {cfg.name} done")
+    return counts
+
+
+def paligemma_phase(torch, t_start) -> tuple:
+    """Phase 15c: paligemma-3b at full width and depth: `prefill` of
+    `VLM_PATCHES` image patches ahead of `VLM_TEXT` text tokens, 4
+    sequences (one `flash_attention` launch a layer with the prefix of
+    full attention), then `VLM_STEPS` decode steps, timed; then row 8 at
+    the prefill's shape against its plain version with the path's prefix,
+    one that ends inside a query block and one near S, prefixes 0 and 1
+    bit-identical to the causal launch, and its numbers.  Returns (the
+    prefill's launch counts, the kernel's numbers at this shape)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import decode_step
+    from repro_torch.serving.prefill import prefill
+
+    dev = torch.device("cuda")
+    cfg = get_config("paligemma-3b")
+    b, s = SSM_BATCH, VLM_PATCHES + VLM_TEXT
+    log(f"[{time.perf_counter() - t_start:.1f} s] {cfg.name} at full width "
+        "and depth")
+    params, gen = draw_params(torch, cfg, PALIGEMMA_PARAMS)
+    rng = np.random.default_rng(SEED)
+    batch = {"patches": torch.randn((b, VLM_PATCHES, cfg.frontend_dim),
+                                    generator=gen, device=dev).to(
+                                        torch.bfloat16),
+             "tokens": torch.as_tensor(rng.integers(
+                 1, cfg.vocab_size, (b, VLM_TEXT)), device=dev)}
+    prefill(params, cfg, {"patches": batch["patches"][:1],
+                          "tokens": batch["tokens"][:1, :256]})  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    last, cache = prefill(params, cfg, batch, max_seq=s + VLM_STEPS + 8)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    expect_launches(f"{cfg.name} prefill", counts,
+                    {"flash_attention": cfg.num_layers})
+    if int(cache["index"]) != s or not bool(torch.isfinite(last).all()):
+        raise AssertionError(f"{cfg.name} prefill: index "
+                             f"{int(cache['index'])}, or logits not finite")
+    cur = torch.argmax(last, dim=-1)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(VLM_STEPS):
+        step, cache = decode_step(params, cfg, cur, cache)
+        cur = torch.argmax(step, dim=-1)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t1
+    expect_launches(f"{cfg.name} decode", ops.launch_counts(), {})
+    if int(cache["index"]) != s + VLM_STEPS or \
+            not bool(torch.isfinite(step).all()):
+        raise AssertionError(f"{cfg.name} decode: bad steps")
+    log(f"  prefill {b} x ({VLM_PATCHES} patches + {VLM_TEXT} text tokens), "
+        f"prefix {cfg.prefix_len}: {prefill_s:.4f} s "
+        f"({b * s / prefill_s:.1f} tokens/s), launches "
+        f"{ {k: v for k, v in counts.items() if v} }; {VLM_STEPS} decode "
+        f"steps {decode_s:.4f} s ({decode_s / VLM_STEPS * 1e3:.3f} ms a step "
+        f"of {b} tokens); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    del params, cache, last, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Row 8 at the prefill's shape: 8 query heads over 1 KV head of 256.
+    q, k, v = (torch.randn((b, s, n, cfg.head_dim), generator=gen,
+                           device=dev).to(torch.bfloat16)
+               for n in (cfg.num_heads, cfg.num_kv_heads, cfg.num_kv_heads))
+    err = max(check_attention(torch, ops, ref, q, k, v, True,
+                              f"at {cfg.name}'s prefill shape, prefix {p}",
+                              ATTN_TOL, prefix_len=p) for p in VLM_PREFIXES)
+    scale = cfg.head_dim ** -0.5
+    causal = ops.attention_bshd(q, k, v, scale=scale, causal=True)
+    for p in (0, 1):
+        if not torch.equal(ops.attention_bshd(q, k, v, scale=scale,
+                                              causal=True, prefix_len=p),
+                           causal):
+            raise AssertionError(f"flash_attention: prefix {p} is not the "
+                                 "causal launch bit for bit")
+    log("flash_attention: prefixes 0 and 1 bit-identical to the causal "
+        "launch")
+    numbers = attention_numbers(torch, q, k, v, causal=True,
+                                prefix_len=cfg.prefix_len,
+                                label=f"at {cfg.name}'s prefill shape (p)")
+    numbers["max_abs_err"] = err
+    del q, k, v, causal
+    torch.cuda.empty_cache()
+    log(f"[{time.perf_counter() - t_start:.1f} s] {cfg.name} done")
+    return counts, numbers
+
+
+def hubert_phase(torch, t_start) -> tuple:
+    """Phase 15d: hubert-xlarge at full width and depth: `forward` on
+    `SSM_BATCH` x `AUDIO_FRAMES` frame embeddings (one non-causal
+    `flash_attention` launch a layer, 16 heads of 80), timed; then row 8
+    at that shape against its plain version, and its numbers.  Returns
+    (the forward's launch counts, the kernel's numbers at this shape)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import forward
+
+    dev = torch.device("cuda")
+    cfg = get_config("hubert-xlarge")
+    b, s = SSM_BATCH, AUDIO_FRAMES
+    log(f"[{time.perf_counter() - t_start:.1f} s] {cfg.name} at full width "
+        "and depth")
+    params, gen = draw_params(torch, cfg, HUBERT_PARAMS)
+    frames = torch.randn((b, s, cfg.frontend_dim), generator=gen,
+                         device=dev).to(torch.bfloat16)
+    forward(params, cfg, {"embeddings": frames[:1, :1024]})      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out, _, _ = forward(params, cfg, {"embeddings": frames})
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    expect_launches(f"{cfg.name} forward", counts,
+                    {"flash_attention": cfg.num_layers})
+    if out.shape != (b, s, cfg.vocab_size) or \
+            not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{cfg.name} forward: bad outputs")
+    log(f"  forward {b} x {s} frames: {fwd_s:.4f} s "
+        f"({b * s / fwd_s:.1f} frames/s), launches "
+        f"{ {k: v for k, v in counts.items() if v} }; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    del params, out, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    q, k, v = (torch.randn((b, s, cfg.num_heads, cfg.head_dim),
+                           generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    err = check_attention(torch, ops, ref, q, k, v, False,
+                          f"at {cfg.name}'s shape, non-causal", ATTN_TOL)
+    numbers = attention_numbers(torch, q, k, v, causal=False,
+                                label=f"at {cfg.name}'s shape (h)")
+    numbers["max_abs_err"] = err
+    del q, k, v
+    torch.cuda.empty_cache()
+    log(f"[{time.perf_counter() - t_start:.1f} s] {cfg.name} done")
+    return counts, numbers
 
 
 def main() -> int:

@@ -7,11 +7,16 @@
 // query row i of every (batch, head):
 //
 //   s[i, j] = scale * (q[i] . k[j])
-//   s[i, j] = -1e30 where causal and j > i   (not -inf, as the reference)
+//   s[i, j] = -1e30 where causal and j > last(i)   (not -inf, as the
+//             reference), last(i) = P - 1 for i < P, else i
 //   out[i]  = sum_j exp(s[i, j] - m) v[j] / max(sum_j exp(s[i, j] - m), 1e-30)
 //
 // with the running max m and sum l carried over key tiles as the reference
-// does (alpha = exp(m_prev - m_new)).  The output is f32.  GQA: query head
+// does (alpha = exp(m_prev - m_new)).  P is the prefix of full attention
+// (paligemma's image patches and prompt, the JAX package's `prefix_len`):
+// its rows see every key below P, the JAX mask (i >= j) | (i < P & j < P);
+// P = 0 is the plain causal mask, with the same tiles and the same bits.
+// The output is f32.  GQA: query head
 // h reads key/value head h / (H / Hk).  q, k and v are read through their
 // (batch, seq, head) strides with the head dimension contiguous, so the
 // model's (B, S, H, D) layout and the TPU kernel's (BH, S, D) layout both
@@ -62,10 +67,12 @@
 //   - The running max and sum live on the accumulator fragments (rows
 //     lane / 4 and lane / 4 + 8 of the warp's 16), reduced across the quad
 //     of lanes that share a row by two xor shuffles.
-//   - Causal: tiles wholly above the diagonal are never loaded, a warp
-//     skips the products of a tile that lies above all its rows, and only
-//     tiles that cross the diagonal (or the ragged end) are masked, with
-//     -1e30.  The longest query blocks, the last ones, are scheduled
+//   - Causal: tiles wholly past the block's last visible key are never
+//     loaded, a warp skips the products of a tile past all its rows' last
+//     keys, and only tiles past the warp's first row's last key (or at the
+//     ragged end) are masked, with -1e30.  With a prefix, last(i) is
+//     nondecreasing in i, so a block's or a warp's first and last rows
+//     bound these tests, and a block that straddles P takes both rules.  The longest query blocks, the last ones, are scheduled
 //     first, so that the grid's tail is short.
 //   - Any D in 1..256: the head dimension is zero-padded in shared memory
 //     to 64, 128 or 256 (zero columns add nothing to a score, and padded
@@ -103,6 +110,12 @@ constexpr float kLog2e = 1.4426950408889634f;
 struct Strides {
   long long b, s, h;
 };
+
+// The last key that query row `row` sees under the causal mask with a
+// prefix of `prefix` rows of full attention.
+__device__ __forceinline__ int last_key(int row, int prefix) {
+  return row < prefix ? prefix - 1 : row;
+}
 
 // ---------------------------------------------------------------------------
 // f32: plain SIMT
@@ -149,7 +162,7 @@ __global__ void __launch_bounds__(kThreads)
     simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, float* __restrict__ out, int S,
                 int H, int Hk, int D, int Dv, Strides qs_, Strides ks_,
-                Strides vs_, float scale, int causal) {
+                Strides vs_, float scale, int causal, int prefix) {
   extern __shared__ float smem[];
   const int ld = D + 1;
   float* qs = smem;             // kBQ x ld, the scaled queries
@@ -178,9 +191,9 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = 0; c < NC; ++c) acc[i][c] = 0.0f;
   }
 
-  // Causal: tiles starting past the block's last row lie wholly above
-  // the diagonal and are skipped.
-  const int k_end = causal ? min(S, q0 + kBQ) : S;
+  // Causal: tiles starting past the block's last visible key are masked
+  // for every row and skipped.
+  const int k_end = causal ? min(S, last_key(q0 + kBQ - 1, prefix) + 1) : S;
   for (int k0 = 0; k0 < k_end; k0 += kBK) {
     __syncthreads();  // q is staged; the last tile's V and p are read
     load_tile_f32(kvs, kb, ks_.s, k0, S, D, D, 1.0f);
@@ -211,7 +224,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kpos = k0 + tx + 16 * j;
-        if (kpos >= S || (causal && kpos > qpos)) s[i][j] = kNegInf;
+        if (kpos >= S || (causal && kpos > last_key(qpos, prefix)))
+          s[i][j] = kNegInf;
         mx = fmaxf(mx, s[i][j]);
       }
       const float m_new = fmaxf(m[i], half_warp_max(mx));
@@ -268,7 +282,7 @@ template <int NC>
 int launch_simt(const float* q, const float* k, const float* v, float* out,
                 int B, int S, int H, int Hk, int D, int Dv, Strides qs_,
                 Strides ks_, Strides vs_, float scale, int causal,
-                cudaStream_t stream) {
+                int prefix, cudaStream_t stream) {
   const int smem = static_cast<int>(sizeof(float)) *
                    ((kBQ + kBK) * (D + 1) + kBQ * kPStride);
   cudaError_t err = cudaFuncSetAttribute(
@@ -276,7 +290,7 @@ int launch_simt(const float* q, const float* k, const float* v, float* out,
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
   simt_kernel<NC><<<grid, kThreads, smem, stream>>>(
-      q, k, v, out, S, H, Hk, D, Dv, qs_, ks_, vs_, scale, causal);
+      q, k, v, out, S, H, Hk, D, Dv, qs_, ks_, vs_, scale, causal, prefix);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -434,7 +448,7 @@ __device__ __forceinline__ void tile_step(
     float (&s)[BK / 8][4], float (&sn)[BK / 8][4], float (&acc)[DP / 8][4],
     float (&m)[2], float (&l)[2], const uint32_t (&qf)[QN][4], uint32_t q_lane,
     uint32_t k_next, uint32_t v_lane, float scale_log2, int k0, int S,
-    int causal, int row_a, int lane) {
+    int causal, int prefix, int row_a, int lane) {
   constexpr int NS = BK / 8;
   constexpr int NO = DP / 8;
   tile_scores<DP, BK, LD, kQInRegs>(sn, qf, q_lane, k_next);
@@ -449,7 +463,8 @@ __device__ __forceinline__ void tile_step(
       if (kMask) {
         const int key = k0 + j * 8 + (lane & 3) * 2 + (e & 1);
         const int row = row_a + (e >> 1) * 8;
-        x = (key >= S || (causal && key > row)) ? kNegInf : x;
+        x = (key >= S || (causal && key > last_key(row, prefix))) ? kNegInf
+                                                                  : x;
       }
       s[j][e] = x;
       mx[e >> 1] = fmaxf(mx[e >> 1], x);
@@ -512,7 +527,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
               const __nv_bfloat16* __restrict__ v, float* __restrict__ out,
               int B, int S, int H, int Hk, int D, int Dv, Strides qs_,
               Strides ks_, Strides vs_, float scale_log2, int causal,
-              int vec_in) {
+              int prefix, int vec_in) {
   using C = Tc<DP>;
   constexpr int BK = C::kBK;
   constexpr int LD = C::kLd;
@@ -540,7 +555,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   const __nv_bfloat16* kg = k + b * ks_.b + hk * ks_.h;
   const __nv_bfloat16* vg = v + b * vs_.b + hk * vs_.h;
 
-  const int k_end = causal ? min(S, q0 + kTcBQ) : S;
+  const int k_end =
+      causal ? min(S, last_key(q0 + kTcBQ - 1, prefix) + 1) : S;
   const int n_tiles = (k_end + BK - 1) / BK;
 
   // Q and K(0), then V(0) and K(1): tile j's V and tile j + 1's K arrive
@@ -596,21 +612,21 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     cp_async_commit();
 
     const int k0 = t * BK;
-    // A warp whose last row comes before this tile's first key is done:
-    // every later tile is masked for it too.
-    if (causal && k0 > wrow0 + 15) continue;
+    // A warp whose rows' last keys all come before this tile's first key
+    // is done: every later tile is masked for it too.
+    if (causal && k0 > last_key(wrow0 + 15, prefix)) continue;
     const uint32_t k_next = k_lane + ((t + 1) & 1) * kStage;
     const uint32_t v_cur = v_lane + (t & 1) * kStage;
     // The next tile's scores are computed even past the last tile (on a
     // stale stage, never read), so that the step is one straight block.
-    if (k0 + BK > S || (causal && k0 + BK - 1 > wrow0))
+    if (k0 + BK > S || (causal && k0 + BK - 1 > last_key(wrow0, prefix)))
       tile_step<DP, BK, LD, kQReg, true>(s, sn, acc, m, l, qf, q_lane,
                                          k_next, v_cur, scale_log2, k0, S,
-                                         causal, row_a, lane);
+                                         causal, prefix, row_a, lane);
     else
       tile_step<DP, BK, LD, kQReg, false>(s, sn, acc, m, l, qf, q_lane,
                                           k_next, v_cur, scale_log2, k0, S,
-                                          causal, row_a, lane);
+                                          causal, prefix, row_a, lane);
 #pragma unroll
     for (int j = 0; j < NS; ++j)
 #pragma unroll
@@ -648,7 +664,8 @@ template <int DP>
 int launch_tc(const __nv_bfloat16* q, const __nv_bfloat16* k,
               const __nv_bfloat16* v, float* out, int B, int S, int H, int Hk,
               int D, int Dv, Strides qs_, Strides ks_, Strides vs_,
-              float scale, int causal, int vec, cudaStream_t stream) {
+              float scale, int causal, int prefix, int vec,
+              cudaStream_t stream) {
   constexpr int smem = Tc<DP>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
       tc_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -658,7 +675,7 @@ int launch_tc(const __nv_bfloat16* q, const __nv_bfloat16* k,
   const unsigned grid = static_cast<unsigned>(nqb * H * B);
   tc_kernel<DP><<<grid, kTcThreads, smem, stream>>>(
       q, k, v, out, B, S, H, Hk, D, Dv, qs_, ks_, vs_, scale * kLog2e,
-      causal, vec);
+      causal, prefix, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -667,15 +684,16 @@ int launch_tc(const __nv_bfloat16* q, const __nv_bfloat16* k,
 // q (B, S, H, D), k (B, S, Hk, D) and v (B, S, Hk, Dv), read through
 // `strides`: nine element strides, (batch, seq, head) of q, then of k,
 // then of v; the head dimension is contiguous.  out is a contiguous
-// (B, S, H, Dv) f32.  1 <= Dv <= D <= 256 and H % Hk == 0 (the Python
-// binding checks them).  Returns the cudaError_t of the attribute call or
+// (B, S, H, Dv) f32.  1 <= Dv <= D <= 256, H % Hk == 0 and
+// 0 <= prefix <= S (the Python binding checks them); `prefix` matters only
+// when `causal`.  Returns the cudaError_t of the attribute call or
 // the launch.
 extern "C" int flash_attention_f32_launch(const float* q, const float* k,
                                           const float* v, float* out, int B,
                                           int S, int H, int Hk, int D, int Dv,
                                           const long long* strides,
                                           float scale, int causal,
-                                          void* stream) {
+                                          int prefix, void* stream) {
   if (B <= 0 || S <= 0) return 0;
   const Strides qs_{strides[0], strides[1], strides[2]};
   const Strides ks_{strides[3], strides[4], strides[5]};
@@ -683,12 +701,12 @@ extern "C" int flash_attention_f32_launch(const float* q, const float* k,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D <= 64)
     return launch_simt<4>(q, k, v, out, B, S, H, Hk, D, Dv, qs_, ks_, vs_,
-                          scale, causal, st);
+                          scale, causal, prefix, st);
   if (D <= 128)
     return launch_simt<8>(q, k, v, out, B, S, H, Hk, D, Dv, qs_, ks_, vs_,
-                          scale, causal, st);
+                          scale, causal, prefix, st);
   return launch_simt<16>(q, k, v, out, B, S, H, Hk, D, Dv, qs_, ks_, vs_,
-                         scale, causal, st);
+                         scale, causal, prefix, st);
 }
 
 extern "C" int flash_attention_bf16_launch(const void* q, const void* k,
@@ -696,7 +714,7 @@ extern "C" int flash_attention_bf16_launch(const void* q, const void* k,
                                            int S, int H, int Hk, int D,
                                            int Dv, const long long* strides,
                                            float scale, int causal,
-                                           void* stream) {
+                                           int prefix, void* stream) {
   if (B <= 0 || S <= 0) return 0;
   const Strides qs_{strides[0], strides[1], strides[2]};
   const Strides ks_{strides[3], strides[4], strides[5]};
@@ -712,10 +730,10 @@ extern "C" int flash_attention_bf16_launch(const void* q, const void* k,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D <= 64)
     return launch_tc<64>(qb, kb, vb, out, B, S, H, Hk, D, Dv, qs_, ks_, vs_,
-                         scale, causal, vec, st);
+                         scale, causal, prefix, vec, st);
   if (D <= 128)
     return launch_tc<128>(qb, kb, vb, out, B, S, H, Hk, D, Dv, qs_, ks_, vs_,
-                          scale, causal, vec, st);
+                          scale, causal, prefix, vec, st);
   return launch_tc<256>(qb, kb, vb, out, B, S, H, Hk, D, Dv, qs_, ks_, vs_,
-                        scale, causal, vec, st);
+                        scale, causal, prefix, vec, st);
 }

@@ -35,8 +35,8 @@ def _fn(name: str):
     fn = _bound.get(name)
     if fn is None:
         fn = getattr(_build.library("flash_attention"), name)
-        fn.argtypes = [_P] * 4 + [ctypes.c_int] * 6 + [_P, ctypes.c_float,
-                                                        ctypes.c_int, _P]
+        fn.argtypes = [_P] * 4 + [ctypes.c_int] * 6 + [
+            _P, ctypes.c_float, ctypes.c_int, ctypes.c_int, _P]
         fn.restype = ctypes.c_int
         _bound[name] = fn
     return fn
@@ -50,12 +50,13 @@ def _check(name: str, t, dtype, shape) -> None:
 
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-           scale: float, causal: bool) -> torch.Tensor:
+           scale: float, causal: bool, prefix_len: int = 0) -> torch.Tensor:
     """Attention of q (B, S, H, D) over k (B, S, Hk, D) and v
-    (B, S, Hk, Dv): (B, S, H, Dv) f32.
+    (B, S, Hk, Dv): (B, S, H, Dv) f32.  Causal, the first `prefix_len`
+    positions also see each other (the vlm prefix).
 
     q, k and v are all f32 or all bf16; 1 <= Dv <= D <= `MAX_D`; Hk
-    divides H.
+    divides H; `prefix_len` >= 0.
     """
     if not isinstance(q, torch.Tensor) or q.dtype not in DTYPES:
         raise TypeError(f"q must be a tensor of one of "
@@ -75,6 +76,8 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"v's head dimension {dv} outside 1..{d} (q's)")
     if hk < 1 or h % hk:
         raise ValueError(f"{hk} KV heads do not divide {h} query heads")
+    if prefix_len < 0:
+        raise ValueError(f"prefix_len {prefix_len} is negative")
     check_cuda(q, k, v)
     out = torch.empty((b, s, h, dv), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 9)(*q.stride()[:3], *k.stride()[:3],
@@ -82,5 +85,5 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     launch_on("flash_attention", q.device, _fn(DTYPES[q.dtype]),
               q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
               h, hk, d, dv, ctypes.cast(strides, _P), float(scale),
-              int(bool(causal)))
+              int(bool(causal)), min(int(prefix_len), s))
     return out

@@ -334,21 +334,20 @@ def attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    prefix_len: int = 0) -> torch.Tensor:
     """The model's attention: q (B, S, H, D) over k (B, S, Hk, D) and v
     (B, S, Hk, Dv), Dv <= D (MLA's v is narrower than its q and k), GQA
-    head h reading KV head h // (H // Hk); (B, S, H, Dv) f32 out.
+    head h reading KV head h // (H // Hk); (B, S, H, Dv) f32 out.  Causal,
+    the first `prefix_len` positions (the vlm prefix) also see each other,
+    as the JAX package masks them; `prefix_len` does nothing non-causal.
 
     The CUDA kernel reads all three through their strides, so nothing is
-    copied.  `prefix_len` > 0 (the vlm prefix with full attention) is not
-    ported yet.
+    copied.
     """
-    if prefix_len:
-        raise NotImplementedError(
-            "attention over a vlm prefix (prefix_len > 0) is not ported "
-            "yet: ROADMAP Queue 1 item 11 (the vlm prefix)")
     if not _on_card(q):
-        return ref.attention_bshd_ref(q, k, v, scale=scale, causal=causal)
+        return ref.attention_bshd_ref(q, k, v, scale=scale, causal=causal,
+                                      prefix_len=prefix_len)
     from repro_torch.kernels import flash_attention_cuda as binding
 
-    out = binding.launch(q, k, v, scale=scale, causal=causal)
+    out = binding.launch(q, k, v, scale=scale, causal=causal,
+                         prefix_len=prefix_len)
     LAUNCHES["flash_attention"] += 1
     return out
 

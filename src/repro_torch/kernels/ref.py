@@ -283,31 +283,47 @@ def lsh_bucket_accept_lanes_penalty_ref(q_keys_lo, q_keys_hi, q, lanes,
     return d2_min, p
 
 
+def prefix_causal_mask(q_pos: torch.Tensor, kv_pos: torch.Tensor,
+                       prefix_len: int) -> torch.Tensor:
+    """Which keys each query sees under the causal mask with a prefix of
+    full attention, the JAX package's ``(q >= k) | (q < P & k < P)``
+    (`models/attention.py`): (len(q_pos), len(kv_pos)) bool."""
+    keep = q_pos[:, None] >= kv_pos[None, :]
+    if prefix_len:
+        keep = keep | ((q_pos[:, None] < prefix_len)
+                       & (kv_pos[None, :] < prefix_len))
+    return keep
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        scale: float, causal: bool = True) -> torch.Tensor:
+                        scale: float, causal: bool = True,
+                        prefix_len: int = 0) -> torch.Tensor:
     """Exact softmax attention on (BH, S, D), f32 out: the oracle of the
     flash kernel, as the JAX package's `flash_attention_ref`.  q is widened
-    to f32 and then scaled; masked scores are -1e30."""
+    to f32 and then scaled; masked scores are -1e30.  Causal, the first
+    `prefix_len` positions also see each other."""
     qf = q.to(torch.float32) * scale
     with full_f32_matmul():
         s = qf @ k.to(torch.float32).transpose(1, 2)
         if causal:
-            n = q.shape[1]
-            keep = torch.ones(n, n, dtype=torch.bool, device=q.device).tril()
+            pos = torch.arange(q.shape[1], device=q.device)
+            keep = prefix_causal_mask(pos, pos, prefix_len)
             s = torch.where(keep, s, NEG_INF)
         return torch.softmax(s, dim=-1) @ v.to(torch.float32)
 
 
 def attention_bshd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                       scale: float, causal: bool,
+                       scale: float, causal: bool, prefix_len: int = 0,
                        chunk: int = KV_CHUNK) -> torch.Tensor:
     """The model's attention, q (B, S, H, D) over k, v (B, S, Hk, D) ->
     (B, S, H, D) f32: the online-softmax scan over key chunks of the JAX
     package's `models/attention.py:_flash_attention`.
 
     Query head h reads KV head h // (H // Hk), the order of
-    ``q.reshape(b, s, hk, g, d)``.  The last chunk may be short, so any S
-    runs here; the model keeps the JAX package's rule on S.
+    ``q.reshape(b, s, hk, g, d)``.  Causal, the first `prefix_len`
+    positions also see each other (`prefix_causal_mask`).  The last chunk
+    may be short, so any S runs here; the model keeps the JAX package's
+    rule on S.
     """
     b, s, h, d = q.shape
     hk, dv = k.shape[2], v.shape[3]
@@ -325,7 +341,7 @@ def attention_bshd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             scores = torch.einsum("bqkgd,bskd->bqkgs", qg, kb)
             if causal:
                 kv_pos = torch.arange(lo, lo + kb.shape[1], device=q.device)
-                keep = q_pos[:, None] >= kv_pos[None, :]
+                keep = prefix_causal_mask(q_pos, kv_pos, prefix_len)
                 scores = torch.where(keep[None, :, None, None, :], scores,
                                      NEG_INF)
             m_new = torch.maximum(m, scores.amax(dim=-1))

@@ -1,5 +1,5 @@
 """Model stack for inference: layers, GQA and MLA attention, the clustered
-KV cache, MoE, composition."""
+KV cache, MoE, Mamba, RWKV-6, the audio and vlm inputs, composition."""
 
 from repro_torch.models.model import (  # noqa: F401
     decode_step,
@@ -7,6 +7,7 @@ from repro_torch.models.model import (  # noqa: F401
     forward,
     make_batch_specs,
     make_cache_specs,
+    num_text_tokens,
     param_specs,
 )
 from repro_torch.models.params import (  # noqa: F401

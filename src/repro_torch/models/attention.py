@@ -26,6 +26,7 @@ from repro_torch.models import cluster_attn as CA
 from repro_torch.models.layers import (
     apply_head_norm,
     apply_rope,
+    einsum,
     head_norm_specs,
     matmul,
     rotary,
@@ -211,12 +212,6 @@ def _rms(x: torch.Tensor, scale: torch.Tensor,
     return (x * inv * scale.to(torch.float32)).to(dt)
 
 
-def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """`torch.einsum` in the promoted type of the two, as `jnp` does."""
-    dt = torch.promote_types(a.dtype, b.dtype)
-    return torch.einsum(eq, a.to(dt), b.to(dt))
-
-
 def _mla_latent(params: dict, x: torch.Tensor, sin, cos) -> tuple:
     """The normed latent c_kv (B, S, R) and the shared roped key k_rope
     (B, S, rope) of x (B, S, d_model)."""
@@ -266,7 +261,7 @@ def _mla_decode(params: dict, x: torch.Tensor, cache: dict,
     k_rope.index_copy_(1, at, kr_new.to(k_rope.dtype))
 
     f32 = torch.float32
-    q_lat = _einsum("bshe,rhe->bhr", q[..., :nope],
+    q_lat = einsum("bshe,rhe->bhr", q[..., :nope],
                     params["w_uk"]).to(f32)
     c32 = c_kv.to(f32)
     scores = torch.einsum("bhr,bsr->bhs", q_lat, c32)

@@ -17,7 +17,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.params import ParamSpec
 
 __all__ = [
-    "matmul",
+    "matmul", "einsum",
     "norm_specs", "apply_norm",
     "head_norm_specs", "apply_head_norm",
     "mlp_specs", "apply_mlp",
@@ -30,6 +30,12 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` in the promoted type of the two, as `jnp` computes it."""
     dt = torch.promote_types(x.dtype, w.dtype)
     return torch.matmul(x.to(dt), w.to(dt))
+
+
+def einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """`torch.einsum` in the promoted type of the two, as `jnp` does."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.einsum(eq, a.to(dt), b.to(dt))
 
 
 # ---------------------------------------------------------------------------
@@ -121,13 +127,14 @@ def apply_mlp(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def embed_specs(cfg: ModelConfig) -> dict:
+    """Token embeddings, the untied head, and for embedding inputs (the
+    audio frames, the vlm patches) `frontend_proj` into d_model."""
+    specs = {}
     if cfg.embedding_inputs:
-        raise NotImplementedError(
-            f"{cfg.name}: embedding inputs (the audio and vlm frontends) are "
-            "not ported yet: ROADMAP Queue 1 item 11 (the audio and vlm "
-            "inputs)")
-    specs = {"tokens": ParamSpec((cfg.vocab_size, cfg.d_model),
-                                 ("vocab", "embed"), scale=0.02)}
+        fd = cfg.frontend_dim or cfg.d_model
+        specs["frontend_proj"] = ParamSpec((fd, cfg.d_model), (None, "embed"))
+    specs["tokens"] = ParamSpec((cfg.vocab_size, cfg.d_model),
+                                ("vocab", "embed"), scale=0.02)
     if not cfg.tie_embeddings:
         specs["head"] = ParamSpec((cfg.d_model, cfg.vocab_size),
                                   ("embed", "vocab"))

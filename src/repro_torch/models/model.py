@@ -9,9 +9,18 @@ layers (DeepSeek's) are ungrouped ``dense{l}`` entries of the parameter
 and cache trees and run first; then the JAX package's `lax.scan` over
 layer groups is a Python loop over the stacked leaves' first axis.  The
 MoE aux loss is summed as in the JAX package.  Its remat policies and
-barriers belong to training, as does `loss_fn` (a later slice).  Inputs
-are token batches, ``{"tokens": (B, S) int}``: the audio and vlm
-frontends are not ported yet (ROADMAP Queue 1 item 11).
+barriers belong to training, as does `loss_fn` (a later slice).
+
+Inputs (`make_batch_specs` gives their shapes):
+  LM        : {"tokens": (B, S) int}
+  audio     : {"embeddings": (B, S, F), "labels": (B, S) int}  (hubert)
+  vlm       : {"patches": (B, P, F), "tokens": (B, S - P) int} (paligemma)
+The audio and vision frontends are stubs, as in the JAX package: frames
+and patches arrive as precomputed embeddings, projected into d_model by
+``embed/frontend_proj``; the vlm patches come ahead of the text tokens and
+attend to each other fully (`cfg.prefix_len`).  Decode steps take tokens.
+Mamba and RWKV-6 states live in the decode cache beside the attention
+K/V, written in place by each step.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ __all__ = [
     "empty_cache",
     "dtype_of",
     "layer_slice",
+    "num_text_tokens",
 ]
 
 
@@ -70,14 +80,32 @@ def param_specs(cfg: ModelConfig) -> dict:
     return specs
 
 
+def _prefix(cfg: ModelConfig, seq_len: int) -> int:
+    """The vlm patches of a sequence of `seq_len`, the JAX package's rule."""
+    return min(cfg.prefix_len, seq_len // 2) or seq_len // 2
+
+
 def make_batch_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
     """(shape, dtype) of one global batch of this (arch, shape) cell."""
-    if cfg.family in ("audio", "vlm"):
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.family} inputs are not ported yet: ROADMAP "
-            "Queue 1 item 11 (the vlm prefix and the audio and vlm inputs)")
-    return {"tokens": TensorSpec((shape.global_batch, shape.seq_len),
-                                 torch.int32)}
+    b, s = shape.global_batch, shape.seq_len
+    dt = dtype_of(cfg.dtype)
+    fd = cfg.frontend_dim or cfg.d_model
+    if cfg.family == "audio":
+        return {"embeddings": TensorSpec((b, s, fd), dt),
+                "labels": TensorSpec((b, s), torch.int32)}
+    if cfg.family == "vlm":
+        p = _prefix(cfg, s)
+        return {"patches": TensorSpec((b, p, fd), dt),
+                "tokens": TensorSpec((b, s - p), torch.int32)}
+    return {"tokens": TensorSpec((b, s), torch.int32)}
+
+
+def num_text_tokens(cfg: ModelConfig, shape: ShapeConfig) -> int:
+    """Tokens that count in the LM loss (vlm: the text suffix only)."""
+    if cfg.family == "vlm":
+        return shape.global_batch * (shape.seq_len
+                                     - _prefix(cfg, shape.seq_len))
+    return shape.global_batch * shape.seq_len
 
 
 def make_cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
@@ -117,6 +145,22 @@ def _embed_tokens(params: dict, cfg: ModelConfig,
     return params["embed"]["tokens"][tokens.long()].to(dtype_of(cfg.dtype))
 
 
+def _embed_inputs(params: dict, cfg: ModelConfig,
+                  batch: dict) -> torch.Tensor:
+    """The first hidden states (B, S, d_model) of a batch: audio frames
+    projected, vlm patches projected ahead of the text tokens, or
+    tokens."""
+    dt = dtype_of(cfg.dtype)
+    proj = params["embed"].get("frontend_proj")
+    if cfg.family == "audio":
+        return matmul(batch["embeddings"].to(dt), proj)
+    if cfg.family == "vlm":
+        patches = matmul(batch["patches"].to(dt), proj)
+        return torch.cat([patches, _embed_tokens(params, cfg,
+                                                 batch["tokens"])], dim=1)
+    return _embed_tokens(params, cfg, batch["tokens"])
+
+
 def _logits(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     emb = params["embed"]
     if cfg.tie_embeddings:
@@ -134,9 +178,11 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
     """Returns (logits (B, S, V), aux_loss, caches_or_None).  Caches hold
     each layout position's attention entries stacked over groups, e.g.
     (num_groups, B, S, Hk, hd) k and v, and each ``dense{l}`` layer's
-    unstacked."""
+    unstacked; a Mamba or RWKV-6 position's entry is None (its state is
+    rebuilt by replay, as in the JAX package).  For vlm, S counts the
+    patches and the text."""
     layout = transformer.layer_layout(cfg)
-    x = _embed_tokens(params, cfg, batch["tokens"])
+    x = _embed_inputs(params, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     caches: dict = {}
@@ -162,8 +208,9 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
     aux_total = aux_total + torch.stack(aux_groups).sum()
     if return_cache:
         caches["groups"] = {
-            key: {leaf: torch.stack([c[leaf] for c in entries])
-                  for leaf in entries[0]}
+            key: None if entries[0] is None else
+            {leaf: torch.stack([c[leaf] for c in entries])
+             for leaf in entries[0]}
             for key, entries in per_layer.items()}
     x = apply_norm(params["final_norm"], x, cfg)
     return (_logits(params, cfg, x), aux_total,
@@ -174,8 +221,10 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
 def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                 cache: dict):
     """One decode step for every sequence, `tokens` (B,) the newest token
-    of each; returns (logits (B, V), cache).  The cache's entries are
-    written in place; the returned tree carries ``index + 1``."""
+    of each; returns (logits (B, V), cache).  The cache's entries (K/V at
+    ``index``, the Mamba and RWKV-6 states) are written in place through
+    views of the stacked leaves; the returned tree carries
+    ``index + 1``."""
     index = cache["index"]
     x = _embed_tokens(params, cfg, tokens[:, None])
     out: dict = {"index": index + 1}

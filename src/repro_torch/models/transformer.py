@@ -1,5 +1,5 @@
-"""Block composition: attention residual blocks (GQA or MLA, the KV or
-the clustered KV cache) with a dense MLP or an MoE FFN, grouped into
+"""Block composition: (attention | Mamba | RWKV-6) residual blocks, each
+with a dense MLP or an MoE FFN (RWKV-6: its channel mix), grouped into
 homogeneous layer layouts.
 
 The counterpart of the JAX package's `models/transformer.py`.  A model's
@@ -10,9 +10,11 @@ leading "layers" axis, the JAX package's tree.  The port's model walks that
 axis in a Python loop where the JAX package scans it.  The clustered KV
 cache replaces the K/V cache exactly when ``cfg.cluster_kv and not
 cfg.use_mla`` (with MLA the latent cache stays), as in the JAX package.
-
-Mamba and RWKV-6 blocks raise `NotImplementedError` (ROADMAP Queue 1
-item 11, their slice).
+Mamba and RWKV-6 blocks carry recurrent states in the cache (Mamba's
+``ssm`` and ``conv``, RWKV-6's ``wkv``, ``x_prev_time`` and
+``x_prev_chan``); their decode writes them in place, as attention writes
+its K/V, where the JAX package merges new dicts.  jamba's period of 8
+mixes Mamba, attention (position 4), dense MLP and MoE.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention
+from repro_torch.models import attention, mamba, rwkv6
 from repro_torch.models import cluster_attn as CA
 from repro_torch.models.layers import (apply_mlp, apply_norm, mlp_specs,
                                        norm_specs)
@@ -76,13 +78,6 @@ def stack_specs(specs, n: int):
             for key, node in specs.items()}
 
 
-def _check_block(cfg: ModelConfig, block_type: str) -> None:
-    if block_type != "attn":
-        raise NotImplementedError(
-            f"{cfg.name}: {block_type} blocks are not ported yet: ROADMAP "
-            "Queue 1 item 11 (Mamba and RWKV-6, the next slice)")
-
-
 def _clustered(cfg: ModelConfig) -> bool:
     return cfg.cluster_kv and not cfg.use_mla
 
@@ -92,10 +87,18 @@ def _clustered(cfg: ModelConfig) -> bool:
 # ---------------------------------------------------------------------------
 
 def block_specs(cfg: ModelConfig, block_type: str, is_moe: bool) -> dict:
-    _check_block(cfg, block_type)
-    specs = {"norm1": norm_specs(cfg), "norm2": norm_specs(cfg),
-             "attn": attention.attn_specs(cfg)}
-    if is_moe:
+    specs = {"norm1": norm_specs(cfg), "norm2": norm_specs(cfg)}
+    if block_type == "attn":
+        specs["attn"] = attention.attn_specs(cfg)
+    elif block_type == "mamba":
+        specs["mixer"] = mamba.mamba_specs(cfg)
+    elif block_type == "rwkv6":
+        specs["time_mix"] = rwkv6.rwkv_time_specs(cfg)
+    else:
+        raise ValueError(f"unknown block type {block_type!r}")
+    if block_type == "rwkv6":
+        specs["channel_mix"] = rwkv6.rwkv_channel_specs(cfg)
+    elif is_moe:
         specs["moe"] = moe_specs(cfg)
     else:
         specs["mlp"] = mlp_specs(cfg)
@@ -104,7 +107,12 @@ def block_specs(cfg: ModelConfig, block_type: str, is_moe: bool) -> dict:
 
 def block_cache_spec(cfg: ModelConfig, block_type: str, batch: int,
                      max_seq: int, dtype: torch.dtype) -> dict:
-    _check_block(cfg, block_type)
+    if block_type == "mamba":
+        return mamba.mamba_state_spec(cfg, batch, dtype)
+    if block_type == "rwkv6":
+        return rwkv6.rwkv_state_spec(cfg, batch, dtype)
+    if block_type != "attn":
+        raise ValueError(f"unknown block type {block_type!r}")
     if _clustered(cfg):
         return CA.cluster_cache_specs(
             batch, cfg.num_kv_heads, cfg.head_dim, cfg.head_dim, max_seq,
@@ -114,14 +122,23 @@ def block_cache_spec(cfg: ModelConfig, block_type: str, batch: int,
     return attention.init_kv_cache_spec(cfg, batch, max_seq, dtype)
 
 
-def _ffn(params: dict, x: torch.Tensor, cfg: ModelConfig, is_moe: bool):
-    """The block's second half: (x + FFN(norm2(x)), aux loss)."""
+def _ffn(params: dict, x: torch.Tensor, cfg: ModelConfig, block_type: str,
+         is_moe: bool, cache=None):
+    """The block's second half: (x + FFN(norm2(x)), aux loss).  RWKV-6's
+    FFN is its channel mix; given the decode's `cache`, it reads and
+    writes ``x_prev_chan`` there."""
     h = apply_norm(params["norm2"], x, cfg)
-    if is_moe:
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if block_type == "rwkv6":
+        if cache is None:
+            y = rwkv6.rwkv_channel_forward(params["channel_mix"], h, cfg)
+        else:
+            y, _ = rwkv6.rwkv_channel_decode(params["channel_mix"], h, cache,
+                                             cfg)
+    elif is_moe:
         y, aux = apply_moe(params["moe"], h, cfg)
     else:
         y = apply_mlp(params["mlp"], h, cfg)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + y, aux
 
 
@@ -132,26 +149,37 @@ def block_forward(params: dict, x: torch.Tensor, cfg: ModelConfig,
     """Returns (x, cache_entries_or_None, aux_loss); aux is 0 without MoE.
     The cache entries are the attention's (K/V, or MLA's latents) also
     under `cluster_kv`: the clustered cache is built from them
-    (`cluster_attn.build_clustered_cache`)."""
-    _check_block(cfg, block_type)
+    (`cluster_attn.build_clustered_cache`).  Mamba and RWKV-6 blocks give
+    None: their forward runs from a zero state and threads no state out,
+    as in the JAX package (their prompts are replayed, `Engine`)."""
     h = apply_norm(params["norm1"], x, cfg)
-    y, cache = attention.attn_forward(params["attn"], h, cfg,
-                                      positions=positions,
-                                      return_cache=return_cache)
-    x, aux = _ffn(params, x + y, cfg, is_moe)
+    cache = None
+    if block_type == "attn":
+        y, cache = attention.attn_forward(params["attn"], h, cfg,
+                                          positions=positions,
+                                          return_cache=return_cache)
+    elif block_type == "mamba":
+        y = mamba.mamba_forward(params["mixer"], h, cfg)
+    else:
+        y = rwkv6.rwkv_time_forward(params["time_mix"], h, cfg)
+    x, aux = _ffn(params, x + y, cfg, block_type, is_moe)
     return x, cache, aux
 
 
 def block_decode(params: dict, x: torch.Tensor, cache: dict,
                  index: torch.Tensor, cfg: ModelConfig, block_type: str,
                  is_moe: bool):
-    """Single-token step.  Returns (x, cache), the cache updated in place."""
-    _check_block(cfg, block_type)
+    """Single-token step.  Returns (x, cache), the cache updated in place:
+    the attention's K/V at `index`, or the recurrent states."""
     h = apply_norm(params["norm1"], x, cfg)
-    if _clustered(cfg):
+    if block_type == "mamba":
+        y, cache = mamba.mamba_decode(params["mixer"], h, cache, cfg)
+    elif block_type == "rwkv6":
+        y, cache = rwkv6.rwkv_time_decode(params["time_mix"], h, cache, cfg)
+    elif _clustered(cfg):
         y, cache = attention.attn_decode_clustered(params["attn"], h, cache,
                                                    index, cfg)
     else:
         y, cache = attention.attn_decode(params["attn"], h, cache, index, cfg)
-    x, _ = _ffn(params, x + y, cfg, is_moe)
+    x, _ = _ffn(params, x + y, cfg, block_type, is_moe, cache)
     return x, cache

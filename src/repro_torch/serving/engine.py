@@ -5,9 +5,13 @@ drives `prefill` + `decode_step` for aligned prompt batches: greedy or
 temperature sampling, stop on max tokens.  `replay_prefill` builds the
 decode cache by replaying the prompt through `decode_step` token by token;
 `generate` takes it where the fused prefill does not apply, by the JAX
-package's rule (a stack of attention blocks only, no leading dense layers:
-deepseek-v2-lite-16b replays its prompt, qwen2-moe-a2.7b takes the fused
-prefill).
+package's rule (a stack of attention blocks only, no leading dense layers):
+rwkv6-3b and jamba-1.5-large-398b (their Mamba and RWKV-6 states come out
+of the decode steps only) and deepseek-v2-lite-16b replay their prompts,
+one decode step a token; qwen2-moe-a2.7b and the dense models take the
+fused prefill.  `generate` takes token prompts; paligemma-3b's image
+prefix goes through `prefill` with ``{"patches", "tokens"}`` and then
+`decode_step`, and hubert-xlarge, an encoder, has no decode.
 
 Tokens stay on the device until `generate` returns, so a decode step waits
 for the host nowhere.  At temperature > 0 the draws come from a

@@ -27,19 +27,22 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict, *,
             max_seq: int = 0):
     """Returns (last_logits (B, V), cache) ready for `decode_step`.
 
-    The forward runs the flash kernel once per layer.  Every attention
-    cache leaf, K/V (num_groups, B, S, Hk, hd) or MLA's latents
-    (num_groups, B, S, R), is padded with zeros to `max_seq` along its
-    sequence axis: axis 2 of the grouped leaves, axis 1 of the ``dense{l}``
-    layers'.  ``index`` is the prompt length, as in the JAX package's
-    `prefill`.
+    `batch` is the model's input batch: ``{"tokens"}``, or the vlm's
+    ``{"patches", "tokens"}``, whose cache and ``index`` cover the patches
+    and the text.  The forward runs the flash kernel once per layer.
+    Every attention cache leaf, K/V (num_groups, B, S, Hk, hd) or MLA's
+    latents (num_groups, B, S, R), is padded with zeros to `max_seq` along
+    its sequence axis: axis 2 of the grouped leaves, axis 1 of the
+    ``dense{l}`` layers'.  ``index`` is the prompt length, as in the JAX
+    package's `prefill`.  Stacks with Mamba or RWKV-6 blocks raise, as in
+    the JAX package: their forward threads no recurrent state out, and
+    `Engine.replay_prefill` builds their cache.
     """
     layout = transformer.layer_layout(cfg)
     if any(bt != "attn" for bt, _ in layout.positions):
         raise NotImplementedError(
-            "prefill() supports attention-only stacks; hybrid and SSM "
-            "stacks are not ported yet: ROADMAP Queue 1 item 11 (Mamba and "
-            "RWKV-6, the next slice)")
+            "prefill() supports attention-only stacks; use "
+            "Engine.replay_prefill for hybrid and SSM archs")
     logits, _, caches = forward(params, cfg, batch, return_cache=True)
     seq_len = logits.shape[1]
     pad = max(max_seq, seq_len) - seq_len

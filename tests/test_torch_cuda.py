@@ -40,7 +40,15 @@ after the ticket fails, and four loopback requests through
 (MLA's D 192 / Dv 128) to their plain versions, `apply_moe` on the card
 to itself bit for bit and to the CPU, reduced deepseek-v2-lite-16b and
 qwen2-moe-a2.7b `generate` on the card to the CPU's tokens, and the
-clustered KV build's sweep launches (2k and k a fit).
+clustered KV build's sweep launches (2k and k a fit).  The last slice's
+tests (`-k "vlm or audio or ssm"`) hold the kernel with a prefix of full
+attention (`prefix_len`: prefixes that end inside a query block, on its
+edge and past S; 0 and 1 bit-identical to the plain causal launch) and
+at hubert-xlarge's head dim 80 non-causal to the plain version, reduced
+paligemma-3b's prefill of patches and text and reduced hubert-xlarge's
+forward on the card to the CPU, and reduced rwkv6-3b and
+jamba-1.5-large-398b `generate` (replayed prompts over the recurrent
+states) to the CPU's tokens.
 """
 
 import numpy as np
@@ -1391,3 +1399,165 @@ def test_lm_variants_clustered_build_on_the_card(cuda):
         np.float32)).to(cuda)
     out = CA.clustered_attention(q, cache, cfg, scale=32 ** -0.5)
     assert out.shape == (1, 4, 32) and bool(torch.isfinite(out).all())
+
+
+# ---------------------------------------------------------------------------
+# The vlm prefix, the audio inputs, Mamba and RWKV-6.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,hk,d,prefix", [
+    (2, 300, 8, 1, 256, 100), (2, 300, 8, 1, 256, 128),
+    (1, 600, 4, 2, 64, 264), (1, 333, 4, 4, 128, 333),
+    (1, 200, 4, 1, 80, 77), (1, 257, 2, 1, 64, 127),
+    (1, 257, 2, 2, 128, 129), (1, 129, 2, 1, 64, 128),
+    (1, 100, 2, 1, 32, 99), (1, 64, 2, 2, 64, 63),
+    (1, 200, 2, 1, 64, 300)])
+def test_vlm_prefix_attention_kernel(cuda, b, s, h, hk, d, prefix, dtype):
+    """The causal kernel with a prefix of full attention against the plain
+    version, within `ATTN_TOL`: prefixes that end inside a 128-row query
+    block and inside a warp (100, 264, 77), one row either side of a
+    block's edge (127, 129), on it (128), one below S (99, and 63 of a
+    64-row S, one 64-row block), all of S (333), and past S (300 of 200,
+    clamped); sequences one row past a block (129, 257); paligemma's 8
+    heads over 1 KV head of 256."""
+    q, k, v = _attn_inputs(b, s, h, hk, d, dtype, cuda, s + prefix)
+    before = ops.launch_counts()["flash_attention"]
+    out = ops.attention_bshd(q, k, v, scale=d ** -0.5, causal=True,
+                             prefix_len=prefix)
+    plain = ref.attention_bshd_ref(q, k, v, scale=d ** -0.5, causal=True,
+                                   prefix_len=prefix)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == before + 1
+    torch.testing.assert_close(out, plain, rtol=ATTN_TOL, atol=ATTN_TOL)
+    causal = ops.attention_bshd(q, k, v, scale=d ** -0.5, causal=True)
+    assert not torch.allclose(out[:, 0], causal[:, 0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vlm_prefix_of_zero_and_one_is_the_causal_launch(cuda, dtype):
+    """A prefix of 0, or of 1 (row 0 sees key 0 either way), gives the
+    plain causal launch's bits."""
+    q, k, v = _attn_inputs(2, 1000, 8, 1, 256, dtype, cuda, 7)
+    causal = ops.attention_bshd(q, k, v, scale=0.0625, causal=True)
+    for prefix in (0, 1):
+        assert torch.equal(ops.attention_bshd(q, k, v, scale=0.0625,
+                                              causal=True,
+                                              prefix_len=prefix), causal)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [333, 1024])
+def test_audio_attention_at_head_dim_80(cuda, s, dtype):
+    """hubert-xlarge's attention: 16 heads of 80, bidirectional (a prefix
+    changes nothing there)."""
+    q, k, v = _attn_inputs(2, s, 16, 16, 80, dtype, cuda, s)
+    out = ops.attention_bshd(q, k, v, scale=80 ** -0.5, causal=False)
+    plain = ref.attention_bshd_ref(q, k, v, scale=80 ** -0.5, causal=False)
+    torch.cuda.synchronize()
+    assert out.shape == (2, s, 16, 80)
+    torch.testing.assert_close(out, plain, rtol=ATTN_TOL, atol=ATTN_TOL)
+    assert torch.equal(ops.attention_bshd(q, k, v, scale=80 ** -0.5,
+                                          causal=False, prefix_len=100), out)
+
+
+def _noise_floor(fn, params) -> float:
+    """How far `fn`'s f32 output moves on the CPU when every weight is
+    scaled by (1 + 1e-7 z), z standard normal from a seed (about one
+    rounding of each weight): the largest change over two draws.  A card
+    that sums in another order than the CPU differs by about as much."""
+    base = fn(params)
+
+    def jitter(tree, gen):
+        return {k: jitter(v, gen) if isinstance(v, dict) else
+                v * (1 + 1e-7 * torch.randn(v.shape, generator=gen))
+                for k, v in tree.items()}
+
+    return max(float((fn(jitter(params, torch.Generator().manual_seed(s)))
+                      - base).abs().max()) for s in (1, 2))
+
+
+def _close_to_cpu(card, cpu, floor):
+    """Card against CPU within 1e-3, or 4 times the CPU's own noise floor
+    where the random reduced model amplifies roundings past that (hubert's
+    and jamba's logits move by 1e-3 to 3e-3 under the floor's 1e-7 weight
+    noise at these shapes)."""
+    tol = max(1e-3, 4 * floor)
+    torch.testing.assert_close(card.cpu(), cpu, rtol=0, atol=tol)
+
+
+def test_vlm_and_audio_models_on_the_card_match_the_cpu(cuda):
+    """Reduced paligemma-3b's prefill of 16 patches and 16 text tokens and
+    reduced hubert-xlarge's forward on 2 x 32 frames, f32, the same
+    weights on the card and the CPU: logits to `_close_to_cpu`, one kernel
+    launch a layer; paligemma's decode after the prefill likewise."""
+    from repro_torch.models import decode_step, forward, params_from_numpy
+    from repro_torch.serving.prefill import prefill
+
+    rng = np.random.default_rng(3)
+    cfg, params = _reduced("paligemma-3b")
+    on_card = params_from_numpy(params, cuda)
+    batch = {"patches": torch.from_numpy(rng.normal(
+        size=(2, 16, cfg.frontend_dim)).astype(np.float32)),
+        "tokens": torch.from_numpy(rng.integers(1, cfg.vocab_size, (2, 16)))}
+    ops.reset_launch_counts()
+    lg_card, cache = prefill(on_card, cfg, {k: t.to(cuda) for k, t in
+                                            batch.items()}, max_seq=40)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == cfg.num_layers
+
+    def run(p):
+        return prefill(p, cfg, batch, max_seq=40)[0]
+
+    lg_cpu, cache_cpu = prefill(params, cfg, batch, max_seq=40)
+    _close_to_cpu(lg_card, lg_cpu, _noise_floor(run, params))
+    tok = batch["tokens"][:, -1]
+    step_card, _ = decode_step(on_card, cfg, tok.to(cuda), cache)
+    step_cpu, _ = decode_step(params, cfg, tok, cache_cpu)
+    _close_to_cpu(step_card, step_cpu, 0.0)
+
+    cfg, params = _reduced("hubert-xlarge")
+    frames = torch.from_numpy(rng.normal(
+        size=(2, 32, cfg.frontend_dim)).astype(np.float32))
+    ops.reset_launch_counts()
+    out_card, _, _ = forward(params_from_numpy(params, cuda), cfg,
+                             {"embeddings": frames.to(cuda)})
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == cfg.num_layers
+
+    def encode(p):
+        return forward(p, cfg, {"embeddings": frames})[0]
+
+    _close_to_cpu(out_card, encode(params), _noise_floor(encode, params))
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "jamba-1.5-large-398b"])
+def test_ssm_generate_on_the_card_matches_the_cpu(cuda, arch):
+    """Reduced rwkv6-3b and jamba-1.5-large-398b in f32 with the same
+    weights on the card and the CPU: the chunked forward's logits to
+    `_close_to_cpu` (one kernel launch for jamba's attention layer a
+    period, none for rwkv6), and the same greedy tokens from `generate`,
+    whose replayed prompt carries the recurrent states in place."""
+    from repro_torch.models import forward, params_from_numpy
+    from repro_torch.models.transformer import layer_layout
+    from repro_torch.serving.engine import Engine, ServeConfig
+
+    cfg, params = _reduced(arch)
+    on_card = params_from_numpy(params, cuda)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        1, cfg.vocab_size, (3, 32)))
+    ops.reset_launch_counts()
+    lg_card, _, _ = forward(on_card, cfg, {"tokens": toks.to(cuda)})
+    torch.cuda.synchronize()
+    layout = layer_layout(cfg)
+    attn = sum(bt == "attn" for bt, _ in layout.positions)
+    assert ops.launch_counts()["flash_attention"] == attn * layout.num_groups
+
+    def run(p):
+        return forward(p, cfg, {"tokens": toks})[0]
+
+    _close_to_cpu(lg_card, run(params), _noise_floor(run, params))
+    serve = ServeConfig(max_new_tokens=8, max_seq=48)
+    np.testing.assert_array_equal(
+        Engine(on_card, cfg, serve).generate(toks.numpy()),
+        Engine(params, cfg, serve, device="cpu").generate(toks.numpy()))

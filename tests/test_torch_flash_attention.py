@@ -155,12 +155,6 @@ def test_chunked_scan_is_exact_softmax(s, g, chunk, causal, seed):
                                atol=2e-5)
 
 
-def test_prefix_attention_is_not_ported():
-    q = torch.zeros((1, 8, 2, 4))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.attention_bshd(q, q, q, scale=1.0, causal=True, prefix_len=4)
-
-
 def _bf16_route_model(q, k, v, scale, *, split, tile=64):
     """The CUDA kernel's bf16 route on one (S, D) head, causal, in plain
     torch: s = (q k^T) * scale log2(e) in f32 (bf16 products are exact in

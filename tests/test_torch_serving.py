@@ -4,8 +4,11 @@
 in f32, with the JAX package's weights carried across
 (`params_from_numpy`); the same for reduced qwen2-moe-a2.7b (fused
 prefill) and deepseek-v2-lite-16b (MLA latents, a leading dense layer:
-`generate` replays the prompt, the JAX package's rule), and the launcher's
-CPU smoke for all three.  Logits and caches are held to 1e-3 (f32 rounding
+`generate` replays the prompt, the JAX package's rule); `generate` on
+reduced rwkv6-3b and jamba-1.5-large-398b (their recurrent states come
+out of the replayed decode steps, as `tests/test_serving.py`'s
+`test_engine_hybrid_replay_path` drives the JAX engine), and the
+launcher's CPU smoke for all five.  Logits and caches are held to 1e-3 (f32 rounding
 over four layers whose hidden states grow to about 100; see
 `tests/test_torch_models.py`), prefill against replay to 2e-3 (the JAX
 package's own `test_prefill_matches_replay` tolerance), and greedy tokens
@@ -37,9 +40,26 @@ from repro_torch.serving.prefill import prefill
 TOL = dict(rtol=1e-3, atol=1e-3)
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """The port's tensors here are small, so its ops run on one thread:
+    when the suite's workers share the cores, OpenMP teams spun up for
+    each small op stall one another."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+# Reduced jamba has two periods of 8 layers; one holds its whole layout
+# (Mamba, attention at position 4, MoE every other layer) at half the cost
+CUTS = {"jamba-1.5-large-398b": {"num_layers": 8}}
+
+
 def _model(arch):
-    jcfg = jax_reduce(jax_get_config(arch))
-    cfg = reduce_for_smoke(get_config(arch))
+    cuts = CUTS.get(arch, {})
+    jcfg = dataclasses.replace(jax_reduce(jax_get_config(arch)), **cuts)
+    cfg = dataclasses.replace(reduce_for_smoke(get_config(arch)), **cuts)
     jparams = jax_init_params(jax_param_specs(jcfg), jax.random.key(0),
                               jnp.float32)
     params = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
@@ -210,3 +230,37 @@ def test_launcher_smoke_on_cpu_for_moe(arch, capsys):
                       "--batch", "2", "--prompt-len", "8", "--tokens", "3"])
     assert out.shape == (2, 3)
     assert f"{arch} on cpu" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "jamba-1.5-large-398b"])
+def test_hybrid_generate_matches_jax(arch):
+    """Replay prefill then decode over the Mamba and RWKV-6 states: the
+    same greedy tokens as the JAX engine, twice; the fused prefill
+    refuses the stack as the JAX package's does."""
+    jcfg, cfg, jparams, params = _model(arch)
+    prompts = _prompts(2, 6, 2, cfg.vocab_size)
+    want = JaxEngine(jparams, jcfg, JaxServeConfig(
+        max_new_tokens=4, max_seq=32)).generate(prompts)
+    eng = Engine(params, cfg, ServeConfig(max_new_tokens=4, max_seq=32),
+                 device="cpu")
+    got = eng.generate(prompts)
+    assert got.shape == (2, 4)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(eng.generate(prompts), got)
+    with pytest.raises(NotImplementedError, match="replay_prefill"):
+        prefill(params, cfg, {"tokens": torch.from_numpy(prompts)})
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "jamba-1.5-large-398b"])
+def test_launcher_smoke_on_cpu_for_hybrids(arch, capsys):
+    out = serve.main(["--smoke", "--device", "cpu", "--arch", arch,
+                      "--batch", "2", "--prompt-len", "8", "--tokens", "3"])
+    assert out.shape == (2, 3)
+    assert f"{arch} on cpu" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch,why", [("hubert-xlarge", "encoder-only"),
+                                      ("paligemma-3b", "patches")])
+def test_launcher_stops_with_the_reason(arch, why):
+    with pytest.raises(SystemExit, match=why):
+        serve.main(["--smoke", "--device", "cpu", "--arch", arch])
