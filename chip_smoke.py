@@ -8,7 +8,9 @@ streaming entry points, the clustering engine, the RPC server and the
 sharded backend on the first; in phases 14b to 14e the LM variants:
 decode over KV codebooks built by fastkmeans++, MLA and MoE; in phases
 15a to 15d the rest of the model stack: RWKV-6, Mamba, the vlm prefix and
-the audio inputs).  Two go through the plan, each at the shape
+the audio inputs; in phase 16 training: the backward kernel of row 8 and
+olmo-1b trained at full width and depth, then the `Trainer`'s kill and
+resume).  Two go through the plan, each at the shape
 of the paper's smallest real dataset (KDD Cup, 311,029 x 74, generated
 here from a seed as `benchmarks/datasets.py` does) with k = 1000: the
 paper's Algorithm 4,
@@ -67,6 +69,11 @@ against its plain PyTorch version on the card.  In order:
      traced with `torch.profiler`, beside the untraced one, with
      `lsh_bucket_accept`'s mean time per launch on the path beside its
      timed one, and the same launch traced alone between idle gaps;
+ 8b to 8g run at k = `KS` (100), their depth cut from k = 1000 for time
+     (PERF.md section 4 lists the cuts), but for 8g's gated sharded
+     rejection fits; their references are phase 8's plans at that k over
+     phase 8's prepared data (the fit's draws, and refit(seed=1)), so no
+     phase re-prepares `kddcup_shaped(0)` for them;
  8b. the plan's other entry points on the same data: the legacy
      `fit(points, KMeansConfig(seeder=...))` of the three device seeders,
      each with the same indices as `ClusterPlan.fit` on the same seed and
@@ -76,7 +83,7 @@ against its plain PyTorch version on the card.  In order:
      lanes; `lsh_bucket_accept` between the largest lane's refit count
      and the four refits' sum), each lane bit-identical to `refit(seed=s)`
      and lane 0 to the fit, its time beside the four refits';
-     `no_retrace()` around two more refits;
+     `no_retrace()` around one more refit;
  8c. stacked lanes: `fit_batch(datasets=...)` of the rejection seeder at
      full width on `kddcup_shaped(0)`, `kddcup_shaped(1)` and the first
      150,000 rows of `kddcup_shaped(2)` (two shape buckets, 524,288 and
@@ -92,7 +99,7 @@ against its plain PyTorch version on the card.  In order:
      cpu backend's six NumPy seeders on the host at n = 31,102 (the first
      tenth of the rows), their host times and float64 cost ratios to
      exact k-means++ (information only);
- 8d. streaming at full width on `kddcup_shaped(0)`, k = 1000, through the
+ 8d. streaming at full width on `kddcup_shaped(0)`, k = `KS`, through the
      device backend: `prepare_streaming` of the first 200,000 rows
      (capacity 262,144), `extend` of the other 111,029 in batches of
      10,000 (capacity 524,288), `retire` of 31,102 rows drawn from a
@@ -103,9 +110,8 @@ against its plain PyTorch version on the card.  In order:
      live and distinct, its masked cost within 1e-4 of float64 over the
      live rows, a replay of its centers from `w0` through the kernels and
      the plain sweeps (the same weights), seed 1 again (the same indices;
-     not repeated after the rebuild below, a cut for time);
-     a from-scratch `prepare_data` of the live rows and its fit, timed
-     beside; extend then retire of the same 10,000 rows (`w0` and the
+     not repeated after the rebuild below, a cut for time); extend then
+     retire of the same 10,000 rows (`w0` and the
      heap back bit for bit); an extend of 1,000 rows out of the frozen
      domain (one rebuild) and the same checks again; scratch equivalence,
      the first 200,000 rows then 50,000 duplicates of them against all
@@ -115,7 +121,7 @@ against its plain PyTorch version on the card.  In order:
  8e. the clustering engine at full width: `ClusterEngine(prepare_workers=
      2)` on `kddcup_shaped(0)` and `(1)` at seeds 0 and 1, each ticket
      bit-identical to the serial `prepare_data` + `fit_prepared` (phase
-     8's fit and refit for the first dataset), the wall time beside the
+     8's plan at k = `KS` for the first dataset), the wall time beside the
      serial sum and `stats()`'s prepare and solve seconds; a pipelined
      pair on the two prepared datasets traced with `torch.profiler`, its
      idle share; a real out-of-memory
@@ -125,7 +131,8 @@ against its plain PyTorch version on the card.  In order:
      the fit once the cap is lifted; then a `FaultPlan` of transient
      solve faults on the rejection targets: one ticket served by
      k-means||/device after rejection/device (equal to phase 8's
-     k-means|| fit; an engine on the card skips the chain's cpu rungs),
+     k-means|| plan's fit at k = `KS`; an engine on the card skips the
+     chain's cpu rungs),
      one retried (equal to the fit at `attempt_seed(1, 1)`);
  8f. the clustering service: `ClusterServer` on an ephemeral loopback
      port with two tenants, a `ClusterClient` sending `kddcup_shaped(0)`
@@ -134,17 +141,17 @@ against its plain PyTorch version on the card.  In order:
      for bit against its lane of `fit_batch_prepared` over one
      `prepare_stacked` (phase 8c's plan), the queue-wait, solve and
      network attribution and the bytes on the wire;
- 8g. the sharded backend at full width on `kddcup_shaped(0)`, k = 1000,
-     over `make_seeding_mesh(4, device="cuda:0")` (four shards on the one
-     card): the rejection plan's prepare (split onto the shards) and fit,
-     its launches (4 x 2k `tree_sep_update`, 4k `tree_sep_update_tiles`,
-     one `lsh_bucket_accept` an accept round), refits at seeds 1 to 3
-     (the mean cost of seeds 0 to 3 within 5% of phase 8b's
-     `fit_batch(seeds=[0, 1, 2, 3])` lanes), seed 0 replayed; the
-     rejection solve on one shard of phase 8's prepared artifacts (the
-     same indices as phase 8's device fit); fastkmeans++
-     and k-means|| on the four shards (5 x 4 `pairwise_argmin`
-     launches); "sharded done" closes it;
+ 8g. the sharded backend at full width on `kddcup_shaped(0)` over
+     `make_seeding_mesh(4, device="cuda:0")` (four shards on the one
+     card): the rejection plan's prepare (split onto the shards) and fit
+     at k = 1000, its launches (4 x 2k `tree_sep_update`, 4k
+     `tree_sep_update_tiles`, one `lsh_bucket_accept` an accept round),
+     a refit at seed 1 (the mean cost of seeds 0 and 1 within 5% of
+     phase 8's device fit and refit(seed=1)); at k = `KS`: the rejection
+     solve on one shard of phase 8's prepared artifacts (the same indices
+     as phase 8's device plan at that k), fastkmeans++ and k-means|| on
+     the four shards (5 x 4 `pairwise_argmin` launches); "sharded done"
+     closes it;
   9. the seeding paths' device tensors are freed;
  10. `flash_attention` against its plain version (the chunked
      online-softmax scan) at the serving path's shape, q (4, 2048, 32, 128)
@@ -244,8 +251,33 @@ against its plain PyTorch version on the card.  In order:
      parameters): `forward` on 4 x 2,048 frame embeddings of width 512
      (exactly 48 non-causal `flash_attention` launches, 16 heads of 80),
      timed; row 8 at that shape against its plain version, its numbers;
- 16. one JSON line per the eight kernels, the card's line again, and last
-     ``{"ok": true, "device": {...}}``.  A row's `launches` is its main
+ 16a. the backward of row 8 (`csrc/flash_attention_bwd.cu`, three launches
+     a call: delta, dK and dV, dQ) against autograd through the plain
+     version on f32 copies of the same inputs, at olmo-1b's training shape
+     (8, 256, 16, 128) f32 causal, yi-9b's GQA (4, 2048, 32 over 4, 128),
+     MLA's D 192 / Dv 128, a prefix of 256 (4, 1024, 8 over 1, 256) and
+     hubert's non-causal D 80, in bf16: each gradient within 1e-4 (f32) or
+     4e-3 (bf16: one rounding of the gradient, at most 2^-8 of it) of its
+     largest magnitude, a second launch bit-identical, the forward's `out`
+     the same bits with its log-sum-exp asked for; times beside the plain
+     backward's and `scaled_dot_product_attention`'s backward, and the
+     bound;
+ 16b. olmo-1b at full width and depth in f32 (1,176,764,416 parameters,
+     18.8 GB with the gradients and both moments) through
+     `make_train_step`: 6 steps of 8 x 256 tokens from `TokenStream(50304,
+     256, 8, seed=0)`, lr 1e-3, remat "none", each step's loss (finite)
+     and exactly 16 forward and 16 backward `flash_attention` launches,
+     the median step time, tokens a second, peak memory, and a seventh
+     step traced (the device idle share);
+ 16c. the `Trainer` (`repro_torch.launch.train`'s loop) at full width and
+     2 of the 16 layers: 8 steps with a checkpoint every 3 (a golden
+     run), a run that `fail_at_step=5` stops, and its resume from step 3,
+     whose losses match the golden run's steps 4 to 8 within rtol 1e-6
+     (bit-identical or not, printed), the checkpoint's bytes and write
+     seconds; the checkpoints live under `build/` and are removed;
+ 17. the phases' wall seconds (``{"phase_seconds": {...}}``), one JSON
+     line per the kernels (the eight rows and the backward of row 8), the
+     card's line again, and last ``{"ok": true, "device": {...}}``.  A row's `launches` is its main
      path's count, each path's counts set to 0 just before it and read
      just after: phase 8's rejection fit for rows 1 to 3, its k-means||
      fit for row 5, phase 12's `generate` for row 8.  `launches_by_path`
@@ -259,7 +291,11 @@ against its plain PyTorch version on the card.  In order:
      (``at_mla_shape``), qwen2-moe's (``at_moe_shape``), paligemma's
      with its prefix (``at_prefix_shape``) and hubert's
      (``at_hubert_shape``); its ``max_abs_err`` is the largest of all its
-     checks.
+     checks.  The backward's row (``flash_attention_bwd``) has its numbers
+     at olmo-1b's training shape, its launches in 16b's six steps
+     (``train``; ``trainer`` for 16c), and its other 16a shapes
+     (``at_yi_9b_shape``, ``at_mla_shape``, ``at_prefix_shape``,
+     ``at_hubert_shape``).
 
 Any failure raises and exits non-zero before the last line is printed.
 Without CUDA, or without the rest of the repository beside it, the script
@@ -320,6 +356,11 @@ KMP_ROUNDS = 5                          # the k-means|| defaults
 KMP_ELL = 2.0 * K
 KMP_CAP = int(min(N, max(8, 4 * KMP_ELL)))
 SHARDS = 4                              # phase 8g: shards on cuda:0
+# Phases 8b to 8g, the secondary seeding paths, solve at k = KS: their
+# depth, cut from K for time (a solve is host-bound at some 190 host ops a
+# center, so k sets its seconds); phase 8's solves at K stay, and so does
+# 8g's sharded rejection fit and refit, whose mean cost is gated
+KS = 100
 SERVE_ARCH = "yi-9b"                    # the serving launcher's default
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 2048, 32
 REPLAY_PROMPT = 128
@@ -363,10 +404,48 @@ VLM_PREFIXES = (256, 200, 1000)        # the path's, inside a block, near S
 PALIGEMMA_PARAMS = 2_511_022_080
 AUDIO_FRAMES = 2048                    # 15d
 HUBERT_PARAMS = 1_260_360_960
+# 16: training olmo-1b in f32 on one card, the JAX launcher's defaults
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = "olmo-1b", 8, 256, 1e-3
+TRAIN_STEPS = 6
+OLMO_PARAMS = 1_176_764_416
+# 16c: the Trainer at full width, depth cut to 2 of 16 layers for its
+# checkpoints (about 2.8 GB each, 14 GB at full depth)
+TRAINER_LAYERS, TRAINER_STEPS, TRAINER_EVERY, TRAINER_FAIL = 2, 8, 3, 5
+# 16a: the backward kernel against autograd through the plain version, as
+# a share of the largest |gradient|: f32 sums in other orders (f32), and
+# one rounding of each gradient to bf16, at most 2^-8 of it (bf16 inputs)
+BWD_TOL = {"float32": 1e-4, "bfloat16": 4e-3}
+# (label, B, S, H, Hk, D, Dv, dtype, causal, prefix)
+BWD_SHAPES = (
+    ("olmo-1b", 8, 256, 16, 16, 128, 128, "float32", True, 0),
+    ("yi-9b", 4, 2048, 32, 4, 128, 128, "bfloat16", True, 0),
+    ("mla", 4, 2048, 16, 16, 192, 128, "bfloat16", True, 0),
+    ("prefix", 4, 1024, 8, 1, 256, 256, "bfloat16", True, 256),
+    ("hubert", 4, 2048, 16, 16, 80, 80, "bfloat16", False, 0),
+)
 
 
 def log(*parts) -> None:
     print(*parts, flush=True)
+
+
+# Phase boundaries: (name, perf_counter) in the order the phases start; a
+# phase runs until the next one starts.  `phase_seconds` turns them into
+# each phase's wall seconds.
+PHASE_MARKS: list = []
+
+
+def mark(name: str) -> None:
+    """Start phase `name` (and end the one before it)."""
+    PHASE_MARKS.append((name, time.perf_counter()))
+
+
+def phase_seconds() -> dict:
+    ends = [t for _, t in PHASE_MARKS[1:]] + [time.perf_counter()]
+    out: dict = {}
+    for (name, t0), t1 in zip(PHASE_MARKS, ends):
+        out[name] = round(out.get(name, 0.0) + t1 - t0, 1)
+    return out
 
 
 def kddcup_shaped(seed: int) -> np.ndarray:
@@ -605,6 +684,18 @@ def log_top(by_name: dict, n: int) -> None:
         log(f"  {ms:10.3f} ms {cnt:7d}x {name[:90]}")
 
 
+def at_k(plan, k: int):
+    """`plan` at another k over the same prepared data: a shallow copy
+    that shares its prepare cache and active data (k is read only by the
+    solve stage)."""
+    import copy
+    import dataclasses
+
+    out = copy.copy(plan)
+    out.cluster = dataclasses.replace(plan.cluster, k=k)
+    return out
+
+
 def seeding_paths(torch, t_start: float) -> list:
     """Phases 3 to 8 on the seeding paths; returns their kernels' rows.
     Every device tensor they made is freed when this returns."""
@@ -618,6 +709,7 @@ def seeding_paths(torch, t_start: float) -> list:
     from repro_torch.kernels import pairwise_argmin_cuda as pam_cuda
     from repro_torch.kernels import tree_sep_update_cuda as sweep_cuda
 
+    mark("3-8")
     dev = torch.device("cuda")
     # -- data and prepare (the main path's first stage) -----------------------
     t0 = time.perf_counter()
@@ -1281,16 +1373,31 @@ def seeding_paths(torch, t_start: float) -> list:
             f"({kernels_50} kernels)")
     log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**20:.1f}"
         f" MiB; {time.perf_counter() - t_start:.1f} s so far")
-    stacked_plan, lane_costs = other_entry_points(torch, t_start, points,
-                                                  plan, fit, km_fit, t)
-    by_path = {"main": launches, "kmeans||": km_launches,
-               "streaming": streaming(torch, t_start, points),
-               "engine": engine_phase(torch, t_start, points, plan, fit,
-                                      refit, km_fit, t),
-               "service": service_phase(torch, t_start, points,
-                                        stacked_plan),
-               "sharded": sharded_phase(torch, t_start, points, plan, fit,
-                                        km_fit, lane_costs, t)}
+    # Phases 8b to 8g at k = KS: phase 8's plans over their prepared data
+    # at that k, and their fit and refit(seed=1) (the same draws) as the
+    # references of the later phases
+    mark("8b")
+    plan_s, km_plan_s = at_k(plan, KS), at_k(plan_km, KS)
+    fit_s, refit_s = plan_s.refit(), plan_s.refit(seed=1)
+    km_fit_s = km_plan_s.refit()
+    log(f"[{time.perf_counter() - t_start:.1f} s] phases 8b to 8g at k={KS}"
+        f": phase 8's plans at k={KS} over their prepared data, fit "
+        f"{fit_s.solve_seconds:.3f} s and refit(seed=1) "
+        f"{refit_s.solve_seconds:.3f} s (rejection), fit "
+        f"{km_fit_s.solve_seconds:.3f} s (k-means||)")
+    stacked_plan, lane_costs = other_entry_points(
+        torch, t_start, points, plan_s, fit_s, km_fit_s, t)
+    by_path = {"main": launches, "kmeans||": km_launches}
+    mark("8d")
+    by_path["streaming"] = streaming(torch, t_start, points)
+    mark("8e")
+    by_path["engine"] = engine_phase(torch, t_start, points, plan_s, fit_s,
+                                     refit_s, km_fit_s, t)
+    mark("8f")
+    by_path["service"] = service_phase(torch, t_start, points, stacked_plan)
+    mark("8g")
+    by_path["sharded"] = sharded_phase(torch, t_start, points, plan_s, fit_s,
+                                       km_fit_s, lane_costs, (fit, refit), t)
     for row in rows:
         row["launches_by_path"] = {path: counts.get(row["name"], 0)
                                    for path, counts in by_path.items()}
@@ -1300,7 +1407,7 @@ def seeding_paths(torch, t_start: float) -> list:
 def other_entry_points(torch, t_start, points, plan, fit, km_fit, t):
     """Phase 8b on the same data: the legacy `fit` of the three device
     seeders against `ClusterPlan.fit` on the same seed, `fit_batch` over
-    four seeds against solo refits, `no_retrace` around two refits, and
+    four seeds against solo refits, `no_retrace` around one refit, and
     the cpu backend's six seeders on the host at a tenth of n.  Returns
     phase 8c's plan, its canonical lanes prepared, and the costs of the
     `fit_batch(seeds=[0, 1, 2, 3])` lanes by seeder."""
@@ -1313,8 +1420,8 @@ def other_entry_points(torch, t_start, points, plan, fit, km_fit, t):
     from repro_torch.kernels import ops
 
     log(f"[{time.perf_counter() - t_start:.1f} s] the legacy fit")
-    sweeps = {"tree_sep_update": (t - 1) * K, "tree_sep_update_tiles": K}
-    plan_fast = ClusterPlan(ClusterSpec(k=K, seeder="fastkmeans++",
+    sweeps = {"tree_sep_update": (t - 1) * KS, "tree_sep_update_tiles": KS}
+    plan_fast = ClusterPlan(ClusterSpec(k=KS, seeder="fastkmeans++",
                                         seed=SEED),
                             ExecutionSpec(backend="device"))
     fast_fit = plan_fast.fit(points)
@@ -1325,7 +1432,7 @@ def other_entry_points(torch, t_start, points, plan, fit, km_fit, t):
         t0 = time.perf_counter()
         with warnings.catch_warnings():
             warnings.simplefilter("ignore", DeprecationWarning)
-            km = legacy_fit(points, KMeansConfig(k=K, seeder=seeder,
+            km = legacy_fit(points, KMeansConfig(k=KS, seeder=seeder,
                                                  seed=SEED))
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
@@ -1334,20 +1441,20 @@ def other_entry_points(torch, t_start, points, plan, fit, km_fit, t):
                   else dict(sweeps))
         if seeder == "rejection":
             expect["lsh_bucket_accept"] = max(counts["lsh_bucket_accept"],
-                                              K - 1)
+                                              KS - 1)
         if counts != dict({name: 0 for name in counts}, **expect):
             raise AssertionError(f"legacy fit {seeder}: launches {counts}, "
                                  f"expected {expect}")
         if not np.array_equal(km.seeding.indices, want.cpu().numpy()):
             raise AssertionError(f"legacy fit {seeder}: other indices than "
                                  "ClusterPlan.fit on the same seed")
-        if km.centers.shape != (K, D) or not math.isfinite(km.cost):
+        if km.centers.shape != (KS, D) or not math.isfinite(km.cost):
             raise AssertionError(f"legacy fit {seeder}: cost {km.cost}")
         log(f"  legacy fit {seeder}: {seconds:.3f} s (prepare "
             f"{km.seeding.prepare_seconds:.3f} s, solve "
             f"{km.seeding.solve_seconds:.3f} s, the rest the host's "
             f"quantisation and float64 cost {km.cost:.10g}); "
-            f"launches={counts}; the same {K} indices as ClusterPlan.fit")
+            f"launches={counts}; the same {KS} indices as ClusterPlan.fit")
 
     log(f"[{time.perf_counter() - t_start:.1f} s] fit_batch(seeds) and "
         "no_retrace")
@@ -1359,11 +1466,11 @@ def other_entry_points(torch, t_start, points, plan, fit, km_fit, t):
     builds = {name: v for name, v in TRACE_COUNTS.items()
               if name.startswith("build/")}
     with no_retrace():
-        for s in (5, 6):
-            plan.refit(seed=s)
+        plan.refit(seed=5)
         torch.cuda.synchronize()
-    log(f"  no_retrace() held around refit(seed=5) and refit(seed=6); "
+    log(f"  no_retrace() held around refit(seed=5); "
         f"builds counted in this process: {builds}")
+    mark("8c")
     stacked_plan = stacked_lanes(torch, t_start)
 
     # The cpu backend: host NumPy seeders, as in the JAX package; only the
@@ -1371,17 +1478,17 @@ def other_entry_points(torch, t_start, points, plan, fit, km_fit, t):
     n_cpu = N // 10
     sub = points[:n_cpu]
     log(f"[{time.perf_counter() - t_start:.1f} s] the cpu backend at n="
-        f"{n_cpu} (the first tenth of the rows), d={D}, k={K}; host times")
+        f"{n_cpu} (the first tenth of the rows), d={D}, k={KS}; host times")
     costs = {}
     for seeder in ("kmeans++", "fastkmeans++", "rejection", "kmeans||",
                    "afkmc2", "uniform"):
         ops.reset_launch_counts()
-        res = ClusterPlan(ClusterSpec(k=K, seeder=seeder, seed=SEED),
+        res = ClusterPlan(ClusterSpec(k=KS, seeder=seeder, seed=SEED),
                           ExecutionSpec(backend="cpu")).fit(sub)
         idx = res.indices.cpu().numpy()
         costs[seeder] = seeding.clustering_cost(sub, sub[idx])
         rel = abs(float(res.cost) - costs[seeder]) / costs[seeder]
-        if not (res.indices.is_cuda and len(np.unique(idx)) == K
+        if not (res.indices.is_cuda and len(np.unique(idx)) == KS
                 and idx.min() >= 0 and idx.max() < n_cpu and rel < 1e-3
                 and sum(ops.launch_counts().values()) == 0):
             raise AssertionError(f"cpu backend {seeder}: indices, cost "
@@ -1462,10 +1569,10 @@ def stacked_lanes(torch, t_start):
 
     dev = torch.device("cuda")
     log(f"[{time.perf_counter() - t_start:.1f} s] fit_batch(datasets=...) "
-        f"at full width, d={D}, k={K}, rejection")
+        f"at full width, d={D}, k={KS}, rejection")
     datasets = [kddcup_shaped(SEED), kddcup_shaped(SEED + 1),
                 kddcup_shaped(SEED + 2)[:STACK_SMALL]]
-    plan = ClusterPlan(ClusterSpec(k=K, seeder="rejection", seed=SEED),
+    plan = ClusterPlan(ClusterSpec(k=KS, seeder="rejection", seed=SEED),
                        ExecutionSpec(backend="device"))
     preps = [plan.prepare_stacked(x) for x in datasets]
     log("  prepare_stacked (the canonical lanes): " + ", ".join(
@@ -1504,7 +1611,7 @@ def stacked_lanes(torch, t_start):
             raise AssertionError(f"fit_batch(datasets=...) lane {i} differs "
                                  "from its one-lane stacked fit")
         if int(idx.min()) < 0 or int(idx.max()) >= len(x) or \
-                len(torch.unique(idx)) != K or rel > 1e-4:
+                len(torch.unique(idx)) != KS or rel > 1e-4:
             raise AssertionError(f"fit_batch(datasets=...) lane {i}: "
                                  f"indices or cost {float(batch.cost[i])} "
                                  f"against {exact} in float64")
@@ -1512,11 +1619,11 @@ def stacked_lanes(torch, t_start):
     lsh = counts["lsh_bucket_accept"]
     groups = (max(solo_lsh[:2]) + solo_lsh[2], sum(solo_lsh))
     if counts != dict({name: 0 for name in counts},
-                      tree_sep_update=2 * (t - 1) * K,
-                      tree_sep_update_tiles=2 * K, lsh_bucket_accept=lsh) \
+                      tree_sep_update=2 * (t - 1) * KS,
+                      tree_sep_update_tiles=2 * KS, lsh_bucket_accept=lsh) \
             or not groups[0] <= lsh <= groups[1]:
         raise AssertionError(f"fit_batch(datasets=...) launches {counts}, "
-                             f"expected two solves of {(t - 1) * K} and {K} "
+                             f"expected two solves of {(t - 1) * KS} and {KS} "
                              f"sweeps and lsh_bucket_accept in {groups}")
     log(f"  fit_batch(datasets=[kddcup_shaped(0), kddcup_shaped(1), "
         f"kddcup_shaped(2)[:{STACK_SMALL}]]): solve {batch_s:.3f} s "
@@ -1526,7 +1633,7 @@ def stacked_lanes(torch, t_start):
         f"lsh_bucket_accept {solo_lsh}, their solves "
         f"{[round(v, 3) for v in solo_s]} s, {sum(solo_s):.3f} s in all, "
         f"{sum(solo_s) / batch_s:.3f} times the batch); trials per center "
-        f"{[round(float(v.sum()) / K, 3) for v in ex['trials']]}; each "
+        f"{[round(float(v.sum()) / KS, 3) for v in ex['trials']]}; each "
         "lane bit-identical to its "
         "one-lane stacked fit, indices below its n_real, cost in original "
         f"coordinates within 1e-4 of float64: "
@@ -1748,7 +1855,7 @@ def streaming(torch, t_start, points) -> dict:
     dev = torch.device("cuda")
     rungs = (shape_bucket(STREAM_FIRST), shape_bucket(N))  # 262,144; 524,288
     log(f"[{time.perf_counter() - t_start:.1f} s] streaming at full width, "
-        f"d={D}, k={K}: prepare_streaming of {STREAM_FIRST} rows, extends "
+        f"d={D}, k={KS}: prepare_streaming of {STREAM_FIRST} rows, extends "
         f"of {STREAM_BATCH}, retire of {STREAM_RETIRE}")
     retired = np.random.default_rng(SEED + 8).choice(N, STREAM_RETIRE,
                                                      replace=False)
@@ -1758,7 +1865,7 @@ def streaming(torch, t_start, points) -> dict:
         return time.perf_counter() - t0
 
     def history(seeder):
-        plan = ClusterPlan(ClusterSpec(k=K, seeder=seeder, seed=SEED),
+        plan = ClusterPlan(ClusterSpec(k=KS, seeder=seeder, seed=SEED),
                            ExecutionSpec(backend="device"))
         t0 = time.perf_counter()
         prep = plan.prepare_streaming(points[:STREAM_FIRST])
@@ -1812,7 +1919,7 @@ def streaming(torch, t_start, points) -> dict:
         torch.cuda.synchronize()
         counts = ops.launch_counts()
         lsh = counts["lsh_bucket_accept"]
-        lsh_ok = lsh >= K - 1 if plan.cluster.seeder == "rejection" \
+        lsh_ok = lsh >= KS - 1 if plan.cluster.seeder == "rejection" \
             else lsh == 0
         if counts != dict({name: 0 for name in counts}, **want,
                           lsh_bucket_accept=lsh) or not lsh_ok:
@@ -1823,14 +1930,14 @@ def streaming(torch, t_start, points) -> dict:
         exact = cost64(torch, pts64, torch.as_tensor(state.host_pts[idx],
                                                      device=dev))
         rel = abs(float(res.cost) - exact) / exact
-        if not (state.live[idx].all() and len(np.unique(idx)) == K
+        if not (state.live[idx].all() and len(np.unique(idx)) == KS
                 and rel <= 1e-4 and res.extras["streaming"]):
             raise AssertionError(f"{label}: indices live "
                                  f"{state.live[idx].all()}, distinct "
                                  f"{len(np.unique(idx))}, cost "
                                  f"{float(res.cost)} against {exact}")
         rounds = (f", {lsh} accept rounds, trials per center "
-                  f"{float(res.extras['trials'].sum()) / K:.3f}"
+                  f"{float(res.extras['trials'].sum()) / KS:.3f}"
                   if lsh else "")
         log(f"  {label}: solve {res.solve_seconds:.3f} s, cost "
             f"{float(res.cost):.9g} (float64 over the live rows "
@@ -1883,27 +1990,15 @@ def streaming(torch, t_start, points) -> dict:
         if not torch.equal(again.indices, res.indices):
             raise AssertionError(f"{label}: seed 1 opened other indices the "
                                  "second time")
-        log(f"  {label}: seed 1 again, the same {K} indices "
+        log(f"  {label}: seed 1 again, the same {KS} indices "
             f"({again.solve_seconds:.3f} s)")
         return res, counts
 
     plan, prep = history("rejection")
     state = prep.streaming
     t = state.codes_lo.shape[0]
-    sweeps = {"tree_sep_update": (t - 1) * K, "tree_sep_update_tiles": K}
+    sweeps = {"tree_sep_update": (t - 1) * KS, "tree_sep_update_tiles": KS}
     res, launches = refit_checks("rejection stream", plan, prep, sweeps)
-
-    # From scratch on the same live rows: the main path's prepare (quantised)
-    # and fit, information only.
-    live_pts = state.live_points()
-    static = plan.prepare_data(live_pts)
-    scratch_fit = plan.fit_prepared(static, seed=1)
-    log(f"  from scratch on the {len(live_pts)} live rows: prepare_data "
-        f"{static.prepare_seconds:.3f} s, fit solve "
-        f"{scratch_fit.solve_seconds:.3f} s, cost "
-        f"{float(scratch_fit.cost):.9g} (quantised, as the main path)")
-    plan.forget(static)
-    del static, scratch_fit, live_pts
 
     # Round trip: extend then retire the same rows.
     w0, heap = state.w0.clone(), state.base_heap.clone()
@@ -1988,28 +2083,31 @@ def same_fit(torch, a, b) -> bool:
             and torch.equal(a.cost, b.cost))
 
 
-def check_launches(label, counts, solves, t, pairwise=0, shards=1) -> None:
-    """`solves` rejection solves of one lane each (or lane-batched: the
-    lanes share launches) over `shards` shards (each sweep launched once a
-    shard, the accept once a round) and `pairwise` `pairwise_argmin`
-    launches, nothing else."""
+def check_launches(label, counts, solves, t, pairwise=0, shards=1,
+                   k=KS) -> None:
+    """`solves` rejection solves of k centers and one lane each (or
+    lane-batched: the lanes share launches) over `shards` shards (each
+    sweep launched once a shard, the accept once a round) and `pairwise`
+    `pairwise_argmin` launches, nothing else."""
     lsh = counts["lsh_bucket_accept"]
     want = dict({name: 0 for name in counts}, lsh_bucket_accept=lsh,
-                tree_sep_update=solves * shards * (t - 1) * K,
-                tree_sep_update_tiles=solves * shards * K,
+                tree_sep_update=solves * shards * (t - 1) * k,
+                tree_sep_update_tiles=solves * shards * k,
                 pairwise_argmin=pairwise)
-    if counts != want or lsh < solves * (K - 1):
+    if counts != want or lsh < solves * (k - 1):
         raise AssertionError(f"{label}: launches {counts}, expected {want} "
-                             f"and lsh_bucket_accept >= {solves * (K - 1)}")
+                             f"and lsh_bucket_accept >= {solves * (k - 1)}")
 
 
 def sharded_phase(torch, t_start, points, device_plan, fit, km_fit,
-                  lane_costs, t) -> dict:
-    """Phase 8g: the sharded backend at full width on `kddcup_shaped(0)`,
-    k = 1000, over a mesh of `SHARDS` shards on cuda:0, and the rejection
-    solve on one shard of phase 8's prepared artifacts.  Returns the
-    launches of its rejection fit (rows 1 to 3) and of its k-means|| fit
-    (row 5)."""
+                  lane_costs, full_fits, t) -> dict:
+    """Phase 8g: the sharded backend at full width on `kddcup_shaped(0)`
+    over a mesh of `SHARDS` shards on cuda:0: the rejection fit and
+    refit(seed=1) at k = K, their mean cost within 5% of phase 8's device
+    fit and refit (`full_fits`, the same seeds and k); the rejection solve
+    on one shard of phase 8's prepared artifacts, fastkmeans++ and
+    k-means|| at k = KS.  Returns the launches of its rejection fit (rows
+    1 to 3) and of its k-means|| fit (row 5)."""
     from repro_torch.core import sharded_seeding as shs
     from repro_torch.core.device_seeding import _generator
     from repro_torch.core.plan import ClusterPlan, ClusterSpec, ExecutionSpec
@@ -2018,12 +2116,12 @@ def sharded_phase(torch, t_start, points, device_plan, fit, km_fit,
 
     t_phase = time.perf_counter()
     log(f"[{t_phase - t_start:.1f} s] the sharded backend: n={N}, d={D}, "
-        f"k={K}, {SHARDS} shards on cuda:0 (make_seeding_mesh({SHARDS}, "
-        "device='cuda:0'))")
+        f"k={K} (rejection) and {KS}, {SHARDS} shards on cuda:0 "
+        f"(make_seeding_mesh({SHARDS}, device='cuda:0'))")
     mesh = make_seeding_mesh(SHARDS, device="cuda:0")
 
-    def sharded_plan(seeder, shards_mesh):
-        plan = ClusterPlan(ClusterSpec(k=K, seeder=seeder, seed=SEED),
+    def sharded_plan(seeder, shards_mesh, k=KS):
+        plan = ClusterPlan(ClusterSpec(k=k, seeder=seeder, seed=SEED),
                            ExecutionSpec(backend="sharded",
                                          mesh=shards_mesh))
         prep = plan.prepare(points).prepare_data(points)
@@ -2035,14 +2133,17 @@ def sharded_phase(torch, t_start, points, device_plan, fit, km_fit,
         torch.cuda.synchronize()
         return res, ops.launch_counts()
 
-    plan, prep = sharded_plan("rejection", mesh)
+    # k = K: the mean-cost gate below holds two seeds a side to 5%, which
+    # at k = 1000 is about three standard errors of the difference (a
+    # seed's cost spreads by 1 to 2% there, by about 5% at k = 250)
+    plan, prep = sharded_plan("rejection", mesh, K)
     data = prep.artifacts
     if not (data.mesh.size == SHARDS and all(
             a.device == torch.device("cuda", 0) for a in data.codes_lo)):
         raise AssertionError(f"sharded artifacts on {data.mesh}")
     res0, counts = timed_fit(plan)
     rounds = sum(res0.extras["rounds_per_batch"].values())
-    check_launches("sharded rejection", counts, 1, t, shards=SHARDS)
+    check_launches("sharded rejection", counts, 1, t, shards=SHARDS, k=K)
     if counts["lsh_bucket_accept"] != rounds:
         raise AssertionError(f"sharded rejection: {rounds} accept rounds, "
                              f"{counts['lsh_bucket_accept']} launches")
@@ -2053,26 +2154,20 @@ def sharded_phase(torch, t_start, points, device_plan, fit, km_fit,
     log(f"  rejection: prepare {prep.prepare_seconds:.3f} s (split onto "
         f"{SHARDS} shards of {data.n_loc} rows), solve "
         f"{res0.solve_seconds:.3f} s (phase 8's device fit "
-        f"{fit.solve_seconds:.3f} s), {rounds} accept rounds, "
+        f"{full_fits[0].solve_seconds:.3f} s), {rounds} accept rounds, "
         f"launches={counts}, cost {float(res0.cost):.10g}")
-    costs = [float(res0.cost)]
-    for s in (1, 2, 3):
-        res, _ = timed_fit(plan, seed=s)
-        costs.append(float(res.cost))
-        log(f"  rejection refit(seed={s}): solve {res.solve_seconds:.3f} s, "
-            f"cost {costs[-1]:.10g}")
-    replay, _ = timed_fit(plan)
-    if not torch.equal(replay.indices, res0.indices):
-        raise AssertionError("sharded rejection: seed 0 did not replay")
-    mean, lanes = float(np.mean(costs)), float(np.mean(lane_costs[
-        "rejection"]))
-    if abs(mean / lanes - 1.0) > 0.05:
-        raise AssertionError(f"sharded rejection: mean cost of seeds 0 to 3 "
-                             f"{mean} against phase 8b's lanes {lanes}")
-    log(f"  seed 0 replayed (the same {K} indices, solve "
-        f"{replay.solve_seconds:.3f} s); mean cost of seeds 0 to 3 "
-        f"{mean:.10g}, {mean / lanes:.6f} of phase 8b's fit_batch(seeds="
-        f"[0, 1, 2, 3]) lanes' {lanes:.10g}")
+    res1, _ = timed_fit(plan, seed=1)
+    costs = [float(res0.cost), float(res1.cost)]
+    log(f"  rejection refit(seed=1): solve {res1.solve_seconds:.3f} s, "
+        f"cost {costs[1]:.10g}")
+    mean = float(np.mean(costs))
+    device = float(np.mean([float(f.cost) for f in full_fits]))
+    if abs(mean / device - 1.0) > 0.05:
+        raise AssertionError(f"sharded rejection: mean cost of seeds 0 and "
+                             f"1 {mean} against phase 8's device fits' "
+                             f"{device}")
+    log(f"  mean cost of seeds 0 and 1 {mean:.10g}, {mean / device:.6f} of "
+        f"phase 8's device fit and refit(seed=1) at k={K} ({device:.10g})")
     main_counts = counts
 
     # One shard of phase 8's prepared artifacts (no second host prepare),
@@ -2091,7 +2186,7 @@ def sharded_phase(torch, t_start, points, device_plan, fit, km_fit,
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     chosen, _ = shs.sharded_rejection_sampling(
-        one, K, _generator(rng, one.controller), c=device_plan.cluster.c)
+        one, KS, _generator(rng, one.controller), c=device_plan.cluster.c)
     torch.cuda.synchronize()
     solve1 = time.perf_counter() - t0
     counts = ops.launch_counts()
@@ -2101,15 +2196,15 @@ def sharded_phase(torch, t_start, points, device_plan, fit, km_fit,
                              "device fit at seed 0")
     log(f"  rejection on one shard of phase 8's artifacts: split "
         f"{split_s:.3f} s, solve {solve1:.3f} s, launches={counts}; the "
-        f"same {K} indices as phase 8's device fit")
+        f"same {KS} indices as phase 8's device plan at k={KS}")
     del one, chosen
 
     fast, prep_f = sharded_plan("fastkmeans++", mesh)
     res_f, counts = timed_fit(fast)
     want = dict({name: 0 for name in counts},
-                tree_sep_update=SHARDS * (t - 1) * K,
-                tree_sep_update_tiles=SHARDS * K)
-    if counts != want or len(torch.unique(res_f.indices)) != K:
+                tree_sep_update=SHARDS * (t - 1) * KS,
+                tree_sep_update_tiles=SHARDS * KS)
+    if counts != want or len(torch.unique(res_f.indices)) != KS:
         raise AssertionError(f"sharded fastkmeans++: launches {counts}, "
                              f"expected {want}")
     fast_lanes = float(np.mean(lane_costs["fastkmeans++"]))
@@ -2123,7 +2218,7 @@ def sharded_phase(torch, t_start, points, device_plan, fit, km_fit,
     res_k, counts = timed_fit(kmp)
     want = dict({name: 0 for name in counts},
                 pairwise_argmin=KMP_ROUNDS * SHARDS)
-    if counts != want or len(torch.unique(res_k.indices)) != K or \
+    if counts != want or len(torch.unique(res_k.indices)) != KS or \
             not math.isfinite(float(res_k.cost)):
         raise AssertionError(f"sharded kmeans||: launches {counts}, "
                              f"expected {want}")
@@ -2155,11 +2250,11 @@ def engine_phase(torch, t_start, points, plan, fit, refit, km_fit,
                                   classify_failure)
     from repro_torch.kernels import ops
 
-    spec = ClusterSpec(k=K, seeder="rejection", seed=SEED)
+    spec = ClusterSpec(k=KS, seeder="rejection", seed=SEED)
     exe = ExecutionSpec(backend="device")
     total = collections.Counter()
     log(f"[{time.perf_counter() - t_start:.1f} s] the clustering engine at "
-        f"full width, d={D}, k={K}, rejection: kddcup_shaped(0) and (1) at "
+        f"full width, d={D}, k={KS}, rejection: kddcup_shaped(0) and (1) at "
         "seeds 0 and 1, prepare_workers=2")
     data1 = kddcup_shaped(SEED + 1)
     engine = ClusterEngine(spec, exe, prepare_workers=2, degrade=False)
@@ -2345,7 +2440,7 @@ def service_phase(torch, t_start, points, stacked_plan) -> dict:
                                          TenantScheduler, parse_tenants)
     from repro_torch.serving.net.protocol import ResultFrame
 
-    spec = ClusterSpec(k=K, seeder="rejection", seed=SEED)
+    spec = ClusterSpec(k=KS, seeder="rejection", seed=SEED)
     exe = ExecutionSpec(backend="device")
     seeds = [0, 1, 2, 3]
     tenants = ("bulk", "interactive")
@@ -2601,6 +2696,7 @@ def serving_path(torch, t_start: float) -> dict:
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     # -- 10. the kernel against its plain version ----------------------------
+    mark("10-11")
     log(f"[{time.perf_counter() - t_start:.1f} s] flash_attention")
     bf16, f32 = torch.bfloat16, torch.float32
     q, k, v = (randn((b, s, n, hd), bf16) for n in (h, hk, hk))
@@ -2662,6 +2758,7 @@ def serving_path(torch, t_start: float) -> dict:
     torch.cuda.empty_cache()
 
     # -- 12. the path: yi-9b at full width and depth ------------------------
+    mark("12-13")
     log(f"[{time.perf_counter() - t_start:.1f} s] {cfg.name} at full width")
     t0 = time.perf_counter()
     params = init_params(param_specs(cfg), gen, bf16, dev)
@@ -2746,32 +2843,44 @@ def serving_path(torch, t_start: float) -> dict:
     del eng, toks, short
 
     # -- 14. reduced yi-9b on the card against the port on the CPU ----------
+    mark("14")
     reduced_on_card(torch, cfg.name, b)
     # -- 14b. the clustered KV cache over phase 12's weights -----------------
+    mark("14b")
     paths = {"generate": counts,
              "cluster_kv": cluster_kv_phase(torch, t_start, params, cfg)}
     del params
     gc.collect()
     torch.cuda.empty_cache()
     # -- 14c to 14e. MLA and MoE at full width, then reduced ----------------
+    mark("14c")
     paths["mla"], row["at_mla_shape"] = deepseek_phase(torch, t_start)
+    mark("14d")
     paths["moe"], row["at_moe_shape"] = qwen_moe_phase(torch, t_start)
+    mark("14e")
     for arch in MOE_ARCHS:
         reduced_on_card(torch, arch, b, gate_shape=MOE_GATE_SHAPE)
     # -- 15a to 15d. RWKV-6, Mamba, the vlm prefix and the audio inputs ----
+    mark("15a")
     paths["rwkv6"] = recurrent_phase(torch, t_start, "rwkv6-3b", {})
+    mark("15b")
     paths["jamba"] = recurrent_phase(torch, t_start, "jamba-1.5-large-398b",
                                      JAMBA_CUTS)
+    mark("15c")
     paths["paligemma"], row["at_prefix_shape"] = paligemma_phase(torch,
                                                                  t_start)
+    mark("15d")
     paths["hubert"], row["at_hubert_shape"] = hubert_phase(torch, t_start)
+    bwd_row, train_paths = training_phase(torch, t_start)
+    paths.update(train_paths)
     row["max_abs_err"] = max(
         [row["max_abs_err"]] + [row[key]["max_abs_err"] for key in (
             "at_mla_shape", "at_moe_shape", "at_prefix_shape",
             "at_hubert_shape")])
     log("clocks/power after the serving path: " + smi(
         "clocks.sm,power.draw,power.limit,temperature.gpu"))
-    return row, paths
+    bwd_row["launches"] = paths["train"]["flash_attention_bwd"]
+    return [row, bwd_row], paths
 
 
 def reduced_on_card(torch, arch: str, b: int, gate_shape=None) -> None:
@@ -3681,6 +3790,278 @@ def hubert_phase(torch, t_start) -> tuple:
     return counts, numbers
 
 
+def backward_numbers(torch, label, b, s, h, hk, d, dv, dtype, causal,
+                     prefix) -> dict:
+    """16a at one shape: the backward kernel's dq, dk, dv against autograd
+    through the plain version (`ref.attention_bshd_ref`) on f32 copies of
+    the same values, a second launch bit-identical, the forward's `out`
+    the same bits with and without its log-sum-exp; the kernel's time
+    (CUDA events) beside the plain backward's, SDPA's backward through
+    autograd (the yardstick only) and the bound: the five products, 2 (3 D
+    + 2 Dv) operations a visible pair, at the f32 or bf16 rate, or the
+    bytes (q, k, v, out, dO and lse read once, dq, dk, dv written once)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention_cuda as fa_cuda
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dt)
+               for shape in ((b, s, h, d), (b, s, hk, d), (b, s, hk, dv)))
+    dout = torch.randn((b, s, h, dv), generator=gen, device=dev)
+    scale = d ** -0.5
+    kw = dict(scale=scale, causal=causal, prefix_len=prefix)
+    out, lse = fa_cuda.launch(q, k, v, with_lse=True, **kw)
+    if not torch.equal(out, fa_cuda.launch(q, k, v, **kw)):
+        raise AssertionError(f"flash_attention {label}: out differs with "
+                             "the log-sum-exp asked for")
+    grads = fa_cuda.launch_backward(q, k, v, out, dout, lse, **kw)
+    again = fa_cuda.launch_backward(q, k, v, out, dout, lse, **kw)
+    if not all(torch.equal(x, y) for x, y in zip(grads, again)):
+        raise AssertionError(f"flash_attention_bwd {label}: a second launch "
+                             "gave other bits")
+    leaves = [t.float().requires_grad_(True) for t in (q, k, v)]
+    plain_out = ref.attention_bshd_ref(*leaves, **kw)
+    plain = torch.autograd.grad(plain_out, leaves, dout, retain_graph=True)
+    errs, rels = [], []
+    for name, g, p in zip(("dq", "dk", "dv"), grads, plain):
+        if g.dtype != dt or g.shape != p.shape:
+            raise AssertionError(f"flash_attention_bwd {label}: {name} "
+                                 f"{g.dtype} {tuple(g.shape)}")
+        err = float((g.float() - p).abs().max())
+        errs.append(err)
+        rels.append(err / float(p.abs().max()))
+    tol = BWD_TOL[dtype]
+    if not max(rels) <= tol:
+        raise AssertionError(f"flash_attention_bwd {label}: errors {rels} "
+                             f"of the largest |gradient|, tolerance {tol}")
+
+    def kernel(i):
+        fa_cuda.launch_backward(q, k, v, out, dout, lse, **kw)
+
+    ms = cuda_ms(torch, kernel, 5)
+    plain_ms = cuda_ms(torch, lambda i: torch.autograd.grad(
+        plain_out, leaves, dout, retain_graph=True), 2)
+    ms_again = cuda_ms(torch, kernel, 5)
+    del plain_out, plain, leaves
+    lib_in = [t.detach().transpose(1, 2).requires_grad_(True)
+              for t in (q, k, v)]
+    lib_kw = {"scale": scale, "enable_gqa": hk != h}
+    if causal and prefix:
+        pos = torch.arange(s, device=dev)
+        lib_kw["attn_mask"] = ref.prefix_causal_mask(pos, pos, prefix)
+    else:
+        lib_kw["is_causal"] = causal
+    try:
+        lib_out = F.scaled_dot_product_attention(*lib_in, **lib_kw)
+        lib_dout = dout.transpose(1, 2).to(dt)
+        lib_ms = cuda_ms(torch, lambda i: torch.autograd.grad(
+            lib_out, lib_in, lib_dout, retain_graph=True), 5)
+        del lib_out, lib_dout
+    except RuntimeError as exc:     # the yardstick only, never in the port
+        log(f"  scaled_dot_product_attention's backward refused {label}: "
+            f"{exc}")
+        lib_ms = None
+    pairs = s * s if not causal else \
+        s * (s + 1) // 2 + prefix * (prefix - 1) // 2
+    ops_count = 2 * (3 * d + 2 * dv) * pairs * b * h
+    es = q.element_size()
+    nbytes = 2 * es * (q.numel() + k.numel() + v.numel()) + \
+        4 * (2 * out.numel() + lse.numel())
+    rate = F32_OPS_PER_S if dtype == "float32" else BF16_OPS_PER_S
+    b_ms, b_by = bound(nbytes, ops_count, rate)
+    log(f"flash_attention_bwd {label}: q {tuple(q.shape)} k {tuple(k.shape)}"
+        f" v {tuple(v.shape)} {dtype}, causal {causal}, prefix {prefix}: "
+        f"dq, dk, dv against autograd through the plain version max abs err "
+        f"{[f'{e:.3g}' for e in errs]}, {max(rels):.3g} of the largest "
+        f"|gradient| (tol {tol}); a second launch bit-identical; out the "
+        f"same bits with the log-sum-exp")
+    log(f"time flash_attention_bwd {label}: kernel {ms:.6f} / "
+        f"{ms_again:.6f} ms, plain backward (autograd) {plain_ms:.6f} ms, "
+        f"library (scaled_dot_product_attention's backward) {lib_ms} ms, "
+        f"bound {b_ms:.6f} ms ({b_by}; {pairs} visible pairs a head, "
+        f"{ops_count} operations at {rate / 1e12:.0f} TFLOP/s, {nbytes} "
+        f"bytes), {b_ms / min(ms, ms_again):.4f} of the bound")
+    del q, k, v, dout, out, lse, grads, again
+    torch.cuda.empty_cache()
+    return {"ms": min(ms, ms_again), "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "max_abs_err": max(errs), "max_rel_err": max(rels)}
+
+
+def training_phase(torch, t_start) -> tuple:
+    """Phase 16: (a) the backward kernel at its shapes, (b) olmo-1b at full
+    width and depth through `make_train_step`, (c) the `Trainer`'s kill
+    and resume at full width and 2 layers.  Returns the backward's kernel
+    row and each path's launch counts."""
+    import dataclasses
+    import shutil
+    from pathlib import Path
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params, param_specs
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.training.train_step import make_train_step
+    from repro_torch.training.trainer import Trainer
+
+    mark("16a")
+    log(f"[{time.perf_counter() - t_start:.1f} s] flash_attention_bwd")
+    numbers = {spec[0]: backward_numbers(torch, *spec)
+               for spec in BWD_SHAPES}
+    main = numbers.pop(TRAIN_ARCH)
+    row = {"name": "flash_attention_bwd", "route": "cuda",
+           "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+           "replaces": "src/repro/models/attention.py:94", "launches": None,
+           "max_abs_err": max([main["max_abs_err"]] + [
+               n["max_abs_err"] for n in numbers.values()]),
+           **{key: main[key] for key in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")}}
+    for label, n in numbers.items():
+        row[f"at_{label.replace('-', '_')}_shape"] = n
+
+    # -- 16b. olmo-1b at full width and depth, f32, through make_train_step --
+    mark("16b")
+    dev = torch.device("cuda")
+    f32 = torch.float32
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), dtype="float32",
+                              param_dtype="float32")
+    log(f"[{time.perf_counter() - t_start:.1f} s] {cfg.name} training at "
+        f"full width and depth: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads} heads of {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, f32; {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens a step, lr {TRAIN_LR}, remat none")
+    if cfg.param_count() != OLMO_PARAMS:
+        raise AssertionError(f"{cfg.name}: {cfg.param_count()} parameters")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = init_params(param_specs(cfg), gen, f32, dev)
+    opt = init_opt_state(params)
+    torch.cuda.synchronize()
+    log(f"  {cfg.param_count()} f32 parameters and both moments on the card "
+        f"in {time.perf_counter() - t0:.2f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    tc = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=10,
+                     total_steps=TRAIN_STEPS, remat="none")
+    step = make_train_step(cfg, tc)
+    stream = TokenStream(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=SEED)
+    per_step = {"flash_attention": cfg.num_layers,
+                "flash_attention_bwd": cfg.num_layers}
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    ops.reset_launch_counts()
+    for i in range(TRAIN_STEPS):
+        before = ops.launch_counts()
+        batch = {"tokens": stream.next_batch()}
+        t0 = time.perf_counter()
+        params, opt, metrics = step(params, opt, batch)
+        loss = float(metrics["loss"])
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+        now = ops.launch_counts()
+        expect_launches(f"train step {i + 1}", {
+            name: now[name] - before[name] for name in now}, per_step)
+        if not math.isfinite(loss):
+            raise AssertionError(f"train step {i + 1}: loss {loss}")
+        log(f"  step {i + 1}: loss {loss:.6f}, grad norm "
+            f"{float(metrics['grad_norm']):.6f}, lr {float(metrics['lr']):.6g}"
+            f", {times[-1]:.4f} s")
+    train_counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med = float(np.median(times[1:]))
+    nonzero = {name: n for name, n in train_counts.items() if n}
+    log(f"  {TRAIN_STEPS} steps: launches {nonzero} ({per_step} a step); "
+        f"median step "
+        f"(steps 2 to {TRAIN_STEPS}) {med:.4f} s, "
+        f"{TRAIN_BATCH * TRAIN_SEQ / med:.1f} tokens/s; peak device memory "
+        f"{peak:.3f} GiB")
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        params, opt, metrics = step(params, opt,
+                                    {"tokens": stream.next_batch()})
+        loss = float(metrics["loss"])
+        wall = time.perf_counter() - t0
+    busy, n_events, by_name = device_time(torch, prof)
+    log(f"  a seventh step, traced: loss {loss:.6f}, wall {wall:.4f} s, "
+        f"device busy {busy:.4f} s over {n_events} device events, idle "
+        f"share {1 - busy / wall:.4f}")
+    log_top(by_name, 6)
+    del params, opt, metrics, prof, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 16c. the Trainer's kill and resume, full width, 2 layers ---------
+    mark("16c")
+    cut = dataclasses.replace(cfg, num_layers=TRAINER_LAYERS)
+    log(f"[{time.perf_counter() - t_start:.1f} s] the Trainer "
+        f"(repro_torch.launch.train's loop) on {cfg.name} at full width, "
+        f"{TRAINER_LAYERS} of {cfg.num_layers} layers ({cut.param_count()} "
+        f"f32 parameters): {TRAINER_STEPS} steps, a checkpoint every "
+        f"{TRAINER_EVERY}, a failure at step {TRAINER_FAIL}, then a resume")
+    tc = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=10,
+                     total_steps=TRAINER_STEPS, remat="none",
+                     checkpoint_every=TRAINER_EVERY)
+    root = Path(ROOT) / "build" / "chip_smoke_train"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def trainer(workdir, **kw):
+        return Trainer(cut, tc, workdir=root / workdir, batch=TRAIN_BATCH,
+                       seq_len=TRAIN_SEQ, **kw)
+
+    try:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        golden_run = trainer("golden")
+        golden = golden_run.run(TRAINER_STEPS)
+        golden_s = time.perf_counter() - t0
+        trainer_counts = ops.launch_counts()
+        expect_launches("Trainer", trainer_counts, {
+            name: TRAINER_LAYERS * TRAINER_STEPS for name in per_step})
+        ckpt = golden_run.ckpt
+        t0 = time.perf_counter()
+        try:
+            trainer("resume", fail_at_step=TRAINER_FAIL).run(TRAINER_STEPS)
+        except RuntimeError as exc:
+            if "injected failure" not in str(exc):
+                raise
+        else:
+            raise AssertionError("fail_at_step did not stop the run")
+        fail_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        resumed = trainer("resume").run(TRAINER_STEPS)
+        resume_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    start = TRAINER_FAIL // TRAINER_EVERY * TRAINER_EVERY
+    if resumed.resumed_from != start or \
+            not np.allclose(resumed.losses, golden.losses[start:],
+                            rtol=1e-6, atol=0.0) or \
+            not np.isfinite(golden.losses).all():
+        raise AssertionError(f"Trainer: resumed from {resumed.resumed_from},"
+                             f" losses {resumed.losses} against the golden "
+                             f"run's {golden.losses[start:]}")
+    bits = resumed.losses == golden.losses[start:]
+    log(f"  golden run {golden_s:.2f} s, losses "
+        f"{[round(x, 6) for x in golden.losses]}; launches "
+        f"{ {k: v for k, v in trainer_counts.items() if v} }; the run "
+        f"stopped at step {TRAINER_FAIL} in {fail_s:.2f} s; resumed from "
+        f"step {resumed.resumed_from} in {resume_s:.2f} s: losses of steps "
+        f"{start + 1} to {TRAINER_STEPS} within rtol 1e-6 of the golden "
+        f"run's, {'bit-identical' if bits else 'not bit-identical'}; a "
+        f"checkpoint is {ckpt.last_bytes} bytes, its host copy "
+        f"{ckpt.last_copy_seconds:.3f} s, its write "
+        f"{ckpt.last_write_seconds:.3f} s (np.savez under build/)")
+    log(f"[{time.perf_counter() - t_start:.1f} s] training done")
+    return row, {"train": train_counts, "trainer": trainer_counts}
+
+
 def main() -> int:
     import torch
 
@@ -3691,6 +4072,7 @@ def main() -> int:
     from repro_torch.kernels import _build
 
     t_start = time.perf_counter()
+    mark("1-2")
     card = smi("name,power.limit")
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python "
@@ -3710,18 +4092,21 @@ def main() -> int:
 
     rows = seeding_paths(torch, t_start)
     # -- 9. free the seeding paths' tensors before the 17.7 GB of weights ---
+    mark("9")
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[{time.perf_counter() - t_start:.1f} s] device memory after the "
         f"seeding paths: {torch.cuda.memory_allocated() / 2**20:.1f} MiB "
         f"allocated, {torch.cuda.memory_reserved() / 2**20:.1f} MiB reserved")
-    row, paths = serving_path(torch, t_start)
-    rows.append(row)
+    lm_rows, paths = serving_path(torch, t_start)
+    rows.extend(lm_rows)
     for r in rows:
         r.setdefault("launches_by_path", {}).update(
             {path: counts.get(r["name"], 0) for path, counts in paths.items()})
+    mark("end")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
+    log(json.dumps({"phase_seconds": phase_seconds()}))
     log(card)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -12,6 +12,7 @@ from repro_torch.configs.base import (
     SHAPES,
     ModelConfig,
     ShapeConfig,
+    TrainConfig,
     reduce_for_smoke,
 )
 
@@ -44,5 +45,6 @@ __all__ = [
     "SHAPES",
     "ModelConfig",
     "ShapeConfig",
+    "TrainConfig",
     "reduce_for_smoke",
 ]

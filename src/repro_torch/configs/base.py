@@ -1,11 +1,11 @@
 """Config dataclasses: model architecture and input shapes.
 
 A copy of the JAX package's `configs/base.py` (`ModelConfig`,
-`ShapeConfig`, `SHAPES`, `reduce_for_smoke`), so that the port imports
-nothing of that package.  Every architecture is a `ModelConfig` instance in
-its own module under `repro_torch.configs`; the registry in `__init__.py`
-resolves ``--arch`` ids.  The mesh and training configs come with the
-port's training slice.
+`ShapeConfig`, `SHAPES`, `TrainConfig`, `reduce_for_smoke`), so that the
+port imports nothing of that package.  Every architecture is a
+`ModelConfig` instance in its own module under `repro_torch.configs`; the
+registry in `__init__.py` resolves ``--arch`` ids.  The mesh config comes
+with the production meshes.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ __all__ = [
     "ModelConfig",
     "ShapeConfig",
     "SHAPES",
+    "TrainConfig",
     "reduce_for_smoke",
 ]
 
@@ -186,6 +187,21 @@ SHAPES: dict[str, ShapeConfig] = {
     "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
     "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
 }
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    microbatches: int = 1           # gradient accumulation steps
+    remat: str = "block"            # none | block (dots: not ported yet)
+    grad_compression: str = "none"  # none | int8 | topk (not ported yet)
+    z_loss: float = 1e-4
+    checkpoint_every: int = 100
+    seed: int = 0
 
 
 def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:

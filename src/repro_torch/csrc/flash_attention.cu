@@ -97,6 +97,12 @@
 // Rounding: key 0 is valid for every query row, so after the first tile
 // every row's max is a real score and exp(-1e30 - m) is 0 on every masked
 // key, as in the reference.
+//
+// For training both routes also write, when given a non-null `lse`, each
+// row's log-sum-exp of its scaled scores, lse[b, h, i] = m + log(l) in the
+// natural log (B, H, S) f32, for the backward kernels of
+// flash_attention_bwd.cu.  It is read off the finished m and l after the
+// output is stored, so `out` has the same bits with or without it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -160,9 +166,10 @@ __device__ __forceinline__ float half_warp_sum(float v) {
 template <int NC>
 __global__ void __launch_bounds__(kThreads)
     simt_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, float* __restrict__ out, int S,
-                int H, int Hk, int D, int Dv, Strides qs_, Strides ks_,
-                Strides vs_, float scale, int causal, int prefix) {
+                const float* __restrict__ v, float* __restrict__ out,
+                float* __restrict__ lse, int S, int H, int Hk, int D, int Dv,
+                Strides qs_, Strides ks_, Strides vs_, float scale,
+                int causal, int prefix) {
   extern __shared__ float smem[];
   const int ld = D + 1;
   float* qs = smem;             // kBQ x ld, the scaled queries
@@ -275,12 +282,15 @@ __global__ void __launch_bounds__(kThreads)
       const int col = tx + 16 * c;
       if (col < Dv) orow[col] = acc[i][c] / den;
     }
+    if (lse != nullptr && tx == 0)
+      lse[(static_cast<long long>(b) * H + h) * S + qpos] = m[i] + logf(den);
   }
 }
 
 template <int NC>
 int launch_simt(const float* q, const float* k, const float* v, float* out,
-                int B, int S, int H, int Hk, int D, int Dv, Strides qs_,
+                float* lse, int B, int S, int H, int Hk, int D, int Dv,
+                Strides qs_,
                 Strides ks_, Strides vs_, float scale, int causal,
                 int prefix, cudaStream_t stream) {
   const int smem = static_cast<int>(sizeof(float)) *
@@ -290,7 +300,8 @@ int launch_simt(const float* q, const float* k, const float* v, float* out,
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + kBQ - 1) / kBQ, H, B);
   simt_kernel<NC><<<grid, kThreads, smem, stream>>>(
-      q, k, v, out, S, H, Hk, D, Dv, qs_, ks_, vs_, scale, causal, prefix);
+      q, k, v, out, lse, S, H, Hk, D, Dv, qs_, ks_, vs_, scale, causal,
+      prefix);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -525,9 +536,9 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     tc_kernel(const __nv_bfloat16* __restrict__ q,
               const __nv_bfloat16* __restrict__ k,
               const __nv_bfloat16* __restrict__ v, float* __restrict__ out,
-              int B, int S, int H, int Hk, int D, int Dv, Strides qs_,
-              Strides ks_, Strides vs_, float scale_log2, int causal,
-              int prefix, int vec_in) {
+              float* __restrict__ lse, int B, int S, int H, int Hk, int D,
+              int Dv, Strides qs_, Strides ks_, Strides vs_, float scale_log2,
+              int causal, int prefix, int vec_in) {
   using C = Tc<DP>;
   constexpr int BK = C::kBK;
   constexpr int LD = C::kLd;
@@ -634,11 +645,13 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   }
 
   // l over the quad, then out = acc / max(l, 1e-30).
+  float den[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(~0u, l[r], 1);
     l[r] += __shfl_xor_sync(~0u, l[r], 2);
-    l[r] = 1.0f / fmaxf(l[r], 1e-30f);
+    den[r] = fmaxf(l[r], 1e-30f);
+    l[r] = 1.0f / den[r];
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -657,12 +670,17 @@ __global__ void __launch_bounds__(kTcThreads, 1)
         if (col + 1 < Dv) orow[col + 1] = x1;
       }
     }
+    // m is in the log2 domain of the scaled scores: back to the natural log.
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[(static_cast<long long>(b) * H + h) * S + row] =
+          (m[r] + log2f(den[r])) * 0.6931471805599453f;
   }
 }
 
 template <int DP>
 int launch_tc(const __nv_bfloat16* q, const __nv_bfloat16* k,
-              const __nv_bfloat16* v, float* out, int B, int S, int H, int Hk,
+              const __nv_bfloat16* v, float* out, float* lse, int B, int S,
+              int H, int Hk,
               int D, int Dv, Strides qs_, Strides ks_, Strides vs_,
               float scale, int causal, int prefix, int vec,
               cudaStream_t stream) {
@@ -674,7 +692,7 @@ int launch_tc(const __nv_bfloat16* q, const __nv_bfloat16* k,
   const long long nqb = (S + kTcBQ - 1) / kTcBQ;
   const unsigned grid = static_cast<unsigned>(nqb * H * B);
   tc_kernel<DP><<<grid, kTcThreads, smem, stream>>>(
-      q, k, v, out, B, S, H, Hk, D, Dv, qs_, ks_, vs_, scale * kLog2e,
+      q, k, v, out, lse, B, S, H, Hk, D, Dv, qs_, ks_, vs_, scale * kLog2e,
       causal, prefix, vec);
   return static_cast<int>(cudaGetLastError());
 }
@@ -686,27 +704,29 @@ int launch_tc(const __nv_bfloat16* q, const __nv_bfloat16* k,
 // then of v; the head dimension is contiguous.  out is a contiguous
 // (B, S, H, Dv) f32.  1 <= Dv <= D <= 256, H % Hk == 0 and
 // 0 <= prefix <= S (the Python binding checks them); `prefix` matters only
-// when `causal`.  Returns the cudaError_t of the attribute call or
-// the launch.
+// when `causal`.  `lse`, when not null, is a contiguous (B, H, S) f32 that
+// takes each row's log-sum-exp.  Returns the cudaError_t of the attribute
+// call or the launch.
 extern "C" int flash_attention_f32_launch(const float* q, const float* k,
                                           const float* v, float* out, int B,
                                           int S, int H, int Hk, int D, int Dv,
                                           const long long* strides,
                                           float scale, int causal,
-                                          int prefix, void* stream) {
+                                          int prefix, float* lse,
+                                          void* stream) {
   if (B <= 0 || S <= 0) return 0;
   const Strides qs_{strides[0], strides[1], strides[2]};
   const Strides ks_{strides[3], strides[4], strides[5]};
   const Strides vs_{strides[6], strides[7], strides[8]};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D <= 64)
-    return launch_simt<4>(q, k, v, out, B, S, H, Hk, D, Dv, qs_, ks_, vs_,
-                          scale, causal, prefix, st);
+    return launch_simt<4>(q, k, v, out, lse, B, S, H, Hk, D, Dv, qs_,
+                          ks_, vs_, scale, causal, prefix, st);
   if (D <= 128)
-    return launch_simt<8>(q, k, v, out, B, S, H, Hk, D, Dv, qs_, ks_, vs_,
-                          scale, causal, prefix, st);
-  return launch_simt<16>(q, k, v, out, B, S, H, Hk, D, Dv, qs_, ks_, vs_,
-                         scale, causal, prefix, st);
+    return launch_simt<8>(q, k, v, out, lse, B, S, H, Hk, D, Dv, qs_,
+                          ks_, vs_, scale, causal, prefix, st);
+  return launch_simt<16>(q, k, v, out, lse, B, S, H, Hk, D, Dv, qs_,
+                         ks_, vs_, scale, causal, prefix, st);
 }
 
 extern "C" int flash_attention_bf16_launch(const void* q, const void* k,
@@ -714,7 +734,8 @@ extern "C" int flash_attention_bf16_launch(const void* q, const void* k,
                                            int S, int H, int Hk, int D,
                                            int Dv, const long long* strides,
                                            float scale, int causal,
-                                           int prefix, void* stream) {
+                                           int prefix, float* lse,
+                                           void* stream) {
   if (B <= 0 || S <= 0) return 0;
   const Strides qs_{strides[0], strides[1], strides[2]};
   const Strides ks_{strides[3], strides[4], strides[5]};
@@ -729,11 +750,11 @@ extern "C" int flash_attention_bf16_launch(const void* q, const void* k,
   const auto* vb = static_cast<const __nv_bfloat16*>(v);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D <= 64)
-    return launch_tc<64>(qb, kb, vb, out, B, S, H, Hk, D, Dv, qs_, ks_, vs_,
-                         scale, causal, prefix, vec, st);
+    return launch_tc<64>(qb, kb, vb, out, lse, B, S, H, Hk, D, Dv, qs_,
+                         ks_, vs_, scale, causal, prefix, vec, st);
   if (D <= 128)
-    return launch_tc<128>(qb, kb, vb, out, B, S, H, Hk, D, Dv, qs_, ks_, vs_,
-                          scale, causal, prefix, vec, st);
-  return launch_tc<256>(qb, kb, vb, out, B, S, H, Hk, D, Dv, qs_, ks_, vs_,
-                        scale, causal, prefix, vec, st);
+    return launch_tc<128>(qb, kb, vb, out, lse, B, S, H, Hk, D, Dv, qs_,
+                          ks_, vs_, scale, causal, prefix, vec, st);
+  return launch_tc<256>(qb, kb, vb, out, lse, B, S, H, Hk, D, Dv, qs_,
+                        ks_, vs_, scale, causal, prefix, vec, st);
 }

@@ -28,7 +28,7 @@ __all__ = ["SOURCES", "build_all", "library"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("tree_sep_update", "lsh_bucket_accept", "pairwise_argmin",
-           "d2_update", "flash_attention")
+           "d2_update", "flash_attention", "flash_attention_bwd")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

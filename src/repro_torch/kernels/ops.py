@@ -30,6 +30,13 @@ Each wrapper adds one to its entry of `LAUNCHES` where it launches its
 kernel, and nowhere else (a launch over B lanes counts one): a run shows it
 went through the kernels by reading `launch_counts()` after
 `reset_launch_counts()`.
+
+`attention_bshd` is differentiable.  On the card, when autograd records,
+it is a `torch.autograd.Function`: the forward kernel also writes each
+row's log-sum-exp, and the backward is the hand-written backward kernel
+(``flash_attention_bwd``, one count a backward call; it raises if it
+cannot build or launch, and never gives way to the plain version).  On
+the CPU autograd differentiates the plain version, `ref.attention_bshd_ref`.
 """
 
 from __future__ import annotations
@@ -67,7 +74,8 @@ _QUERY_CODE_PAD = -1   # query-side (points) code pad
 
 LAUNCHES = {"tree_sep_update": 0, "tree_sep_update_tiles": 0,
             "lsh_bucket_accept": 0, "lsh_bucket_min": 0, "pairwise_argmin": 0,
-            "d2_update": 0, "d2_update_tiles": 0, "flash_attention": 0}
+            "d2_update": 0, "d2_update_tiles": 0, "flash_attention": 0,
+            "flash_attention_bwd": 0}
 
 
 def launch_counts() -> dict[str, int]:
@@ -339,17 +347,50 @@ def attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     as the JAX package masks them; `prefix_len` does nothing non-causal.
 
     The CUDA kernel reads all three through their strides, so nothing is
-    copied.
+    copied.  Where autograd records a gradient for any of them, the launch
+    goes through `_FlashAttention`, whose backward is the backward kernel.
     """
     if not _on_card(q):
         return ref.attention_bshd_ref(q, k, v, scale=scale, causal=causal,
                                       prefix_len=prefix_len)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, scale, causal, prefix_len)
     from repro_torch.kernels import flash_attention_cuda as binding
 
     out = binding.launch(q, k, v, scale=scale, causal=causal,
                          prefix_len=prefix_len)
     LAUNCHES["flash_attention"] += 1
     return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    """`attention_bshd` on the card with its gradient: the forward kernel
+    with its log-sum-exp, saved with q, k, v and the output; the backward
+    kernel for dq, dk and dv."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, prefix_len):
+        from repro_torch.kernels import flash_attention_cuda as binding
+
+        out, lse = binding.launch(q, k, v, scale=scale, causal=causal,
+                                  prefix_len=prefix_len, with_lse=True)
+        LAUNCHES["flash_attention"] += 1
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (scale, causal, prefix_len)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        from repro_torch.kernels import flash_attention_cuda as binding
+
+        q, k, v, out, lse = ctx.saved_tensors
+        scale, causal, prefix_len = ctx.args
+        dq, dk, dv = binding.launch_backward(q, k, v, out, dout, lse,
+                                             scale=scale, causal=causal,
+                                             prefix_len=prefix_len)
+        LAUNCHES["flash_attention_bwd"] += 1
+        return dq, dk, dv, None, None, None
 
 
 def split_codes_u64(codes: np.ndarray) -> tuple[np.ndarray, np.ndarray]:

@@ -1,10 +1,12 @@
-"""Model stack for inference: layers, GQA and MLA attention, the clustered
-KV cache, MoE, Mamba, RWKV-6, the audio and vlm inputs, composition."""
+"""Model stack: layers, GQA and MLA attention, the clustered KV cache,
+MoE, Mamba, RWKV-6, the audio and vlm inputs, composition; the serving
+entries and `loss_fn` for training."""
 
 from repro_torch.models.model import (  # noqa: F401
     decode_step,
     empty_cache,
     forward,
+    loss_fn,
     make_batch_specs,
     make_cache_specs,
     num_text_tokens,

@@ -1,15 +1,23 @@
 """Full model: embeddings -> layer groups -> final norm -> logits.
 
-The counterpart of the JAX package's `models/model.py`, for inference:
+The counterpart of the JAX package's `models/model.py`:
   - `forward(params, cfg, batch)`           prefill; optionally returns the
                                             KV cache for decode;
-  - `decode_step(params, cfg, tok, cache)`  one token for every sequence.
-Both run under `torch.inference_mode()`.  The `first_k_dense` leading
+  - `decode_step(params, cfg, tok, cache)`  one token for every sequence;
+  - `loss_fn(params, cfg, batch)`           next-token (or frame-label) CE,
+                                            differentiable.
+The serving entries run under `torch.inference_mode()`; `loss_fn` runs
+the same body with autograd on (`_forward`).  The `first_k_dense` leading
 layers (DeepSeek's) are ungrouped ``dense{l}`` entries of the parameter
 and cache trees and run first; then the JAX package's `lax.scan` over
 layer groups is a Python loop over the stacked leaves' first axis.  The
-MoE aux loss is summed as in the JAX package.  Its remat policies and
-barriers belong to training, as does `loss_fn` (a later slice).
+MoE aux loss is summed as in the JAX package.  Remat: ``"none"`` keeps
+every activation, ``"block"`` checkpoints each layer group
+(`torch.utils.checkpoint`: the JAX package's `jax.checkpoint` saving
+nothing), and the loss's chunks are checkpointed as there.  The JAX
+package's `_grad_safe_barrier` keeps XLA from hoisting a sharded
+all-gather out of its scan; one card gathers nothing, so it has no
+counterpart here (an identity).
 
 Inputs (`make_batch_specs` gives their shapes):
   LM        : {"tokens": (B, S) int}
@@ -26,6 +34,8 @@ K/V, written in place by each step.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import transformer
@@ -37,6 +47,8 @@ __all__ = [
     "param_specs",
     "forward",
     "decode_step",
+    "loss_fn",
+    "LOSS_CHUNK",
     "make_batch_specs",
     "make_cache_specs",
     "empty_cache",
@@ -142,7 +154,10 @@ def empty_cache(cfg: ModelConfig, batch: int, max_seq: int, device) -> dict:
 
 def _embed_tokens(params: dict, cfg: ModelConfig,
                   tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"]["tokens"][tokens.long()].to(dtype_of(cfg.dtype))
+    # `F.embedding`: its gradient on the card sums repeated tokens in a
+    # fixed order, where indexing's would add them with atomics
+    return F.embedding(tokens.long(), params["embed"]["tokens"]).to(
+        dtype_of(cfg.dtype))
 
 
 def _embed_inputs(params: dict, cfg: ModelConfig,
@@ -181,6 +196,22 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
     unstacked; a Mamba or RWKV-6 position's entry is None (its state is
     rebuilt by replay, as in the JAX package).  For vlm, S counts the
     patches and the text."""
+    return _forward(params, cfg, batch, return_cache=return_cache)
+
+
+REMAT = ("none", "block")
+
+
+def _forward(params: dict, cfg: ModelConfig, batch: dict, *,
+             return_cache: bool = False, remat: str = "none",
+             return_hidden: bool = False):
+    """`forward`'s body, under whatever grad mode the caller set.  With
+    `return_hidden`, returns (final hidden (B, S, d_model), aux_loss) and
+    skips the unembedding; `remat` "block" checkpoints each layer group
+    (only where autograd records)."""
+    if remat not in REMAT:
+        raise ValueError(f"remat {remat!r}: the port has {REMAT} "
+                         "(\"dots\" is not ported yet)")
     layout = transformer.layer_layout(cfg)
     x = _embed_inputs(params, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
@@ -194,7 +225,8 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
         caches[f"dense{l}"] = c
     per_layer: dict = {f"pos{p:02d}": [] for p in range(layout.period)}
     aux_groups = []
-    for g in range(layout.num_groups):
+
+    def group_body(x, g):
         group = layer_slice(params["groups"], g)
         aux_g = torch.zeros((), dtype=torch.float32, device=x.device)
         for p, (bt, moe) in enumerate(layout.positions):
@@ -204,6 +236,15 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
             aux_g = aux_g + aux
             if return_cache:
                 per_layer[f"pos{p:02d}"].append(c)
+        return x, aux_g
+
+    block = remat == "block" and torch.is_grad_enabled() and \
+        not return_cache
+    for g in range(layout.num_groups):
+        if block:
+            x, aux_g = checkpoint(group_body, x, g, use_reentrant=False)
+        else:
+            x, aux_g = group_body(x, g)
         aux_groups.append(aux_g)
     aux_total = aux_total + torch.stack(aux_groups).sum()
     if return_cache:
@@ -213,6 +254,8 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
              for leaf in entries[0]}
             for key, entries in per_layer.items()}
     x = apply_norm(params["final_norm"], x, cfg)
+    if return_hidden:
+        return x, aux_total
     return (_logits(params, cfg, x), aux_total,
             caches if return_cache else None)
 
@@ -245,3 +288,82 @@ def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     logits = _logits(params, cfg, x)[:, 0, :]
     out["groups"] = groups
     return logits, out
+
+
+# ---------------------------------------------------------------------------
+# Loss.
+# ---------------------------------------------------------------------------
+
+LOSS_CHUNK = 512
+
+
+def _targets_and_mask(cfg: ModelConfig, batch: dict, seq_len: int) -> tuple:
+    """Per-position target ids (int64) and validity mask (f32) aligned with
+    the hidden states: position t predicts target[t]; invalid positions
+    (vlm prefix patches, the last position of a causal LM) carry target 0
+    and mask 0."""
+    if cfg.family == "audio":
+        labels = batch["labels"].long()
+        return labels, torch.ones(labels.shape, dtype=torch.float32,
+                                  device=labels.device)
+    f32 = torch.float32
+    if cfg.family == "vlm":
+        text = batch["tokens"].long()
+        b = text.shape[0]
+        p = seq_len - text.shape[1]
+        zeros = lambda n, dt: torch.zeros((b, n), dtype=dt,
+                                          device=text.device)
+        targets = torch.cat([zeros(p - 1, torch.int64), text,
+                             zeros(1, torch.int64)], dim=1)
+        mask = torch.cat([zeros(p - 1, f32),
+                          torch.ones(text.shape, dtype=f32,
+                                     device=text.device),
+                          zeros(1, f32)], dim=1)
+        return targets, mask
+    toks = batch["tokens"].long()
+    targets = torch.cat([toks[:, 1:], torch.zeros_like(toks[:, :1])], dim=1)
+    ones = torch.ones(toks[:, 1:].shape, dtype=f32, device=toks.device)
+    mask = torch.cat([ones, torch.zeros((toks.shape[0], 1), dtype=f32,
+                                        device=toks.device)], dim=1)
+    return targets, mask
+
+
+def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
+            z_loss: float = 1e-4, remat: str = "block"):
+    """Mean next-token CE (+ z-loss + MoE aux).  Returns (loss, metrics),
+    0-dim f32 tensors, differentiable with respect to `params`.
+
+    The unembedding and the CE run chunked over the sequence (`LOSS_CHUNK`
+    positions at a time, each chunk checkpointed), so the (B, S, vocab)
+    logits are never all kept for the backward, as in the JAX package.
+    """
+    hidden, aux = _forward(params, cfg, batch, remat=remat,
+                           return_hidden=True)
+    b, s, d = hidden.shape
+    targets, mask = _targets_and_mask(cfg, batch, s)
+    chunk = min(LOSS_CHUNK, s)
+    if s % chunk:
+        chunk = s  # unchunked for odd lengths, the JAX package's rule
+
+    def chunk_ce(h, t, m):
+        logits = _logits(params, cfg, h).to(torch.float32)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.take_along_dim(logits, t[..., None], dim=-1)[..., 0]
+        return ((logz - gold) * m).sum(), (torch.square(logz) * m).sum()
+
+    ce_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    zl_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for lo in range(0, s, chunk):
+        parts = (hidden[:, lo:lo + chunk], targets[:, lo:lo + chunk],
+                 mask[:, lo:lo + chunk])
+        if torch.is_grad_enabled():
+            c, z = checkpoint(chunk_ce, *parts, use_reentrant=False)
+        else:
+            c, z = chunk_ce(*parts)
+        ce_sum = ce_sum + c
+        zl_sum = zl_sum + z
+    denom = torch.clamp(mask.sum(), min=1.0)
+    ce = ce_sum / denom
+    zl = z_loss * zl_sum / denom
+    loss = ce + zl + aux
+    return loss, {"ce": ce, "z_loss": zl, "aux": aux}

@@ -25,6 +25,7 @@ __all__ = [
     "params_from_numpy",
     "spec_bytes",
     "spec_leaves",
+    "tree_map",
 ]
 
 
@@ -68,8 +69,9 @@ def spec_leaves(tree, prefix: str = ""):
             yield path, node
 
 
-def _map(fn, tree):
-    return {key: _map(fn, node) if isinstance(node, dict) else fn(node)
+def tree_map(fn, tree):
+    """`fn` over the leaves of a nested dict, keys kept."""
+    return {key: tree_map(fn, node) if isinstance(node, dict) else fn(node)
             for key, node in tree.items()}
 
 
@@ -87,7 +89,7 @@ def init_params(specs, generator: torch.Generator, dtype: torch.dtype,
                            dtype=torch.float32, device=device)
         return draw.mul_(spec.std).to(dtype)
 
-    return _map(make, specs)
+    return tree_map(make, specs)
 
 
 def _tensor(arr) -> torch.Tensor:
@@ -107,7 +109,7 @@ def params_from_numpy(tree, device, dtype: torch.dtype | None = None) -> dict:
         t = _tensor(arr).to(device)
         return t if dtype is None else t.to(dtype)
 
-    return _map(move, tree)
+    return tree_map(move, tree)
 
 
 def spec_bytes(specs, bytes_per_param: int = 2) -> int:

@@ -48,7 +48,14 @@ at hubert-xlarge's head dim 80 non-causal to the plain version, reduced
 paligemma-3b's prefill of patches and text and reduced hubert-xlarge's
 forward on the card to the CPU, and reduced rwkv6-3b and
 jamba-1.5-large-398b `generate` (replayed prompts over the recurrent
-states) to the CPU's tokens.
+states) to the CPU's tokens.  The training slice's tests (`-k training`)
+hold the backward kernel of `flash_attention` (through
+`ops.attention_bshd`'s autograd Function) to autograd through the plain
+version over f32 and bf16, GQA, MLA's D 192 / Dv 128, prefixes, a
+non-causal D 80 and a ragged S, a second launch bit-identical; the
+forward's `out` the same bits with its log-sum-exp asked for, and that
+log-sum-exp against the plain one; and one `make_train_step` step of
+reduced olmo-1b and yi-9b on the card against the same step on the CPU.
 """
 
 import numpy as np
@@ -1561,3 +1568,122 @@ def test_ssm_generate_on_the_card_matches_the_cpu(cuda, arch):
     np.testing.assert_array_equal(
         Engine(on_card, cfg, serve).generate(toks.numpy()),
         Engine(params, cfg, serve, device="cpu").generate(toks.numpy()))
+
+
+# (B, S, H, Hk, D, Dv, dtype, causal, prefix)
+BWD_CASES = [
+    (2, 256, 4, 4, 128, 128, torch.float32, True, 0),
+    (2, 333, 4, 2, 64, 64, torch.float32, True, 0),
+    (1, 200, 3, 3, 24, 24, torch.float32, False, 0),
+    (2, 256, 8, 2, 128, 128, torch.bfloat16, True, 0),
+    (1, 300, 4, 4, 192, 128, torch.bfloat16, True, 0),
+    (2, 257, 4, 1, 256, 256, torch.bfloat16, True, 100),
+    (1, 256, 2, 2, 64, 64, torch.float32, True, 300),
+    (2, 256, 4, 4, 80, 80, torch.bfloat16, False, 0),
+]
+# a share of the largest |gradient|: f32 sums in other orders; one bf16
+# rounding of each gradient (at most 2^-8 of it) for bf16 inputs
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 4e-3}
+
+
+def _bwd_inputs(cuda, b, s, h, hk, d, dv, dtype, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(dtype)
+               for shape in ((b, s, h, d), (b, s, hk, d), (b, s, hk, dv)))
+    dout = torch.randn((b, s, h, dv), generator=gen, device=cuda)
+    return q, k, v, dout
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_training_flash_backward_matches_plain_autograd(cuda, case):
+    b, s, h, hk, d, dv, dtype, causal, prefix = case
+    q, k, v, dout = _bwd_inputs(cuda, b, s, h, hk, d, dv, dtype)
+    kw = dict(scale=d ** -0.5, causal=causal, prefix_len=prefix)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = ops.launch_counts()
+    out = ops.attention_bshd(*leaves, **kw)
+    grads = torch.autograd.grad(out, leaves, dout)
+    torch.cuda.synchronize()
+    now = ops.launch_counts()
+    assert now["flash_attention"] == before["flash_attention"] + 1
+    assert now["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
+    again = torch.autograd.grad(ops.attention_bshd(*leaves, **kw), leaves,
+                                dout)
+    for g, g2 in zip(grads, again):
+        assert torch.equal(g, g2)         # no atomics: the same bits
+    f32 = [t.float().requires_grad_(True) for t in (q, k, v)]
+    plain = torch.autograd.grad(ref.attention_bshd_ref(*f32, **kw), f32,
+                                dout)
+    for g, p in zip(grads, plain):
+        assert g.dtype == dtype and g.shape == p.shape
+        err = float((g.float() - p).abs().max()) / float(p.abs().max())
+        assert err <= BWD_TOL[dtype], err
+
+
+@pytest.mark.parametrize("case", BWD_CASES[:1] + BWD_CASES[3:6])
+def test_training_forward_lse_leaves_out_unchanged(cuda, case):
+    from repro_torch.kernels import flash_attention_cuda as fa_cuda
+
+    b, s, h, hk, d, dv, dtype, causal, prefix = case
+    q, k, v, _ = _bwd_inputs(cuda, b, s, h, hk, d, dv, dtype, seed=1)
+    kw = dict(scale=d ** -0.5, causal=causal, prefix_len=prefix)
+    out, lse = fa_cuda.launch(q, k, v, with_lse=True, **kw)
+    assert torch.equal(out, fa_cuda.launch(q, k, v, **kw))
+    assert lse.shape == (b, h, s) and lse.dtype == torch.float32
+    g = h // hk
+    qf = q.float().permute(0, 2, 1, 3) * kw["scale"]
+    kf = k.float().permute(0, 2, 1, 3).repeat_interleave(g, dim=1)
+    scores = qf @ kf.transpose(-1, -2)
+    if causal:
+        pos = torch.arange(s, device=cuda)
+        keep = ref.prefix_causal_mask(pos, pos, prefix)
+        scores = scores.masked_fill(~keep, float("-inf"))
+    want = torch.logsumexp(scores, dim=-1)
+    torch.testing.assert_close(lse, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "yi-9b"])
+def test_training_reduced_step_on_the_card_matches_the_cpu(cuda, arch):
+    """One `make_train_step` step (f32, remat "block" then "none") of the
+    reduced config on the same weights and tokens on the card and the
+    CPU: the loss to 1e-5 relative; the gradients' norm to 1e-3 relative
+    or 4 times the CPU's own noise floor if larger (the reduced random
+    model amplifies f32 roundings: 1e-7 weight noise moves reduced
+    yi-9b's norm by about 1e-3 of it), as `_close_to_cpu` holds logits;
+    and one forward and one backward kernel launch a layer on the card
+    (two forward launches a layer under "block", which recomputes the
+    group)."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models import params_from_numpy
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.training.train_step import make_train_step
+
+    cfg, params = _reduced(arch)
+    toks = TokenStream(cfg.vocab_size, 64, 4, seed=2).next_batch()
+    for remat, fwd in (("block", 2), ("none", 1)):
+        tc = TrainConfig(learning_rate=1e-3, warmup_steps=2, total_steps=4,
+                         remat=remat)
+        step = make_train_step(cfg, tc)
+        out = {}
+        for dev in ("cpu", cuda):
+            p = params_from_numpy(params, dev)
+            before = ops.launch_counts()
+            _, _, m = step(p, init_opt_state(p), {"tokens": toks})
+            out[str(dev)] = (float(m["loss"]), float(m["grad_norm"]))
+            now = ops.launch_counts()
+            if dev != "cpu":
+                assert now["flash_attention"] - before["flash_attention"] \
+                    == fwd * cfg.num_layers
+                assert now["flash_attention_bwd"] \
+                    - before["flash_attention_bwd"] == cfg.num_layers
+        (lc, nc), (lg, ng) = out["cpu"], out[str(cuda)]
+
+        def norm(tree):
+            p = params_from_numpy(tree, "cpu")      # the step updates p
+            return step(p, init_opt_state(p), {"tokens": toks})[2][
+                "grad_norm"]
+
+        floor = _noise_floor(norm, params)
+        assert abs(lg - lc) <= 1e-5 * abs(lc), (lg, lc)
+        assert abs(ng - nc) <= max(1e-3 * abs(nc), 4 * floor), (ng, nc)

@@ -10,6 +10,9 @@
     in the port's threads and futures (and do find a planted breach).
   * The CUDA bindings check their arguments before anything reaches the
     card: a CPU tensor, a wrong dtype, shape or contiguity raises.
+  * Training (the `Trainer`, `launch/train.py`) runs on CUDA unless asked
+    for the CPU, and the attention's gradient on the card is the backward
+    kernel or an error: never the plain version.
 """
 
 import inspect
@@ -360,3 +363,102 @@ def test_prepare_uploads_only_where_asked():
     pts = np.random.default_rng(0).normal(size=(50, 3))
     data = ds.prepare_rejection(pts, seed=1, device="cpu")
     assert data.codes_lo.device.type == data.points.device.type == "cpu"
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.optim.adamw", "repro_torch.data.tokens",
+    "repro_torch.data.pipeline", "repro_torch.checkpoint.checkpointer",
+    "repro_torch.training.train_step", "repro_torch.training.trainer",
+    "repro_torch.launch.train"])
+def test_training_modules_load_no_jax(module):
+    """Each module of the training slice, imported alone in a fresh
+    interpreter, loads no JAX and no reference package."""
+    code = (
+        f"import importlib, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "print(sorted(n for n in sys.modules if n == 'jax' or"
+        " n.startswith(('jax.', 'jaxlib')) or n == 'repro'"
+        " or n.startswith('repro.')))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True,
+                         env={"PYTHONPATH": str(PACKAGE.parent),
+                              "PATH": "/usr/bin:/bin"})
+    assert out.stdout.strip() == "[]"
+
+
+def test_training_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    """The Trainer and the launcher default to the card; without CUDA they
+    raise; asked for the CPU, they run there."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.launch import train
+    from repro_torch.training.trainer import Trainer
+
+    assert inspect.signature(Trainer).parameters["device"].default == "cuda"
+    assert train.build_parser().parse_args([]).device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = reduce_for_smoke(get_config("olmo-1b"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(cfg, TrainConfig(), workdir=tmp_path, batch=2, seq_len=8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(["--smoke", "--steps", "1", "--workdir", str(tmp_path)])
+    assert Trainer(cfg, TrainConfig(), workdir=tmp_path, batch=2, seq_len=8,
+                   device="cpu").device.type == "cpu"
+
+
+def test_flash_backward_failure_raises_without_fallback(monkeypatch):
+    """On the card, `attention_bshd` under autograd runs the forward kernel
+    and, for the gradient, the backward kernel: if that launch fails the
+    error reaches the caller, and the plain version is never called.  The
+    card is stood in for by CPU tensors the wrappers take for CUDA ones."""
+    from repro_torch.kernels._check import CudaLaunchError
+
+    calls = []
+
+    def forward(q, k, v, *, scale, causal, prefix_len=0, with_lse=False):
+        b, s, h, _ = q.shape
+        out = torch.zeros((b, s, h, v.shape[3]))
+        return (out, torch.zeros((b, h, s))) if with_lse else out
+
+    def backward(*args, **kw):
+        calls.append("bwd")
+        raise CudaLaunchError("flash_attention_bwd", 98)
+
+    def plain(*args, **kw):
+        raise AssertionError("the plain version ran on the card's path")
+
+    monkeypatch.setattr(ops, "_on_card", lambda t: True)
+    monkeypatch.setattr(fa_binding, "launch", forward)
+    monkeypatch.setattr(fa_binding, "launch_backward", backward)
+    monkeypatch.setattr(ops.ref, "attention_bshd_ref", plain)
+    ops.reset_launch_counts()
+    q = torch.zeros((1, 8, 2, 4), requires_grad=True)
+    out = ops.attention_bshd(q, q.detach(), q.detach(), scale=0.5,
+                             causal=True)
+    assert ops.launch_counts()["flash_attention"] == 1
+    with pytest.raises(CudaLaunchError, match="cudaError_t 98"):
+        out.sum().backward()
+    assert calls == ["bwd"]
+    assert ops.launch_counts()["flash_attention_bwd"] == 0
+    assert q.grad is None
+    ops.reset_launch_counts()
+
+
+def test_flash_backward_binding_checks_before_launching():
+    """The backward binding refuses CPU tensors, a wrong `out`, `lse` or
+    `dout` before any library loads."""
+    ops.reset_launch_counts()
+    q = torch.zeros((1, 8, 4, 16))
+    k = torch.zeros((1, 8, 2, 16))
+    out, lse, dout = (torch.zeros((1, 8, 4, 16)), torch.zeros((1, 4, 8)),
+                      torch.zeros((1, 8, 4, 16)))
+    kw = dict(scale=0.25, causal=True)
+    with pytest.raises(ValueError, match="CUDA kernel got a tensor on cpu"):
+        fa_binding.launch_backward(q, k, k, out, dout, lse, **kw)
+    with pytest.raises(ValueError, match="must have shape"):
+        fa_binding.launch_backward(q, k, k, out, dout, lse[:, :, :4], **kw)
+    with pytest.raises(TypeError, match="must be torch.float32"):
+        fa_binding.launch_backward(q, k, k, out.double(), dout, lse, **kw)
+    with pytest.raises(ValueError, match="dout must have shape"):
+        fa_binding.launch_backward(q, k, k, out, dout[:, :4], lse, **kw)
+    assert ops.launch_counts() == {name: 0 for name in ops.LAUNCHES}

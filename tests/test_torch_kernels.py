@@ -374,4 +374,5 @@ def test_cpu_wrappers_launch_nothing():
                                    "pairwise_argmin": 0,
                                    "d2_update": 0,
                                    "d2_update_tiles": 0,
-                                   "flash_attention": 0}
+                                   "flash_attention": 0,
+                                   "flash_attention_bwd": 0}

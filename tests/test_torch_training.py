@@ -1,0 +1,481 @@
+"""The port's training slice against the JAX package's, on the CPU.
+
+Configs are the JAX training tests' `TINY` olmo (2 layers, d_model 64, 2
+heads of 32, d_ff 128, vocab 257) and `reduce_for_smoke("yi-9b")` (4
+layers, d_model 128, 4 heads of 32 over 2 KV heads: GQA).  Weights are
+the JAX package's own draws carried across with `params_from_numpy`;
+tokens come from `TokenStream`, which is NumPy in both packages.  Held
+here:
+
+  * `loss_fn`'s loss and every gradient against
+    `jax.value_and_grad(repro.models.model.loss_fn)`, under remat "none"
+    and "block" (the attention's gradient on the CPU is autograd through
+    the plain version, `ref.attention_bshd_ref`);
+  * `lr_schedule`, `clip_by_global_norm` and `apply_updates` on the same
+    NumPy inputs, f32 and bf16 moments;
+  * `TokenStream` batches, `seek` and shards bit for bit, and
+    `synthetic_batch_for`;
+  * one `make_train_step` step and microbatch equivalence;
+  * the checkpointer's round trip and torn write, and the async save's
+    host copy;
+  * the `Trainer`: failure injection and resume, the straggler watchdog,
+    the loss decreasing over 40 steps; the launcher on the CPU.
+
+Tolerances: the loss to 2e-6 relative (f32 sums in other orders).  Each
+gradient to twice the floor measured in the test, as a share of the
+leaf's largest magnitude: how far the JAX package's own gradients move
+when the weights move by 1e-7 relative noise.  The random weights make
+the models chaotic (the JAX package's init takes fan_in as the head count
+of the 3-D attention weights), so f32 rounding in other summation orders
+is amplified: the floor is about 1.5e-4 for TINY olmo and 3.4e-3 for
+reduced yi-9b, and the port's gaps are 1.1e-4 and 1.5e-3.  AdamW's
+updates to 1e-6 relative on the same gradients (the same operations in
+the same order; XLA's `pow` and `cos` may differ from PyTorch's by an
+ulp).
+"""
+
+import dataclasses
+import time
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.configs import reduce_for_smoke as jax_reduce
+from repro.configs.base import ShapeConfig as JaxShapeConfig
+from repro.configs.base import TrainConfig as JaxTrainConfig
+from repro.data.tokens import TokenStream as JaxTokenStream
+from repro.data.tokens import synthetic_batch_for as jax_synthetic_batch
+from repro.models import init_params as jax_init_params
+from repro.models import param_specs as jax_param_specs
+from repro.models.model import loss_fn as jax_loss_fn
+from repro.optim import adamw as jax_adamw
+from repro.training.train_step import make_train_step as jax_make_train_step
+from repro_torch.checkpoint.checkpointer import (AsyncCheckpointer,
+                                                 latest_step,
+                                                 restore_checkpoint,
+                                                 save_checkpoint)
+from repro_torch.configs import get_config, reduce_for_smoke
+from repro_torch.configs.base import ShapeConfig, TrainConfig
+from repro_torch.data.pipeline import Pipeline
+from repro_torch.data.tokens import TokenStream, synthetic_batch_for
+from repro_torch.launch import train as train_launcher
+from repro_torch.models import init_params, param_specs, params_from_numpy
+from repro_torch.models.model import loss_fn
+from repro_torch.models.params import TensorSpec, spec_leaves
+from repro_torch.optim import adamw
+from repro_torch.training.train_step import (make_train_step,
+                                             train_state_specs)
+from repro_torch.training.trainer import Trainer
+
+TINY_CUTS = dict(num_layers=2, d_model=64, num_heads=2, num_kv_heads=2,
+                 head_dim=32, d_ff=128, vocab_size=257)
+LOSS_RTOL = 2e-6
+GRAD_RTOL = 1e-4
+ADAM_RTOL = 1e-6
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """Small tensors: one thread, so the suite's workers do not stall one
+    another's OpenMP teams."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def _configs(arch: str):
+    if arch == "olmo-tiny":
+        return (dataclasses.replace(jax_reduce(jax_get_config("olmo-1b")),
+                                    **TINY_CUTS),
+                dataclasses.replace(reduce_for_smoke(get_config("olmo-1b")),
+                                    **TINY_CUTS))
+    return jax_reduce(jax_get_config(arch)), reduce_for_smoke(get_config(arch))
+
+
+def _setup(arch: str):
+    jcfg, cfg = _configs(arch)
+    jparams = jax_init_params(jax_param_specs(jcfg), jax.random.key(0),
+                              jnp.float32)
+    params = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+    return jcfg, cfg, jparams, params
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for key in sorted(tree):
+        node = tree[key]
+        if isinstance(node, dict):
+            out.update(_flat(node, f"{prefix}{key}/"))
+        else:
+            out[f"{prefix}{key}"] = np.asarray(
+                node.detach().float().numpy()
+                if isinstance(node, torch.Tensor)
+                else node, dtype=np.float32)
+    return out
+
+
+def _grad_floor(grad_fn, jparams) -> float:
+    """The largest move of any gradient leaf, as a share of the leaf's
+    largest magnitude, when the weights move by 1e-7 relative noise."""
+    rng = np.random.default_rng(1)
+    noisy = jax.tree.map(lambda a: a * (1 + 1e-7 * rng.standard_normal(
+        a.shape).astype(np.float32)), jparams)
+    g0 = _flat(jax.tree.map(np.asarray, grad_fn(jparams)))
+    g1 = _flat(jax.tree.map(np.asarray, grad_fn(noisy)))
+    return max(float(np.abs(g0[k] - g1[k]).max() / np.abs(g0[k]).max())
+               for k in g0)
+
+
+def _assert_grads_close(got: dict, want: dict, share: float):
+    assert sorted(got) == sorted(want)
+    for key in want:
+        g, w = got[key], want[key]
+        assert g.shape == w.shape, key
+        atol = share * max(float(np.abs(w).max()), 1e-30)
+        np.testing.assert_allclose(g, w, rtol=GRAD_RTOL, atol=atol,
+                                   err_msg=key)
+
+
+@pytest.mark.parametrize("remat", ["none", "block"])
+@pytest.mark.parametrize("arch", ["olmo-tiny", "yi-9b"])
+def test_loss_and_grads_match_jax(arch, remat):
+    jcfg, cfg, jparams, params = _setup(arch)
+    toks = TokenStream(cfg.vocab_size, 32, 2, seed=3).next_batch()
+    grad_fn = jax.jit(jax.value_and_grad(
+        lambda p: jax_loss_fn(p, jcfg, {"tokens": jnp.asarray(toks)},
+                              z_loss=1e-4, remat=remat),
+        has_aux=True))
+    (jloss, jmetrics), jgrads = grad_fn(jparams)
+    floor = _grad_floor(lambda p: grad_fn(p)[1], jparams)
+    leaves = adamw.tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss, metrics = loss_fn(params, cfg, {"tokens": torch.from_numpy(toks)},
+                            z_loss=1e-4, remat=remat)
+    grads = torch.autograd.grad(loss, leaves)
+    np.testing.assert_allclose(float(loss.detach()), float(jloss),
+                               rtol=LOSS_RTOL)
+    for key in ("ce", "z_loss", "aux"):
+        np.testing.assert_allclose(float(metrics[key]), float(jmetrics[key]),
+                                   rtol=LOSS_RTOL, atol=1e-12)
+    tree = {path: g.numpy() for (path, _), g in zip(spec_leaves(params),
+                                                    grads)}
+    _assert_grads_close(tree, _flat(jax.tree.map(np.asarray, jgrads)),
+                        2 * floor)
+
+
+def test_remat_block_gives_the_same_gradients():
+    """Checkpointing recomputes the same ops: the same bits."""
+    _, cfg, _, params = _setup("olmo-tiny")
+    toks = torch.from_numpy(TokenStream(cfg.vocab_size, 32, 2,
+                                        seed=4).next_batch())
+    leaves = adamw.tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    out = {}
+    for remat in ("none", "block"):
+        loss, _ = loss_fn(params, cfg, {"tokens": toks}, remat=remat)
+        out[remat] = (loss.detach(), torch.autograd.grad(loss, leaves))
+    assert torch.equal(out["none"][0], out["block"][0])
+    for a, b in zip(out["none"][1], out["block"][1]):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="not ported"):
+        loss_fn(params, cfg, {"tokens": toks}, remat="dots")
+
+
+def test_lr_schedule_matches_jax():
+    for kw in ({}, dict(warmup_steps=10, total_steps=50, learning_rate=1e-3),
+               dict(warmup_steps=0, total_steps=1)):
+        cfg, jcfg = adamw.AdamWConfig(**kw), jax_adamw.AdamWConfig(**kw)
+        steps = np.arange(0, 1300, 7)
+        got = np.array([float(adamw.lr_schedule(cfg, int(s))) for s in steps])
+        want = np.asarray(jax.vmap(lambda s: jax_adamw.lr_schedule(jcfg, s))(
+            jnp.asarray(steps, jnp.int32)))
+        np.testing.assert_allclose(got, want, rtol=ADAM_RTOL, atol=1e-12)
+
+
+def _opt_tree(rng):
+    """A parameter-like tree: a stacked matrix, a matrix, vectors."""
+    return {"groups": {"pos00": {"w": rng.normal(size=(2, 5, 7)),
+                                 "scale": rng.normal(size=(2, 7))}},
+            "embed": {"tokens": rng.normal(size=(11, 7))},
+            "bias": rng.normal(size=(7,))}
+
+
+@pytest.mark.parametrize("moments", ["float32", "bfloat16"])
+def test_clip_and_apply_updates_match_jax(moments):
+    """Three AdamW steps on the same NumPy parameters and gradients (some
+    gradient elements near 0, where the first step is nearly lr sign(g)):
+    the clipped gradients, the norm, the parameters and both moments."""
+    rng = np.random.default_rng(0)
+    tree = jax.tree.map(lambda a: a.astype(np.float32), _opt_tree(rng))
+    cfg = adamw.AdamWConfig(learning_rate=1e-2, warmup_steps=2,
+                            total_steps=10)
+    jcfg = jax_adamw.AdamWConfig(learning_rate=1e-2, warmup_steps=2,
+                                 total_steps=10)
+    jdt = jnp.bfloat16 if moments == "bfloat16" else jnp.float32
+    tdt = getattr(torch, moments)
+    jparams = jax.tree.map(jnp.asarray, tree)
+    jstate = jax_adamw.init_opt_state(jparams, jdt)
+    params = params_from_numpy(tree, "cpu")
+    state = adamw.init_opt_state(params, tdt)
+    for step in range(3):
+        grads_np = jax.tree.map(
+            lambda a: (rng.normal(size=a.shape) * 10.0 ** rng.integers(
+                -9, 1, size=a.shape)).astype(np.float32), tree)
+        jg, jnorm = jax_adamw.clip_by_global_norm(
+            jax.tree.map(jnp.asarray, grads_np), 0.5)
+        g, norm = adamw.clip_by_global_norm(params_from_numpy(grads_np,
+                                                              "cpu"), 0.5)
+        np.testing.assert_allclose(float(norm), float(jnorm), rtol=ADAM_RTOL)
+        np.testing.assert_allclose(_flat(g)["bias"], np.asarray(jg["bias"]),
+                                   rtol=ADAM_RTOL)
+        # the same clipped gradients into both optimizers
+        g = params_from_numpy(jax.tree.map(np.asarray, jg), "cpu")
+        jparams, jstate, jlr = jax_adamw.apply_updates(jparams, jg, jstate,
+                                                       jcfg)
+        params, state, lr = adamw.apply_updates(params, g, state, cfg)
+        assert int(state["step"]) == int(jstate["step"]) == step + 1
+        np.testing.assert_allclose(float(lr), float(jlr), rtol=ADAM_RTOL)
+        for key, want in _flat(jax.tree.map(
+                lambda a: np.asarray(a.astype(jnp.float32)), jparams)).items():
+            np.testing.assert_allclose(_flat(params)[key], want,
+                                       rtol=ADAM_RTOL, atol=1e-7,
+                                       err_msg=key)
+        for name in ("m", "v"):
+            assert all(t.dtype == tdt for t in adamw.tree_leaves(state[name]))
+            got = _flat(state[name])
+            for key, want in _flat(jax.tree.map(
+                    lambda a: np.asarray(a.astype(jnp.float32)),
+                    jstate[name])).items():
+                # bf16 moments: both round the same f32 value to bf16
+                np.testing.assert_allclose(got[key], want, rtol=ADAM_RTOL,
+                                           atol=1e-30, err_msg=key)
+
+
+def test_train_state_specs():
+    specs = train_state_specs(param_specs(reduce_for_smoke(
+        get_config("olmo-1b"))))
+    assert specs["step"] == TensorSpec((), torch.int32)
+    leaf = specs["m"]["embed"]["tokens"]
+    assert leaf == TensorSpec((512, 128), torch.float32)
+
+
+def test_token_stream_matches_jax_bit_for_bit():
+    for seed, vocab, seq, batch in ((5, 997, 32, 4), (0, 50304, 256, 2)):
+        ours, theirs = (cls(vocab, seq, batch, seed=seed)
+                        for cls in (TokenStream, JaxTokenStream))
+        for _ in range(3):
+            a, b = ours.next_batch(), theirs.next_batch()
+            assert a.dtype == b.dtype == np.int32
+            np.testing.assert_array_equal(a, b)
+        assert ours.state() == theirs.state()
+    # seek resumes exactly; shards partition the global batch
+    s1 = TokenStream(997, 32, 4, seed=5)
+    first = s1.next_batch()
+    state = s1.state()
+    rest = [s1.next_batch() for _ in range(3)]
+    s2 = TokenStream(997, 32, 4, seed=5)
+    s2.seek(state)
+    for a in rest:
+        np.testing.assert_array_equal(a, s2.next_batch())
+    sh = [TokenStream(997, 32, 4, seed=5, shard_id=i, num_shards=2)
+          for i in range(2)]
+    np.testing.assert_array_equal(
+        np.concatenate([s.next_batch() for s in sh]), first)
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "hubert-xlarge",
+                                  "paligemma-3b"])
+def test_synthetic_batch_matches_jax(arch):
+    jcfg, cfg = jax_reduce(jax_get_config(arch)), \
+        reduce_for_smoke(get_config(arch))
+    a = synthetic_batch_for(cfg, ShapeConfig("t", 32, 4, "train"), seed=2)
+    b = jax_synthetic_batch(jcfg, JaxShapeConfig("t", 32, 4, "train"),
+                            seed=2)
+    assert sorted(a) == sorted(b)
+    for key in a:
+        np.testing.assert_array_equal(a[key], b[key])
+
+
+def test_pipeline_resume_state():
+    """The prefetching pipeline hands out the stream's batches in order,
+    and a batch's resume state replays the stream from after it."""
+    pipe = Pipeline(TokenStream(997, 16, 2, seed=1))
+    try:
+        got = [pipe.next_with_state() for _ in range(3)]
+    finally:
+        pipe.stop()
+    plain = TokenStream(997, 16, 2, seed=1)
+    for batch, _ in got:
+        np.testing.assert_array_equal(batch["tokens"], plain.next_batch())
+    again = TokenStream(997, 16, 2, seed=1)
+    again.seek(got[1][1])
+    np.testing.assert_array_equal(again.next_batch(), got[2][0]["tokens"])
+
+
+def test_one_train_step_matches_jax():
+    """`make_train_step` on the same weights and batch: loss, grad norm
+    and learning rate; and the parameters after the step, away from the
+    elements whose gradient is near 0 (where AdamW's first step is about
+    lr sign(g), so a sign that differs between the packages moves the
+    element by 2 lr)."""
+    jcfg, cfg, jparams, params = _setup("olmo-tiny")
+    kw = dict(learning_rate=1e-3, warmup_steps=2, total_steps=10,
+              microbatches=1, remat="none")
+    toks = TokenStream(cfg.vocab_size, 32, 4, seed=1).next_batch()
+    jgrads = jax.grad(lambda p: jax_loss_fn(
+        p, jcfg, {"tokens": jnp.asarray(toks)}, remat="none")[0])(jparams)
+    jp, _, jm = jax.jit(jax_make_train_step(jcfg, JaxTrainConfig(**kw)))(
+        jparams, jax_adamw.init_opt_state(jparams),
+        {"tokens": jnp.asarray(toks)})
+    p, state, m = make_train_step(cfg, TrainConfig(**kw))(
+        params, adamw.init_opt_state(params), {"tokens": toks})
+    assert int(state["step"]) == 1
+    np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
+                               rtol=LOSS_RTOL)
+    np.testing.assert_allclose(float(m["grad_norm"]), float(jm["grad_norm"]),
+                               rtol=GRAD_RTOL)
+    np.testing.assert_allclose(float(m["lr"]), float(jm["lr"]),
+                               rtol=ADAM_RTOL)
+    got, want = _flat(p), _flat(jax.tree.map(np.asarray, jp))
+    for key, g in _flat(jax.tree.map(np.asarray, jgrads)).items():
+        safe = np.abs(g) > 1e-3 * np.abs(g).max()
+        assert safe.mean() > 0.3, key
+        np.testing.assert_allclose(got[key][safe], want[key][safe],
+                                   rtol=1e-5, atol=1e-6, err_msg=key)
+
+
+def test_microbatch_equivalence():
+    """mb=1 and mb=4 give (nearly) the same update for the same batch, as
+    the JAX package's test holds; the mb=4 loss matches JAX's mb=4."""
+    jcfg, cfg, jparams, params0 = _setup("olmo-tiny")
+    toks = TokenStream(cfg.vocab_size, 32, 8, seed=1).next_batch()
+    outs = {}
+    for mb in (1, 4):
+        tc = TrainConfig(learning_rate=1e-3, microbatches=mb, remat="none",
+                         z_loss=0.0)
+        params = {k: v for k, v in params_from_numpy(
+            jax.tree.map(np.asarray, jparams), "cpu").items()}
+        p2, _, m = make_train_step(cfg, tc)(
+            params, adamw.init_opt_state(params), {"tokens": toks})
+        outs[mb] = (_flat(p2), float(m["loss"]))
+    assert abs(outs[1][1] - outs[4][1]) < 1e-3
+    for key in outs[1][0]:
+        np.testing.assert_allclose(outs[1][0][key], outs[4][0][key],
+                                   rtol=2e-3, atol=2e-4, err_msg=key)
+    jtc = JaxTrainConfig(learning_rate=1e-3, microbatches=4, remat="none",
+                         z_loss=0.0)
+    _, _, jm = jax.jit(jax_make_train_step(jcfg, jtc))(
+        jparams, jax_adamw.init_opt_state(jparams),
+        {"tokens": jnp.asarray(toks)})
+    np.testing.assert_allclose(outs[4][1], float(jm["loss"]), rtol=LOSS_RTOL)
+
+
+def test_checkpoint_roundtrip_and_torn_write(tmp_path):
+    tree = {"a": torch.arange(6, dtype=torch.float32).reshape(2, 3),
+            "b": {"c": torch.ones(4, dtype=torch.int32),
+                  "h": torch.tensor([1.5, -2.25], dtype=torch.bfloat16)},
+            "step": torch.tensor(7, dtype=torch.int32)}
+    save_checkpoint(tmp_path, 3, tree, extra={"cursor": 11})
+    save_checkpoint(tmp_path, 7, tree, extra={"cursor": 29})
+    # torn write: a directory without a manifest is ignored
+    (tmp_path / "step_00000009").mkdir()
+    assert latest_step(tmp_path) == 7
+    # the JAX package's layout: arrays.npz keyed by "||"-joined paths
+    names = sorted(np.load(tmp_path / "step_00000007" / "arrays.npz").files)
+    assert names == ["a", "b||c", "b||h", "step"]
+    target = {"a": TensorSpec((2, 3), torch.float32),
+              "b": {"c": torch.zeros(4, dtype=torch.int32),
+                    "h": TensorSpec((2,), torch.bfloat16)},
+              "step": torch.zeros((), dtype=torch.int32)}
+    restored, extra = restore_checkpoint(tmp_path, 7, target)
+    assert extra["cursor"] == 29
+    for key in ("a", "step"):
+        assert torch.equal(restored[key], tree[key])
+    assert torch.equal(restored["b"]["h"], tree["b"]["h"])
+    assert torch.equal(restored["b"]["c"], tree["b"]["c"])
+    with pytest.raises(ValueError, match="shape mismatch"):
+        restore_checkpoint(tmp_path, 7, {"a": TensorSpec((3, 2),
+                                                         torch.float32)})
+    # keep=3: the oldest complete checkpoints go
+    for s in (8, 10, 12):
+        save_checkpoint(tmp_path, s, tree)
+    assert sorted(p.name for p in tmp_path.glob("step_*")
+                  if (p / "MANIFEST.json").exists()) == [
+        "step_00000008", "step_00000010", "step_00000012"]
+
+
+def test_async_checkpointer_copies_before_returning(tmp_path):
+    """The port updates parameters in place: what `save` wrote is the tree
+    as it was when `save` returned, whatever happens to it after."""
+    w = torch.zeros(1000)
+    ckpt = AsyncCheckpointer(tmp_path)
+    ckpt.save(1, {"w": w}, extra={"n": 1})
+    w.add_(1.0)
+    ckpt.wait()
+    assert ckpt.last_error is None
+    restored, _ = restore_checkpoint(tmp_path, 1, {"w": w})
+    assert float(restored["w"].abs().max()) == 0.0
+
+
+def _tiny_tc(**kw):
+    return TrainConfig(learning_rate=1e-3, microbatches=1, remat="none",
+                       **kw)
+
+
+def test_trainer_failure_injection_and_resume(tmp_path):
+    _, cfg = _configs("olmo-tiny")
+    tc = _tiny_tc(checkpoint_every=5, total_steps=12)
+    mk = lambda **kw: Trainer(cfg, tc, workdir=tmp_path, batch=4, seq_len=32,
+                              device="cpu", **kw)
+    golden = Trainer(cfg, tc, workdir=tmp_path / "golden", batch=4,
+                     seq_len=32, device="cpu").run(12)
+    with pytest.raises(RuntimeError, match="injected failure"):
+        mk(fail_at_step=7).run(12)
+    resumed = mk().run(12)
+    assert resumed.resumed_from == 5
+    # steps 5..11 of the resumed run reproduce the golden run (bit for
+    # bit on the CPU: the same ops on the same restored state)
+    np.testing.assert_allclose(resumed.losses, golden.losses[5:], rtol=1e-6)
+    assert resumed.losses == golden.losses[5:]
+
+
+def test_straggler_watchdog(tmp_path):
+    _, cfg = _configs("olmo-tiny")
+    delays = {9: 0.5}
+    tr = Trainer(cfg, _tiny_tc(checkpoint_every=100), workdir=tmp_path,
+                 batch=2, seq_len=32, straggler_factor=3.0, device="cpu",
+                 step_delay_hook=lambda s: time.sleep(delays.get(s, 0)))
+    assert tr.run(12).straggler_events >= 1
+
+
+def test_loss_decreases():
+    _, cfg = _configs("olmo-tiny")
+    tc = TrainConfig(learning_rate=3e-3, warmup_steps=5, total_steps=60,
+                     microbatches=1, remat="none")
+    step = make_train_step(cfg, tc)
+    params = init_params(param_specs(cfg), torch.Generator().manual_seed(0),
+                         torch.float32, "cpu")
+    opt = adamw.init_opt_state(params)
+    stream = TokenStream(cfg.vocab_size, 64, 8, seed=0)
+    losses = []
+    for _ in range(40):
+        params, opt, m = step(params, opt, {"tokens": stream.next_batch()})
+        losses.append(float(m["loss"]))
+    assert np.isfinite(losses).all()
+    assert np.mean(losses[-5:]) < np.mean(losses[:5]) - 0.2
+
+
+def test_train_launcher_on_the_cpu(tmp_path, capsys):
+    result = train_launcher.main(["--smoke", "--steps", "2", "--batch", "2",
+                                  "--seq", "16", "--device", "cpu",
+                                  "--workdir", str(tmp_path)])
+    assert len(result.losses) == 2 and np.isfinite(result.losses).all()
+    assert "olmo-1b on cpu: 2 steps" in capsys.readouterr().out
+    assert latest_step(tmp_path / "olmo-1b" / "ckpt") == 2
