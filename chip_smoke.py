@@ -261,14 +261,17 @@ against its plain PyTorch version on the card.  In order:
      largest magnitude, a second launch bit-identical, the forward's `out`
      the same bits with its log-sum-exp asked for; times beside the plain
      backward's and `scaled_dot_product_attention`'s backward, and the
-     bound;
+     bound (f32 at the TF32 rate of its 3xTF32 products, the f32 rate
+     beside); and row 8's forward at olmo-1b's shape in f32 against its
+     plain version, its time beside SDPA's in f32 and its bound;
  16b. olmo-1b at full width and depth in f32 (1,176,764,416 parameters,
      18.8 GB with the gradients and both moments) through
      `make_train_step`: 6 steps of 8 x 256 tokens from `TokenStream(50304,
      256, 8, seed=0)`, lr 1e-3, remat "none", each step's loss (finite)
      and exactly 16 forward and 16 backward `flash_attention` launches,
      the median step time, tokens a second, peak memory, and a seventh
-     step traced (the device idle share);
+     step traced (the device idle share, and the backward kernels' device
+     time in it: exactly 3 launches a layer);
  16c. the `Trainer` (`repro_torch.launch.train`'s loop) at full width and
      2 of the 16 layers: 8 steps with a checkpoint every 3 (a golden
      run), a run that `fail_at_step=5` stops, and its resume from step 3,
@@ -290,12 +293,14 @@ against its plain PyTorch version on the card.  In order:
      (15d's forward).  Row 8 also carries its numbers at MLA's shape
      (``at_mla_shape``), qwen2-moe's (``at_moe_shape``), paligemma's
      with its prefix (``at_prefix_shape``) and hubert's
-     (``at_hubert_shape``); its ``max_abs_err`` is the largest of all its
+     (``at_hubert_shape``) and olmo-1b's training shape in f32
+     (``at_olmo_1b_shape``); its ``max_abs_err`` is the largest of all its
      checks.  The backward's row (``flash_attention_bwd``) has its numbers
      at olmo-1b's training shape, its launches in 16b's six steps
-     (``train``; ``trainer`` for 16c), and its other 16a shapes
+     (``train``; ``trainer`` for 16c), its other 16a shapes
      (``at_yi_9b_shape``, ``at_mla_shape``, ``at_prefix_shape``,
-     ``at_hubert_shape``).
+     ``at_hubert_shape``) and its device time in 16b's traced step
+     (``in_traced_train_step``).
 
 Any failure raises and exits non-zero before the last line is printed.
 Without CUDA, or without the rest of the repository beside it, the script
@@ -2871,12 +2876,13 @@ def serving_path(torch, t_start: float) -> dict:
                                                                  t_start)
     mark("15d")
     paths["hubert"], row["at_hubert_shape"] = hubert_phase(torch, t_start)
-    bwd_row, train_paths = training_phase(torch, t_start)
+    bwd_row, train_paths, row["at_olmo_1b_shape"] = training_phase(torch,
+                                                                   t_start)
     paths.update(train_paths)
     row["max_abs_err"] = max(
         [row["max_abs_err"]] + [row[key]["max_abs_err"] for key in (
             "at_mla_shape", "at_moe_shape", "at_prefix_shape",
-            "at_hubert_shape")])
+            "at_hubert_shape", "at_olmo_1b_shape")])
     log("clocks/power after the serving path: " + smi(
         "clocks.sm,power.draw,power.limit,temperature.gpu"))
     bwd_row["launches"] = paths["train"]["flash_attention_bwd"]
@@ -3436,8 +3442,9 @@ def attention_numbers(torch, q, k, v, *, causal: bool, label: str,
     `scaled_dot_product_attention` call's on the same inputs (a boolean
     mask for a prefix; the yardstick only, the port never calls it) and
     the bound: 2 (D + Dv) operations a visible (query, key) pair a head on
-    the bf16 tensor cores, or the bytes (each input read once, the f32
-    output written once)."""
+    the bf16 tensor cores (bf16 inputs) or at the TF32 rate (f32 inputs,
+    the f32-rate figure beside), or the bytes (each input read once, the
+    f32 output written once)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention_cuda as fa_cuda
@@ -3473,17 +3480,25 @@ def attention_numbers(torch, q, k, v, *, causal: bool, label: str,
     ops_count = 2 * pairs * (d + dv) * b * h
     nbytes = q.element_size() * (q.numel() + k.numel() + v.numel()) + \
         4 * b * s * h * dv
-    b_ms, b_by = bound(nbytes, ops_count, BF16_OPS_PER_S)
+    f32 = q.dtype == torch.float32
+    rate = TF32_OPS_PER_S if f32 else BF16_OPS_PER_S
+    b_ms, b_by = bound(nbytes, ops_count, rate)
+    out = {"ms": min(ms, ms_again), "plain_ms": plain_ms,
+           "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
+    rate_note = "on the bf16 tensor cores"
+    if f32:
+        out["bound_ms_f32_rate"] = bound(nbytes, ops_count)[0]
+        rate_note = (f"at the TF32 rate; {out['bound_ms_f32_rate']:.6f} ms "
+                     f"at the 67 TFLOP/s of f32")
     log(f"time flash_attention {label}: q {tuple(q.shape)} k "
         f"{tuple(k.shape)} v {tuple(v.shape)} {str(q.dtype)[6:]}, causal "
         f"{causal}, prefix {prefix_len}: kernel {ms:.6f} / {ms_again:.6f} "
         f"ms, plain {plain_ms:.6f} ms, library (scaled_dot_product_attention,"
-        f" bf16 out) {lib_ms} ms, bound {b_ms:.6f} ms ({b_by}; {pairs} "
-        f"visible pairs a head, {ops_count} operations on the bf16 tensor "
-        f"cores, {nbytes} bytes), {b_ms / min(ms, ms_again):.4f} of the "
-        f"bound")
-    return {"ms": min(ms, ms_again), "plain_ms": plain_ms,
-            "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
+        f" {str(q.dtype)[6:]} in, {'f32' if f32 else 'bf16'} out) {lib_ms} "
+        f"ms, bound {b_ms:.6f} ms ({b_by}; {pairs} visible pairs a head, "
+        f"{ops_count} operations {rate_note}, {nbytes} bytes), "
+        f"{b_ms / min(ms, ms_again):.4f} of the bound")
+    return out
 
 
 def draw_params(torch, cfg, want: int):
@@ -3798,7 +3813,8 @@ def backward_numbers(torch, label, b, s, h, hk, d, dv, dtype, causal,
     the same bits with and without its log-sum-exp; the kernel's time
     (CUDA events) beside the plain backward's, SDPA's backward through
     autograd (the yardstick only) and the bound: the five products, 2 (3 D
-    + 2 Dv) operations a visible pair, at the f32 or bf16 rate, or the
+    + 2 Dv) operations a visible pair, at the TF32 rate for f32 (the
+    kernel's 3xTF32; the f32-rate figure beside) or the bf16 rate, or the
     bytes (q, k, v, out, dO and lse read once, dq, dk, dv written once)."""
     import torch.nn.functional as F
 
@@ -3870,8 +3886,9 @@ def backward_numbers(torch, label, b, s, h, hk, d, dv, dtype, causal,
     es = q.element_size()
     nbytes = 2 * es * (q.numel() + k.numel() + v.numel()) + \
         4 * (2 * out.numel() + lse.numel())
-    rate = F32_OPS_PER_S if dtype == "float32" else BF16_OPS_PER_S
+    rate = TF32_OPS_PER_S if dtype == "float32" else BF16_OPS_PER_S
     b_ms, b_by = bound(nbytes, ops_count, rate)
+    f32_rate_ms = bound(nbytes, ops_count)[0]
     log(f"flash_attention_bwd {label}: q {tuple(q.shape)} k {tuple(k.shape)}"
         f" v {tuple(v.shape)} {dtype}, causal {causal}, prefix {prefix}: "
         f"dq, dk, dv against autograd through the plain version max abs err "
@@ -3883,19 +3900,24 @@ def backward_numbers(torch, label, b, s, h, hk, d, dv, dtype, causal,
         f"library (scaled_dot_product_attention's backward) {lib_ms} ms, "
         f"bound {b_ms:.6f} ms ({b_by}; {pairs} visible pairs a head, "
         f"{ops_count} operations at {rate / 1e12:.0f} TFLOP/s, {nbytes} "
-        f"bytes), {b_ms / min(ms, ms_again):.4f} of the bound")
+        f"bytes; {f32_rate_ms:.6f} ms at the 67 TFLOP/s of f32), "
+        f"{b_ms / min(ms, ms_again):.4f} of the bound")
     del q, k, v, dout, out, lse, grads, again
     torch.cuda.empty_cache()
-    return {"ms": min(ms, ms_again), "plain_ms": plain_ms,
-            "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "max_abs_err": max(errs), "max_rel_err": max(rels)}
+    out = {"ms": min(ms, ms_again), "plain_ms": plain_ms,
+           "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "max_abs_err": max(errs), "max_rel_err": max(rels)}
+    if dtype == "float32":
+        out["bound_ms_f32_rate"] = f32_rate_ms
+    return out
 
 
 def training_phase(torch, t_start) -> tuple:
-    """Phase 16: (a) the backward kernel at its shapes, (b) olmo-1b at full
-    width and depth through `make_train_step`, (c) the `Trainer`'s kill
-    and resume at full width and 2 layers.  Returns the backward's kernel
-    row and each path's launch counts."""
+    """Phase 16: (a) the backward kernel at its shapes and row 8's forward
+    at the training shape, (b) olmo-1b at full width and depth through
+    `make_train_step`, (c) the `Trainer`'s kill and resume at full width
+    and 2 layers.  Returns the backward's kernel row, each path's launch
+    counts and row 8's numbers at the training shape."""
     import dataclasses
     import shutil
     from pathlib import Path
@@ -3905,7 +3927,7 @@ def training_phase(torch, t_start) -> tuple:
     from repro_torch.configs import get_config
     from repro_torch.configs.base import TrainConfig
     from repro_torch.data.tokens import TokenStream
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, ref
     from repro_torch.models import init_params, param_specs
     from repro_torch.optim.adamw import init_opt_state
     from repro_torch.training.train_step import make_train_step
@@ -3916,6 +3938,17 @@ def training_phase(torch, t_start) -> tuple:
     numbers = {spec[0]: backward_numbers(torch, *spec)
                for spec in BWD_SHAPES}
     main = numbers.pop(TRAIN_ARCH)
+    # Row 8's forward at the training shape (f32, 16 launches a step).
+    _, b, s, h, hk, d, dv, dtype, causal, _ = BWD_SHAPES[0]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+               for shape in ((b, s, h, d), (b, s, hk, d), (b, s, hk, dv)))
+    fwd = attention_numbers(torch, q, k, v, causal=causal,
+                            label="at olmo-1b's training shape (o), f32")
+    fwd["max_abs_err"] = check_attention(
+        torch, ops, ref, q, k, v, causal, "at olmo-1b's training shape, f32",
+        ATTN_TOL)
+    del q, k, v
     row = {"name": "flash_attention_bwd", "route": "cuda",
            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
            "replaces": "src/repro/models/attention.py:94", "launches": None,
@@ -3993,6 +4026,21 @@ def training_phase(torch, t_start) -> tuple:
         f"device busy {busy:.4f} s over {n_events} device events, idle "
         f"share {1 - busy / wall:.4f}")
     log_top(by_name, 6)
+    # The backward kernels' device time in the traced step (their three
+    # launches a call: delta, dK and dV, dQ).
+    bwd_kernels = [(ms, cnt) for name, (ms, cnt) in by_name.items()
+                   if any(f"{k}_kernel<" in name or f"{k}_kernel(" in name
+                          for k in ("delta", "dkv", "dq"))]
+    bwd_ms = sum(ms for ms, _ in bwd_kernels)
+    bwd_n = sum(cnt for _, cnt in bwd_kernels)
+    if bwd_n != 3 * cfg.num_layers:
+        raise AssertionError(f"traced step: {bwd_n} backward kernel "
+                             f"launches, want {3 * cfg.num_layers}")
+    log(f"  flash_attention_bwd.cu in the traced step: {bwd_ms:.4f} ms "
+        f"device time over {bwd_n} launches ({cfg.num_layers} calls), "
+        f"{bwd_ms / 1e3 / busy:.4f} of the device's busy time")
+    row["in_traced_train_step"] = {"device_ms": bwd_ms, "launches": bwd_n,
+                                   "share_of_busy": bwd_ms / 1e3 / busy}
     del params, opt, metrics, prof, step
     gc.collect()
     torch.cuda.empty_cache()
@@ -4059,7 +4107,7 @@ def training_phase(torch, t_start) -> tuple:
         f"{ckpt.last_copy_seconds:.3f} s, its write "
         f"{ckpt.last_write_seconds:.3f} s (np.savez under build/)")
     log(f"[{time.perf_counter() - t_start:.1f} s] training done")
-    return row, {"train": train_counts, "trainer": trainer_counts}
+    return row, {"train": train_counts, "trainer": trainer_counts}, fwd
 
 
 def main() -> int:
@@ -4106,7 +4154,8 @@ def main() -> int:
     mark("end")
     log(f"total {time.perf_counter() - t_start:.1f} s")
 
-    log(json.dumps({"phase_seconds": phase_seconds()}))
+    log(json.dumps({"phase_seconds": {
+        **phase_seconds(), "total": round(time.perf_counter() - t_start, 1)}}))
     log(card)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -33,12 +33,12 @@
 // for the bytes, 2.05 ms at the 67 TFLOP/s of f32 outside the tensor cores.
 //
 // bf16 inputs (the serving path) run on the tensor cores, `mma.sync`
-// m16n8k16 bf16 -> f32 fed by `ldmatrix`, all as inline PTX (no header
-// beyond the toolkit's).  `mma.sync` rather than `wgmma`: it keeps the FA2
-// shape (one warp owns 16 query rows, the softmax runs on the accumulator
-// fragments in registers, no warpgroup descriptors or async fences) and
-// is the simpler kernel to get right; `wgmma` is the later step to the
-// full rate.
+// m16n8k16 bf16 -> f32 fed by `ldmatrix`, all as inline PTX (warp_mma.cuh,
+// shared with the backward; no header beyond the toolkit's).  `mma.sync`
+// rather than `wgmma`: it keeps the FA2 shape (one warp owns 16 query
+// rows, the softmax runs on the accumulator fragments in registers, no
+// warpgroup descriptors or async fences) and is the simpler kernel to
+// get right; `wgmma` is the later step to the full rate.
 //   - A block of 8 warps owns 128 query rows of one (batch, head), 16 per
 //     warp.  The bf16 Q tile stays bf16 in shared memory; for D <= 128 each
 //     warp keeps its Q fragments in registers for the whole key loop.
@@ -88,11 +88,12 @@
 // What is left: `mma.sync` issues at well under the card's bf16 rate,
 // which only `wgmma` reaches (the next step).
 //
-// f32 inputs (tests and the reduced f32 checks only) keep the first
-// kernel, plain SIMT f32: a block of 256 threads owns 64 query rows, each
-// thread a 4 x 4 block of scores and a 4 x (D/16) slice of the
-// accumulator; 64-key tiles of K, then V, in one shared f32 buffer with a
-// row stride of D + 1.  Its floor is the 2.05 ms f32 figure.
+// f32 inputs (olmo-1b's f32 training, as the JAX launcher trains, and the
+// reduced f32 checks) keep the first kernel, plain SIMT f32: a block of
+// 256 threads owns 64 query rows, each thread a 4 x 4 block of scores and
+// a 4 x (D/16) slice of the accumulator; 64-key tiles of K, then V, in one
+// shared f32 buffer with a row stride of D + 1.  Its floor is the 2.05 ms
+// f32 figure.
 //
 // Rounding: key 0 is valid for every query row, so after the first tile
 // every row's max is a real score and exp(-1e30 - m) is 0 on every masked
@@ -107,6 +108,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "warp_mma.cuh"
 
 namespace {
 
@@ -321,69 +324,6 @@ struct Tc {
   static constexpr bool kQInRegs = DP <= 128;
   static constexpr int kSmem = (kTcBQ + 4 * kBK) * kLd * 2;  // Q, 2 x (K, V)
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared; bytes past `src_bytes` (0 or 16) are zero.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-// c += a b: a 16 x 16 bf16 (row), b 16 x 8 bf16 (col), c 16 x 8 f32.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// (x0, x1) as bf16 pairs hi = bf16(x) and lo = bf16(x - hi); the lower
-// 16 bits hold x0, the element of the smaller column.
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  hi = bf16x2_bits(h);
-  lo = bf16x2_bits(
-      __floats2bfloat162_rn(x0 - __low2float(h), x1 - __high2float(h)));
-}
 
 // Rows [row0, row0 + ROWS) of a (seq, D) bf16 view into a shared tile of
 // row stride LD, zero past S and past D.  `vec`: 16-byte cp.async (D and

@@ -34,6 +34,7 @@ __all__ = [
     "lsh_bucket_accept_lanes_penalty_ref",
     "flash_attention_ref",
     "attention_bshd_ref",
+    "attention_bshd_bwd_ref",
 ]
 
 LSH_MISS = 3.0e38  # "no colliding center" sentinel (finite in f32)
@@ -353,3 +354,39 @@ def attention_bshd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             m = m_new
     out = acc / l.clamp_min(1e-30)[..., None]
     return out.reshape(b, s, h, dv)
+
+
+def attention_bshd_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           out: torch.Tensor, dout: torch.Tensor,
+                           lse: torch.Tensor, *, scale: float, causal: bool,
+                           prefix_len: int = 0) -> tuple:
+    """The gradients (dq, dk, dv) of `attention_bshd_ref`'s output, in f32:
+    the plain version of the backward kernel's equations
+    (`csrc/flash_attention_bwd.cu`).  q (B, S, H, D), k (B, S, Hk, D), v
+    (B, S, Hk, Dv), the forward's output `out` and its gradient `dout`
+    (B, S, H, Dv), and the forward's log-sum-exp `lse` (B, H, S) of the
+    scaled, masked scores.  With P = exp(scale q k - lse) on the visible
+    pairs and 0 elsewhere, delta = rowsum(dout * out), dS = P (dout v -
+    delta): dv = P^T dout, dk = scale dS^T q, dq = scale dS k, dk and dv
+    summed over each KV head's H / Hk query heads."""
+    b, s, h, d = q.shape
+    hk, dv = k.shape[2], v.shape[3]
+    g = h // hk
+    qf = q.reshape(b, s, hk, g, d).to(torch.float32)
+    kf, vf = k.to(torch.float32), v.to(torch.float32)
+    do = dout.reshape(b, s, hk, g, dv).to(torch.float32)
+    o = out.reshape(b, s, hk, g, dv).to(torch.float32)
+    lse_g = lse.to(torch.float32).reshape(b, hk, g, s).permute(0, 3, 1, 2)
+    with full_f32_matmul():
+        scores = torch.einsum("bqkgd,bskd->bqkgs", qf, kf) * scale
+        p = torch.exp(scores - lse_g[..., None])
+        if causal:
+            pos = torch.arange(s, device=q.device)
+            keep = prefix_causal_mask(pos, pos, prefix_len)
+            p = torch.where(keep[None, :, None, None, :], p, 0.0)
+        delta = (do * o).sum(dim=-1, keepdim=True)
+        ds = p * (torch.einsum("bqkgv,bskv->bqkgs", do, vf) - delta)
+        dv_ = torch.einsum("bqkgs,bqkgv->bskv", p, do)
+        dk = torch.einsum("bqkgs,bqkgd->bskd", ds, qf) * scale
+        dq = torch.einsum("bqkgs,bskd->bqkgd", ds, kf) * scale
+    return dq.reshape(b, s, h, d), dk, dv_

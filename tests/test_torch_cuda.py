@@ -1570,7 +1570,10 @@ def test_ssm_generate_on_the_card_matches_the_cpu(cuda, arch):
         Engine(params, cfg, serve, device="cpu").generate(toks.numpy()))
 
 
-# (B, S, H, Hk, D, Dv, dtype, causal, prefix)
+# (B, S, H, Hk, D, Dv, dtype, causal, prefix[, "fused"]): "fused" makes
+# q, k and v strided views of one (B, S, H + 2 Hk, D) tensor; at D 100 no
+# stride is whole 16-byte chunks, so the kernel loads them element by
+# element
 BWD_CASES = [
     (2, 256, 4, 4, 128, 128, torch.float32, True, 0),
     (2, 333, 4, 2, 64, 64, torch.float32, True, 0),
@@ -1580,26 +1583,40 @@ BWD_CASES = [
     (2, 257, 4, 1, 256, 256, torch.bfloat16, True, 100),
     (1, 256, 2, 2, 64, 64, torch.float32, True, 300),
     (2, 256, 4, 4, 80, 80, torch.bfloat16, False, 0),
+    (2, 256, 8, 2, 100, 100, torch.bfloat16, True, 0, "fused"),
+    (2, 200, 4, 2, 80, 80, torch.bfloat16, True, 0),
 ]
 # a share of the largest |gradient|: f32 sums in other orders; one bf16
 # rounding of each gradient (at most 2^-8 of it) for bf16 inputs
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 4e-3}
 
 
-def _bwd_inputs(cuda, b, s, h, hk, d, dv, dtype, seed=0):
+def _bwd_inputs(cuda, b, s, h, hk, d, dv, dtype, seed=0, fused=False):
     gen = torch.Generator(device=cuda).manual_seed(seed)
-    q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(dtype)
-               for shape in ((b, s, h, d), (b, s, hk, d), (b, s, hk, dv)))
+    if fused:       # q, k, v: views of one (B, S, H + 2 Hk, D) tensor
+        assert dv == d
+        qkv = torch.randn((b, s, h + 2 * hk, d), generator=gen,
+                          device=cuda).to(dtype)
+        q, k, v = qkv[:, :, :h], qkv[:, :, h:h + hk], qkv[:, :, h + hk:]
+    else:
+        q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(dtype)
+                   for shape in ((b, s, h, d), (b, s, hk, d), (b, s, hk, dv)))
     dout = torch.randn((b, s, h, dv), generator=gen, device=cuda)
     return q, k, v, dout
 
 
 @pytest.mark.parametrize("case", BWD_CASES)
 def test_training_flash_backward_matches_plain_autograd(cuda, case):
-    b, s, h, hk, d, dv, dtype, causal, prefix = case
-    q, k, v, dout = _bwd_inputs(cuda, b, s, h, hk, d, dv, dtype)
+    b, s, h, hk, d, dv, dtype, causal, prefix, *layout = case
+    q, k, v, dout = _bwd_inputs(cuda, b, s, h, hk, d, dv, dtype,
+                                fused=layout == ["fused"])
     kw = dict(scale=d ** -0.5, causal=causal, prefix_len=prefix)
-    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    if layout:      # the gradients of the views themselves
+        qkv = torch.cat([q, k, v], dim=2).requires_grad_(True)
+        leaves = [qkv[:, :, :h], qkv[:, :, h:h + hk], qkv[:, :, h + hk:]]
+        assert not any(t.is_contiguous() for t in leaves)
+    else:
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     before = ops.launch_counts()
     out = ops.attention_bshd(*leaves, **kw)
     grads = torch.autograd.grad(out, leaves, dout)
