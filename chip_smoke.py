@@ -10,7 +10,8 @@ decode over KV codebooks built by fastkmeans++, MLA and MoE; in phases
 15a to 15d the rest of the model stack: RWKV-6, Mamba, the vlm prefix and
 the audio inputs; in phase 16 training: the backward kernel of row 8 and
 olmo-1b trained at full width and depth, then the `Trainer`'s kill and
-resume).  Two go through the plan, each at the shape
+resume, olmo-1b trained in bf16 under remat "dots", and the compressed
+data-parallel step and the pipeline schedule on a one-rank NCCL group).  Two go through the plan, each at the shape
 of the paper's smallest real dataset (KDD Cup, 311,029 x 74, generated
 here from a seed as `benchmarks/datasets.py` does) with k = 1000: the
 paper's Algorithm 4,
@@ -255,8 +256,9 @@ against its plain PyTorch version on the card.  In order:
      a call: delta, dK and dV, dQ) against autograd through the plain
      version on f32 copies of the same inputs, at olmo-1b's training shape
      (8, 256, 16, 128) f32 causal, yi-9b's GQA (4, 2048, 32 over 4, 128),
-     MLA's D 192 / Dv 128, a prefix of 256 (4, 1024, 8 over 1, 256) and
-     hubert's non-causal D 80, in bf16: each gradient within 1e-4 (f32) or
+     MLA's D 192 / Dv 128, a prefix of 256 (4, 1024, 8 over 1, 256),
+     hubert's non-causal D 80 and 16d's microbatch (2, 4096, 16, 128), in
+     bf16: each gradient within 1e-4 (f32) or
      4e-3 (bf16: one rounding of the gradient, at most 2^-8 of it) of its
      largest magnitude, a second launch bit-identical, the forward's `out`
      the same bits with its log-sum-exp asked for; times beside the plain
@@ -278,6 +280,34 @@ against its plain PyTorch version on the card.  In order:
      whose losses match the golden run's steps 4 to 8 within rtol 1e-6
      (bit-identical or not, printed), the checkpoint's bytes and write
      seconds; the checkpoints live under `build/` and are removed;
+ 16d. olmo-1b at full width and depth in bf16 (bf16 parameters and
+     activations, f32 moments and accumulators) under remat "dots"
+     through `make_train_step`: batches of 4 x 4,096 tokens (the JAX
+     package's train_4k sequence length) in 2 microbatches; first the
+     first batch's gradients under "dots", "none" and "block" on the same
+     parameters (`make_grads_fn`): the loss and every gradient of "none"
+     and "block" equal to "dots"' bit for bit (or, should an op prove
+     non-deterministic on the card, within the gap of two "none" runs,
+     printed), each policy's peak memory above the state (dots below
+     none), and each policy's launches: one backward launch a layer and
+     microbatch, one forward launch a layer and microbatch and one more
+     where the group is recomputed ("block", and "dots", which cannot save
+     the output of the flash kernel's autograd Function: it is no aten
+     op); then 4 timed steps (each loss finite, exactly 64 forward and 32
+     backward launches a step), the median step time, tokens a second,
+     peak memory, and a fifth step traced (the idle share); row 8 at the
+     microbatch's shape (q, k, v (2, 4096, 16, 128) bf16, causal) against
+     its plain version and timed (its backward: 16a's sixth shape);
+ 16e. a one-rank NCCL group on the card, from a `FileStore` under
+     `build/` (no TCP port; no fallback to gloo): `compressed_psum` over
+     16d's gradient tree, each leaf equal to `int8_decompress(q, scale)`
+     and its residual to `int8_compress`'s bit for bit, its time and the
+     bytes it gathers; `make_ddp_step` on olmo-1b at full width and 2 of
+     its 16 layers in bf16 (4 x 2,048 tokens): the compressed sync within
+     half a quantisation step of the uncompressed one, 4 SGD steps with
+     and 4 without compression (finite losses); `pipeline_apply` on one
+     stage with one full-width block as its body, 2 microbatches of 2 x
+     2,048, equal to the direct calls bit for bit;
  17. the phases' wall seconds (``{"phase_seconds": {...}}``), one JSON
      line per the kernels (the eight rows and the backward of row 8), the
      card's line again, and last ``{"ok": true, "device": {...}}``.  A row's `launches` is its main
@@ -293,14 +323,17 @@ against its plain PyTorch version on the card.  In order:
      (15d's forward).  Row 8 also carries its numbers at MLA's shape
      (``at_mla_shape``), qwen2-moe's (``at_moe_shape``), paligemma's
      with its prefix (``at_prefix_shape``) and hubert's
-     (``at_hubert_shape``) and olmo-1b's training shape in f32
-     (``at_olmo_1b_shape``); its ``max_abs_err`` is the largest of all its
+     (``at_hubert_shape``), olmo-1b's training shape in f32
+     (``at_olmo_1b_shape``) and in bf16 (``at_olmo_1b_bf16_train_shape``,
+     16d's microbatch); its ``max_abs_err`` is the largest of all its
      checks.  The backward's row (``flash_attention_bwd``) has its numbers
      at olmo-1b's training shape, its launches in 16b's six steps
-     (``train``; ``trainer`` for 16c), its other 16a shapes
-     (``at_yi_9b_shape``, ``at_mla_shape``, ``at_prefix_shape``,
-     ``at_hubert_shape``) and its device time in 16b's traced step
-     (``in_traced_train_step``).
+     (``train``; ``trainer`` for 16c, ``train_bf16`` for 16d's four timed
+     steps, ``ddp`` for 16e), its other 16a shapes (``at_yi_9b_shape``,
+     ``at_mla_shape``, ``at_prefix_shape``, ``at_hubert_shape``,
+     ``at_olmo_1b_bf16_train_shape``) and its device time in 16b's traced
+     step (``in_traced_train_step``).  Both rows' ``launches_by_path``
+     carry ``train``, ``trainer``, ``train_bf16`` and ``ddp``.
 
 Any failure raises and exits non-zero before the last line is printed.
 Without CUDA, or without the rest of the repository beside it, the script
@@ -420,6 +453,14 @@ TRAINER_LAYERS, TRAINER_STEPS, TRAINER_EVERY, TRAINER_FAIL = 2, 8, 3, 5
 # a share of the largest |gradient|: f32 sums in other orders (f32), and
 # one rounding of each gradient to bf16, at most 2^-8 of it (bf16 inputs)
 BWD_TOL = {"float32": 1e-4, "bfloat16": 4e-3}
+# 16d: olmo-1b in bf16 under remat "dots": batches of 4 x 4,096 tokens
+# (the JAX package's train_4k sequence length), two microbatches
+BF16_BATCH, BF16_SEQ, BF16_MICRO, BF16_STEPS = 4, 4096, 2, 4
+# 16e: the compressed DDP step on olmo-1b at full width, 2 of its 16 layers,
+# in bf16, batches of 4 x 2,048 tokens; the pipeline's block on 2
+# microbatches of 2 x 2,048
+DDP_LAYERS, DDP_BATCH, DDP_SEQ, DDP_STEPS, DDP_LR = 2, 4, 2048, 4, 1e-2
+PIPE_MICRO, PIPE_BATCH, PIPE_SEQ = 2, 2, 2048
 # (label, B, S, H, Hk, D, Dv, dtype, causal, prefix)
 BWD_SHAPES = (
     ("olmo-1b", 8, 256, 16, 16, 128, 128, "float32", True, 0),
@@ -427,6 +468,9 @@ BWD_SHAPES = (
     ("mla", 4, 2048, 16, 16, 192, 128, "bfloat16", True, 0),
     ("prefix", 4, 1024, 8, 1, 256, 256, "bfloat16", True, 256),
     ("hubert", 4, 2048, 16, 16, 80, 80, "bfloat16", False, 0),
+    # 16d's microbatch: olmo-1b in bf16 at 2 x 4,096
+    ("olmo-1b-bf16-train", BF16_BATCH // BF16_MICRO, BF16_SEQ, 16, 16, 128,
+     128, "bfloat16", True, 0),
 )
 
 
@@ -2876,13 +2920,14 @@ def serving_path(torch, t_start: float) -> dict:
                                                                  t_start)
     mark("15d")
     paths["hubert"], row["at_hubert_shape"] = hubert_phase(torch, t_start)
-    bwd_row, train_paths, row["at_olmo_1b_shape"] = training_phase(torch,
-                                                                   t_start)
+    bwd_row, train_paths, row["at_olmo_1b_shape"], \
+        row["at_olmo_1b_bf16_train_shape"] = training_phase(torch, t_start)
     paths.update(train_paths)
     row["max_abs_err"] = max(
         [row["max_abs_err"]] + [row[key]["max_abs_err"] for key in (
             "at_mla_shape", "at_moe_shape", "at_prefix_shape",
-            "at_hubert_shape", "at_olmo_1b_shape")])
+            "at_hubert_shape", "at_olmo_1b_shape",
+            "at_olmo_1b_bf16_train_shape")])
     log("clocks/power after the serving path: " + smi(
         "clocks.sm,power.draw,power.limit,temperature.gpu"))
     bwd_row["launches"] = paths["train"]["flash_attention_bwd"]
@@ -4107,7 +4152,368 @@ def training_phase(torch, t_start) -> tuple:
         f"{ckpt.last_copy_seconds:.3f} s, its write "
         f"{ckpt.last_write_seconds:.3f} s (np.savez under build/)")
     log(f"[{time.perf_counter() - t_start:.1f} s] training done")
-    return row, {"train": train_counts, "trainer": trainer_counts}, fwd
+    bf16_counts, fwd_bf16, grads = bf16_training_phase(torch, t_start)
+    ddp_counts = distributed_phase(torch, t_start, grads)
+    return row, {"train": train_counts, "trainer": trainer_counts,
+                 "train_bf16": bf16_counts, "ddp": ddp_counts}, fwd, fwd_bf16
+
+
+def bf16_training_phase(torch, t_start) -> tuple:
+    """16d: olmo-1b at full width and depth in bf16 (bf16 parameters and
+    activations, f32 moments, f32 accumulators) under remat "dots" through
+    `make_train_step`; the same parameters and batch under "none" and
+    "block" against it; row 8 at the microbatch's shape.  Returns (the
+    timed steps' launch counts, row 8's numbers at that shape, the "dots"
+    gradients of the first batch: f32, for 16e)."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import init_params, param_specs
+    from repro_torch.optim.adamw import init_opt_state, tree_leaves
+    from repro_torch.training.train_step import (make_grads_fn,
+                                                 make_train_step)
+
+    mark("16d")
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), dtype="bfloat16",
+                              param_dtype="bfloat16")
+    if cfg.param_count() != OLMO_PARAMS:
+        raise AssertionError(f"{cfg.name}: {cfg.param_count()} parameters")
+    layers, tokens = cfg.num_layers, BF16_BATCH * BF16_SEQ
+    log(f"[{time.perf_counter() - t_start:.1f} s] {cfg.name} training in "
+        f"bf16 at full width and depth ({cfg.param_count()} parameters): "
+        f"bf16 parameters and activations, f32 moments and accumulators, "
+        f"remat dots; {BF16_BATCH} x {BF16_SEQ} tokens a step in "
+        f"{BF16_MICRO} microbatches, lr {TRAIN_LR}")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = init_params(param_specs(cfg), gen, bf16, dev)
+    opt = init_opt_state(params)
+    torch.cuda.synchronize()
+    log(f"  bf16 parameters and f32 moments on the card in "
+        f"{time.perf_counter() - t0:.2f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    stream = TokenStream(cfg.vocab_size, BF16_SEQ, BF16_BATCH, seed=SEED)
+    first = {"tokens": stream.next_batch()}
+
+    def tc(remat):
+        return TrainConfig(learning_rate=TRAIN_LR, warmup_steps=10,
+                           total_steps=BF16_STEPS + 1,
+                           microbatches=BF16_MICRO, remat=remat)
+
+    # Forward launches a microbatch: one a layer, and one more a layer
+    # where the backward recomputes the group ("block" and "dots": the
+    # flash kernel's autograd Function is no aten op, so "dots" cannot
+    # save its output); one backward launch a layer.
+    def per_step(remat):
+        fwd = (1 if remat == "none" else 2) * layers * BF16_MICRO
+        return {"flash_attention": fwd,
+                "flash_attention_bwd": layers * BF16_MICRO}
+
+    def grads_of(remat):
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss, _, grads = make_grads_fn(cfg, tc(remat))(params, first)
+        loss = float(loss)
+        wall = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        expect_launches(f"gradients under remat {remat}",
+                        ops.launch_counts(), per_step(remat))
+        log(f"  remat {remat}: loss {loss:.6f}, gradients in {wall:.3f} s, "
+            f"peak {peak:.3f} GiB above the {base / 2**30:.3f} GiB held "
+            f"before; launches {per_step(remat)}")
+        if not math.isfinite(loss):
+            raise AssertionError(f"remat {remat}: loss {loss}")
+        return loss, grads, peak
+
+    def gap(a, b):
+        return max(float((x.float() - y.float()).abs().max())
+                   for x, y in zip(a, b))
+
+    log("  the first batch's gradients under the three remat policies, on "
+        "the same parameters (the backward kernel's launches: one a layer "
+        "and microbatch; the forward's: one more a layer and microbatch "
+        "where the group is recomputed)")
+    loss_d, grads_d, peak_d = grads_of("dots")
+    peaks, diffs, same = {"dots": peak_d}, {}, {}
+    for remat in ("none", "block"):
+        loss_o, grads_o, peaks[remat] = grads_of(remat)
+        same[remat] = loss_o == loss_d and all(
+            torch.equal(a, b) for a, b in zip(grads_o, grads_d))
+        diffs[remat] = (abs(loss_o - loss_d), gap(grads_o, grads_d))
+        del grads_o
+    if all(same.values()):
+        log(f"  remat none and block: the loss and all {len(grads_d)} "
+            f"gradients equal remat dots' bit for bit")
+    else:
+        # an op of the step is not deterministic on the card: hold the gaps
+        # to the one between two "none" runs
+        loss_1, grads_1, _ = grads_of("none")
+        loss_2, grads_2, _ = grads_of("none")
+        noise = (abs(loss_1 - loss_2), gap(grads_1, grads_2))
+        del grads_1, grads_2
+        log(f"  not bit for bit: (loss, largest gradient) gaps to dots "
+            f"{diffs}; two none runs differ by {noise}")
+        for remat, got in diffs.items():
+            if got[0] > noise[0] or got[1] > noise[1]:
+                raise AssertionError(f"remat {remat}: {got} against two "
+                                     f"none runs' {noise}")
+    log(f"  peaks above the state (GiB): none {peaks['none']:.3f}, block "
+        f"{peaks['block']:.3f}, dots {peaks['dots']:.3f}")
+    if not peaks["dots"] < peaks["none"]:
+        raise AssertionError(f"remat dots peaks at {peaks['dots']} GiB, "
+                             f"not below none's {peaks['none']}")
+    grads_first = grads_d
+    del grads_d
+
+    step = make_train_step(cfg, tc("dots"))
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    ops.reset_launch_counts()
+    for i in range(BF16_STEPS):
+        before = ops.launch_counts()
+        batch = first if i == 0 else {"tokens": stream.next_batch()}
+        t0 = time.perf_counter()
+        params, opt, metrics = step(params, opt, batch)
+        loss = float(metrics["loss"])
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+        now = ops.launch_counts()
+        expect_launches(f"bf16 train step {i + 1}", {
+            name: now[name] - before[name] for name in now},
+            per_step("dots"))
+        if not math.isfinite(loss):
+            raise AssertionError(f"bf16 train step {i + 1}: loss {loss}")
+        log(f"  step {i + 1}: loss {loss:.6f}, grad norm "
+            f"{float(metrics['grad_norm']):.6f}, lr "
+            f"{float(metrics['lr']):.6g}, {times[-1]:.4f} s")
+    counts = ops.launch_counts()
+    if loss_d != losses[0]:
+        raise AssertionError(f"step 1's loss {losses[0]} is not the dots "
+                             f"gradients' {loss_d}")
+    if not all(p.dtype == bf16 for p in tree_leaves(params)):
+        raise AssertionError("a parameter left bf16")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med = float(np.median(times[1:]))
+    log(f"  {BF16_STEPS} steps: launches "
+        f"{ {k: v for k, v in counts.items() if v} } ({per_step('dots')} a "
+        f"step); median step (steps 2 to {BF16_STEPS}) {med:.4f} s, "
+        f"{tokens / med:.1f} tokens/s; peak device memory {peak:.3f} GiB")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt, metrics = step(params, opt,
+                                    {"tokens": stream.next_batch()})
+        loss = float(metrics["loss"])
+        wall = time.perf_counter() - t0
+    busy, n_events, by_name = device_time(torch, prof)
+    if not math.isfinite(loss):
+        raise AssertionError(f"bf16 traced step: loss {loss}")
+    log(f"  a fifth step, traced: loss {loss:.6f}, wall {wall:.4f} s, device "
+        f"busy {busy:.4f} s over {n_events} device events, idle share "
+        f"{1 - busy / wall:.4f}")
+    log_top(by_name, 8)
+    del params, opt, metrics, prof, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Row 8 at the microbatch's shape (its backward is 16a's
+    # olmo-1b-bf16-train shape).
+    _, b, sq, h, hk, d, dv, *_ = BWD_SHAPES[-1]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(bf16)
+               for shape in ((b, sq, h, d), (b, sq, hk, d), (b, sq, hk, dv)))
+    fwd = attention_numbers(torch, q, k, v, causal=True,
+                            label="at olmo-1b's bf16 training shape")
+    fwd["max_abs_err"] = check_attention(
+        torch, ops, ref, q, k, v, True, "at olmo-1b's bf16 training shape",
+        ATTN_TOL)
+    del q, k, v
+    log(f"[{time.perf_counter() - t_start:.1f} s] bf16 training done")
+    return counts, fwd, grads_first
+
+
+def distributed_phase(torch, t_start, grads: list) -> dict:
+    """16e: a one-rank NCCL group on the card (from a `FileStore` under
+    `build/`, no TCP port): `compressed_psum` over 16d's gradients,
+    `make_ddp_step` on olmo-1b at full width and `DDP_LAYERS` layers in
+    bf16, and `pipeline_apply` on one stage with one full-width block.
+    Returns the launch counts of its model calls."""
+    import dataclasses
+    import shutil
+    from pathlib import Path
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params, param_specs, transformer
+    from repro_torch.models.model import loss_fn
+    from repro_torch.models.params import tree_map
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.training.grad_compress import (compressed_psum,
+                                                    int8_compress,
+                                                    int8_decompress,
+                                                    make_ddp_step,
+                                                    sync_grads)
+
+    mark("16e")
+    dev = torch.device("cuda", 0)
+    root = Path(ROOT) / "build" / "chip_smoke_nccl"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", store=dist.FileStore(str(root / "store"),
+                                                         1),
+                            rank=0, world_size=1, device_id=dev)
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"backend {dist.get_backend()}")
+        log(f"[{time.perf_counter() - t_start:.1f} s] a one-rank NCCL group "
+            f"(FileStore under build/) in {time.perf_counter() - t0:.2f} s")
+        # compressed_psum over the gradient tree of 16d's first batch
+        numel = sum(g.numel() for g in grads)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for g in grads:
+            value, res = compressed_psum(g)
+            q, scale, want_res = int8_compress(g)
+            if not torch.equal(value, int8_decompress(q, scale)) or \
+                    not torch.equal(res, want_res):
+                raise AssertionError(f"compressed_psum of a {tuple(g.shape)}"
+                                     " gradient on one rank")
+            del value, res, q, scale, want_res
+        torch.cuda.synchronize()
+        check_s = time.perf_counter() - t0
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for g in grads:
+            compressed_psum(g)
+        end.record()
+        end.synchronize()
+        wire = numel + 4 * len(grads)
+        log(f"  compressed_psum over olmo-1b's {len(grads)} gradient leaves "
+            f"({numel} elements): each equal to int8_decompress(q, scale) "
+            f"and its residual to int8_compress's, bit for bit; "
+            f"{start.elapsed_time(end):.3f} ms for the tree (CUDA events; "
+            f"the checks {check_s:.3f} s); the wire: {wire} bytes gathered "
+            f"a rank (1 a gradient element, 4 a leaf's scale) against "
+            f"{4 * numel} for f32")
+        del grads
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # make_ddp_step on olmo-1b at full width, 2 layers, bf16
+        cfg = dataclasses.replace(get_config(TRAIN_ARCH), dtype="bfloat16",
+                                  param_dtype="bfloat16",
+                                  num_layers=DDP_LAYERS)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        params0 = init_params(param_specs(cfg), gen, torch.bfloat16, dev)
+        toks = TokenStream(cfg.vocab_size, DDP_SEQ, DDP_BATCH,
+                           seed=SEED).next_batch()
+        batch = {"tokens": torch.from_numpy(toks).to(dev)}
+
+        def lm_loss(params, b):
+            return loss_fn(params, cfg, b, remat="dots")[0]
+
+        ops.reset_launch_counts()
+        leaves = tree_leaves(params0)
+        for p in leaves:
+            p.requires_grad_(True)
+        g = torch.autograd.grad(lm_loss(params0, batch), leaves)
+        zeros = [torch.zeros(p.shape, device=dev) for p in leaves]
+        g_c, _ = sync_grads(g, zeros, None, compress=True)
+        g_u, _ = sync_grads(g, zeros, None, compress=False)
+        worst = 0.0
+        for a, b_, raw in zip(g_c, g_u, g):
+            half = float(raw.float().abs().max().clamp(min=1e-12)) / 127 / 2
+            gap = float((a - b_.float()).abs().max())
+            slack = float(torch.finfo(torch.float32).eps) * float(
+                raw.float().abs().max())
+            if not gap <= half + slack:
+                raise AssertionError(f"compressed sync {gap} against half a "
+                                     f"quantisation step {half}")
+            worst = max(worst, gap / half)
+        log(f"  make_ddp_step's sync on {cfg.name} (full width, {DDP_LAYERS}"
+            f" layers, bf16, {DDP_BATCH} x {DDP_SEQ} tokens): the compressed "
+            f"gradient within {worst:.4f} of half a quantisation step of the "
+            f"uncompressed one")
+        del g, g_c, g_u, zeros
+        out = {}
+        for compress in (True, False):
+            params = tree_map(lambda p: p.detach().clone(), params0)
+            residuals = tree_map(lambda p: torch.zeros(
+                p.shape, dtype=torch.float32, device=dev), params)
+            step = make_ddp_step(lm_loss, None, lr=DDP_LR, compress=compress)
+            losses = []
+            t0 = time.perf_counter()
+            for _ in range(DDP_STEPS):
+                params, residuals, loss = step(params, residuals, batch)
+                losses.append(float(loss))
+            wall = time.perf_counter() - t0
+            if not np.isfinite(losses).all():
+                raise AssertionError(f"ddp compress={compress}: {losses}")
+            if any(p.dtype != torch.bfloat16 for p in tree_leaves(params)):
+                raise AssertionError("a ddp parameter left bf16")
+            out[compress] = losses
+            log(f"  make_ddp_step compress={compress}: {DDP_STEPS} SGD steps "
+                f"(lr {DDP_LR}) in {wall:.3f} s, losses "
+                f"{[round(x, 6) for x in losses]}")
+            del params, residuals, step
+        if out[True][0] != out[False][0]:
+            raise AssertionError("the two ddp runs' first losses differ")
+
+        # pipeline_apply on one stage: one full-width block
+        block = tree_map(lambda p: p[:1].detach(),
+                         params0["groups"]["pos00"])
+        bt, moe = cfg.block_type(0), False
+        pos = torch.arange(PIPE_SEQ, device=dev)[None, :]
+
+        def stage(p, x):
+            return transformer.block_forward(p, x, cfg, bt, moe,
+                                             positions=pos)[0]
+
+        gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+        xs = torch.randn((PIPE_MICRO, PIPE_BATCH, PIPE_SEQ, cfg.d_model),
+                         generator=gen, device=dev).to(torch.bfloat16)
+        with torch.no_grad():
+            got = pipeline_apply(stage, block, xs, None)
+            one = tree_map(lambda p: p[0], block)
+            want = torch.stack([stage(one, xs[i])
+                                for i in range(PIPE_MICRO)])
+        if not torch.equal(got, want):
+            raise AssertionError("pipeline_apply on one stage: "
+                                 f"{float((got - want).abs().max())}")
+        log(f"  pipeline_apply on one stage ({PIPE_MICRO} microbatches of "
+            f"{PIPE_BATCH} x {PIPE_SEQ}, one full-width block): equal to the "
+            f"direct calls bit for bit")
+        counts = ops.launch_counts()
+        calls = 1 + 2 * DDP_STEPS
+        # each loss and gradient under "dots": two forward launches and one
+        # backward launch a layer; the pipeline's and the direct calls'
+        # block: one forward launch a microbatch each
+        expect_launches("16e", counts, {
+            "flash_attention": 2 * calls * DDP_LAYERS + 2 * PIPE_MICRO,
+            "flash_attention_bwd": calls * DDP_LAYERS})
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[{time.perf_counter() - t_start:.1f} s] distributed done")
+    return counts
+
 
 
 def main() -> int:

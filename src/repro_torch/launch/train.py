@@ -1,7 +1,8 @@
 """Training launcher of the port, on one card.
 
     python -m repro_torch.launch.train --arch olmo-1b --steps 100 \
-        [--smoke] [--workdir DIR] [--microbatches N] [--device cuda]
+        [--smoke] [--workdir DIR] [--microbatches N] \
+        [--remat none|block|dots] [--device cuda]
 
 The counterpart of the JAX package's `launch/train.py`.  One device, so
 the model trains in f32, as that launcher does on one device.  `--smoke`
@@ -21,6 +22,7 @@ import time
 
 from repro_torch.configs import ARCH_IDS, get_config, reduce_for_smoke
 from repro_torch.configs.base import TrainConfig
+from repro_torch.models.model import REMAT
 from repro_torch.training.trainer import Trainer
 
 __all__ = ["build_parser", "main"]
@@ -34,7 +36,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--microbatches", type=int, default=1)
-    ap.add_argument("--remat", default="none", choices=("none", "block"))
+    ap.add_argument("--remat", default="none", choices=REMAT)
     ap.add_argument("--workdir", default="build/repro_train")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--smoke", action="store_true",

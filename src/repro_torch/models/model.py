@@ -14,7 +14,14 @@ layer groups is a Python loop over the stacked leaves' first axis.  The
 MoE aux loss is summed as in the JAX package.  Remat: ``"none"`` keeps
 every activation, ``"block"`` checkpoints each layer group
 (`torch.utils.checkpoint`: the JAX package's `jax.checkpoint` saving
-nothing), and the loss's chunks are checkpointed as there.  The JAX
+nothing), ``"dots"`` checkpoints each group selectively, saving the
+outputs of `aten.mm` and `aten.addmm` and recomputing the rest (the JAX
+package's `checkpoint_dots_with_no_batch_dims`: the weight projections
+go through `layers.matmul`, which folds (B, S, D) x (D, F) into `mm`;
+attention's products have batch axes, lower to `bmm` and are recomputed,
+and so is the flash kernel's autograd Function, which is no aten op and
+launches its forward again in the backward), and the loss's chunks are
+checkpointed as there.  The JAX
 package's `_grad_safe_barrier` keeps XLA from hoisting a sharded
 all-gather out of its scan; one card gathers nothing, so it has no
 counterpart here (an identity).
@@ -35,7 +42,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import transformer
@@ -199,7 +207,13 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *,
     return _forward(params, cfg, batch, return_cache=return_cache)
 
 
-REMAT = ("none", "block")
+REMAT = ("none", "block", "dots")
+# what remat "dots" saves: the products with no batch axis
+DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_contexts():
+    return create_selective_checkpoint_contexts(list(DOTS_SAVED))
 
 
 def _forward(params: dict, cfg: ModelConfig, batch: dict, *,
@@ -208,10 +222,9 @@ def _forward(params: dict, cfg: ModelConfig, batch: dict, *,
     """`forward`'s body, under whatever grad mode the caller set.  With
     `return_hidden`, returns (final hidden (B, S, d_model), aux_loss) and
     skips the unembedding; `remat` "block" checkpoints each layer group
-    (only where autograd records)."""
+    and "dots" each group's products (only where autograd records)."""
     if remat not in REMAT:
-        raise ValueError(f"remat {remat!r}: the port has {REMAT} "
-                         "(\"dots\" is not ported yet)")
+        raise ValueError(f"remat {remat!r}: one of {REMAT}")
     layout = transformer.layer_layout(cfg)
     x = _embed_inputs(params, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
@@ -238,11 +251,13 @@ def _forward(params: dict, cfg: ModelConfig, batch: dict, *,
                 per_layer[f"pos{p:02d}"].append(c)
         return x, aux_g
 
-    block = remat == "block" and torch.is_grad_enabled() and \
+    remat_on = remat != "none" and torch.is_grad_enabled() and \
         not return_cache
+    extra = {"context_fn": _dots_contexts} if remat == "dots" else {}
     for g in range(layout.num_groups):
-        if block:
-            x, aux_g = checkpoint(group_body, x, g, use_reentrant=False)
+        if remat_on:
+            x, aux_g = checkpoint(group_body, x, g, use_reentrant=False,
+                                  **extra)
         else:
             x, aux_g = group_body(x, g)
         aux_groups.append(aux_g)

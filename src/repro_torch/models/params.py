@@ -26,6 +26,7 @@ __all__ = [
     "spec_bytes",
     "spec_leaves",
     "tree_map",
+    "tree_unflatten",
 ]
 
 
@@ -73,6 +74,18 @@ def tree_map(fn, tree):
     """`fn` over the leaves of a nested dict, keys kept."""
     return {key: tree_map(fn, node) if isinstance(node, dict) else fn(node)
             for key, node in tree.items()}
+
+
+def tree_unflatten(tree: dict, leaves: list) -> dict:
+    """A nested dict of `tree`'s keys holding `leaves` in `spec_leaves`
+    order (sorted keys)."""
+    it = iter(leaves)
+
+    def rebuild(node: dict) -> dict:
+        return {key: rebuild(node[key]) if isinstance(node[key], dict)
+                else next(it) for key in sorted(node)}
+
+    return rebuild(tree)
 
 
 def init_params(specs, generator: torch.Generator, dtype: torch.dtype,

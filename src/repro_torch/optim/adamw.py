@@ -8,7 +8,9 @@ the port updates the parameters and both moments in place, since a model
 and its optimizer state on one card are most of its memory (olmo-1b in
 f32: 18.8 GB for the parameters, the gradients and two moments).  The
 moments keep the dtype they were made in (f32 by default, bf16 as the
-low-memory option), and every update is computed in f32.  The step count
+low-memory option), and every update is computed in f32 and rounded
+once into the parameter's and the moments' types, as there (bf16
+parameters train in place the same way).  The step count
 and the schedule are host values, so a step needs no device-to-host
 copy.  There is no sharding: one card holds the whole state.
 """
@@ -75,14 +77,26 @@ def global_norm(tree) -> torch.Tensor:
 
 
 def clip_by_global_norm(grads, max_norm: float):
-    """Scale every gradient by min(1, max_norm / max(norm, 1e-9)) in place;
-    returns (grads, norm), norm a 0-dim f32 tensor on the card (no copy to
-    the host)."""
+    """Scale every gradient by min(1, max_norm / max(norm, 1e-9)); returns
+    (grads, norm), norm a 0-dim f32 tensor on the card (no copy to the
+    host).  An f32 gradient is scaled in place.  A gradient of another
+    type (bf16) becomes a new f32 leaf, its f32 value times the f32
+    scale, as `jnp`'s promotion gives it in the JAX package: the scale is
+    never rounded to bf16 and neither is the product."""
     norm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    for g in tree_leaves(grads):
-        g.mul_(scale.to(g.dtype))
-    return grads, norm
+
+    def clip(node: dict) -> dict:
+        for key, g in node.items():
+            if isinstance(g, dict):
+                clip(g)
+            elif g.dtype == _F32:
+                g.mul_(scale)
+            else:
+                node[key] = g.to(_F32).mul_(scale)
+        return node
+
+    return clip(grads), norm
 
 
 def apply_updates(params, grads, state: dict, cfg: AdamWConfig):

@@ -5,10 +5,17 @@ accumulation is a Python loop over microbatches (the leading batch dim
 split into (microbatches, micro_bs, ...)) that adds each microbatch's
 gradients into f32 accumulators, as the JAX package's `lax.scan` does, so
 activation memory is bounded by one microbatch.  The remat policy selects
-what the backward recomputes (`models.model.loss_fn`).  On the card the
+what the backward recomputes (`models.model.loss_fn`: "none", "block"
+or "dots").  Parameters may be f32 or bf16 (`cfg.param_dtype`): the
+accumulator stays f32 either way, and a bf16 gradient of one microbatch
+is clipped into f32 (`optim.adamw.clip_by_global_norm`).  On the card the
 attention's backward is the hand-written kernel of
-`csrc/flash_attention_bwd.cu` (`kernels.ops.attention_bshd`).  There is
-no sharding, so the JAX package's `grad_shardings` has no counterpart.
+`csrc/flash_attention_bwd.cu` (`kernels.ops.attention_bshd`).  The JAX
+package's `grad_shardings` pins the accumulator to a layout; the port
+gives such a layout as DTensor placements
+(`distributed.sharding.sharding_for`), and on one card every placement is
+`Replicate`, so a step there has nothing to pin and takes no such
+argument.
 """
 
 from __future__ import annotations
@@ -17,11 +24,12 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.models.model import loss_fn
-from repro_torch.models.params import TensorSpec, tree_map
+from repro_torch.models.params import TensorSpec, tree_map, tree_unflatten
 from repro_torch.optim.adamw import (AdamWConfig, apply_updates,
                                      clip_by_global_norm, tree_leaves)
 
-__all__ = ["make_train_step", "make_adamw_config", "train_state_specs"]
+__all__ = ["make_train_step", "make_grads_fn", "make_adamw_config",
+           "train_state_specs"]
 
 
 def make_adamw_config(tc: TrainConfig) -> AdamWConfig:
@@ -41,13 +49,11 @@ def _split_micro(batch: dict, n: int) -> list:
              for key, x in batch.items()} for i in range(n)]
 
 
-def make_train_step(cfg: ModelConfig, tc: TrainConfig):
-    """Returns step(params, opt_state, batch) -> (params, opt_state,
-    metrics).  The parameters and the optimizer state are updated in
-    place (and returned); `metrics` holds the step's 0-dim tensors "loss",
-    "grad_norm" and "lr" (and "ce", "z_loss", "aux" with one microbatch).
-    The batch may hold NumPy arrays: they go to the parameters' device."""
-    adamw = make_adamw_config(tc)
+def make_grads_fn(cfg: ModelConfig, tc: TrainConfig):
+    """Returns grads(params, batch) -> (loss, metrics, grads): a step's
+    loss and its gradients before clipping, `grads` a list in
+    `tree_leaves` order (f32 accumulators with microbatches, each
+    parameter's type without).  The parameters are left as they are."""
 
     def grads_one_micro(params, leaves, micro):
         loss, metrics = loss_fn(params, cfg, micro, z_loss=tc.z_loss,
@@ -58,30 +64,43 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig):
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
             grads
 
-    def step(params, opt_state, batch):
+    def grads_fn(params, batch):
         leaves = tree_leaves(params)
         for p in leaves:
             p.requires_grad_(True)
         batch = {key: torch.as_tensor(x, device=leaves[0].device)
                  for key, x in batch.items()}
-        if tc.microbatches > 1:
-            acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                   for p in leaves]
-            loss_sum = torch.zeros((), dtype=torch.float32,
-                                   device=leaves[0].device)
-            for micro in _split_micro(batch, tc.microbatches):
-                loss, _, grads = grads_one_micro(params, leaves, micro)
-                for a, g in zip(acc, grads):
-                    a.add_(g)
-                loss_sum = loss_sum + loss
-                del grads
-            inv = 1.0 / tc.microbatches
-            loss = loss_sum * inv
-            grads = [a.mul_(inv) for a in acc]
-            metrics = {}
-        else:
-            loss, metrics, grads = grads_one_micro(params, leaves, batch)
-        grad_tree = _unflatten(params, grads)
+        if tc.microbatches == 1:
+            return grads_one_micro(params, leaves, batch)
+        acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+               for p in leaves]
+        loss_sum = torch.zeros((), dtype=torch.float32,
+                               device=leaves[0].device)
+        for micro in _split_micro(batch, tc.microbatches):
+            loss, _, grads = grads_one_micro(params, leaves, micro)
+            for a, g in zip(acc, grads):
+                a.add_(g)
+            loss_sum = loss_sum + loss
+            del grads
+        inv = 1.0 / tc.microbatches
+        return loss_sum * inv, {}, [a.mul_(inv) for a in acc]
+
+    return grads_fn
+
+
+def make_train_step(cfg: ModelConfig, tc: TrainConfig):
+    """Returns step(params, opt_state, batch) -> (params, opt_state,
+    metrics).  The parameters and the optimizer state are updated in
+    place (and returned); `metrics` holds the step's 0-dim tensors "loss",
+    "grad_norm" and "lr" (and "ce", "z_loss", "aux" with one microbatch).
+    The batch may hold NumPy arrays: they go to the parameters' device."""
+    adamw = make_adamw_config(tc)
+    grads_fn = make_grads_fn(cfg, tc)
+
+    def step(params, opt_state, batch):
+        loss, metrics, grads = grads_fn(params, batch)
+        grad_tree = tree_unflatten(params, grads)
+        del grads
         with torch.no_grad():
             grad_tree, gnorm = clip_by_global_norm(grad_tree, tc.grad_clip)
             params, opt_state, lr = apply_updates(params, grad_tree,
@@ -91,17 +110,6 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig):
         return params, opt_state, out
 
     return step
-
-
-def _unflatten(tree: dict, leaves: list) -> dict:
-    """A tree of `tree`'s keys holding `leaves` in `tree_leaves` order."""
-    it = iter(leaves)
-
-    def rebuild(node: dict) -> dict:
-        return {key: rebuild(node[key]) if isinstance(node[key], dict)
-                else next(it) for key in sorted(node)}
-
-    return rebuild(tree)
 
 
 def train_state_specs(param_tree, dtype: torch.dtype = torch.float32):

@@ -10,7 +10,10 @@ The counterpart of the JAX package's `training/trainer.py`:
   * failure injection for tests (`fail_at_step` raises mid-run).
 The parameters are drawn from a `torch.Generator` seeded with
 ``tc.seed`` on the trainer's device (the JAX package draws from
-`jax.random`, so the two start from other weights).  The step's time
+`jax.random`, so the two start from other weights), in `param_dtype`:
+f32, or bf16 beside a config whose ``dtype`` and ``param_dtype`` say
+bf16 (bf16 training; the moments stay f32, and a checkpoint keeps each
+leaf's type).  The step's time
 ends in the host copy of its loss, which waits for the card.  It runs on
 ``device="cuda"`` unless asked for the CPU, and raises when CUDA is
 absent; there is no mesh, so no elastic re-sharding.

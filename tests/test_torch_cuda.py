@@ -54,8 +54,11 @@ hold the backward kernel of `flash_attention` (through
 version over f32 and bf16, GQA, MLA's D 192 / Dv 128, prefixes, a
 non-causal D 80 and a ragged S, a second launch bit-identical; the
 forward's `out` the same bits with its log-sum-exp asked for, and that
-log-sum-exp against the plain one; and one `make_train_step` step of
-reduced olmo-1b and yi-9b on the card against the same step on the CPU.
+log-sum-exp against the plain one; one `make_train_step` step of
+reduced olmo-1b and yi-9b on the card against the same step on the CPU;
+remat "dots" against "none" bit for bit on the card in f32 and bf16; and
+the compressed DDP step's collective over two NCCL ranks on two cards
+(it skips on one card, as the two-card sharded tests do).
 """
 
 import numpy as np
@@ -1704,3 +1707,77 @@ def test_training_reduced_step_on_the_card_matches_the_cpu(cuda, arch):
         floor = _noise_floor(norm, params)
         assert abs(lg - lc) <= 1e-5 * abs(lc), (lg, lc)
         assert abs(ng - nc) <= max(1e-3 * abs(nc), 4 * floor), (ng, nc)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_training_remat_dots_matches_none_on_the_card(cuda, dtype):
+    """Reduced olmo-1b on the card (f32, and bf16 parameters and
+    activations), two microbatches: remat "dots" gives the loss and every
+    gradient of remat "none" bit for bit (it saves the products and
+    recomputes the same ops in the same order; the kernels use no
+    atomics), with two forward launches a layer and microbatch (the flash
+    kernel's Function is no aten op, so its forward runs again in the
+    backward) against none's one, and one backward launch each."""
+    import dataclasses
+
+    from repro_torch.configs import TrainConfig
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models import params_from_numpy
+    from repro_torch.training.train_step import make_grads_fn
+
+    cfg, params = _reduced("olmo-1b")
+    name = str(dtype).split(".")[-1]
+    cfg = dataclasses.replace(cfg, dtype=name, param_dtype=name)
+    p = params_from_numpy(params, cuda, dtype)
+    toks = TokenStream(cfg.vocab_size, 1024, 4, seed=3).next_batch()
+    out = {}
+    for remat, fwd in (("none", 1), ("dots", 2)):
+        tc = TrainConfig(learning_rate=1e-3, microbatches=2, remat=remat)
+        before = ops.launch_counts()
+        loss, _, grads = make_grads_fn(cfg, tc)(p, {"tokens": toks})
+        torch.cuda.synchronize()
+        now = ops.launch_counts()
+        assert now["flash_attention"] - before["flash_attention"] == \
+            fwd * 2 * cfg.num_layers
+        assert now["flash_attention_bwd"] - before["flash_attention_bwd"] \
+            == 2 * cfg.num_layers
+        assert torch.isfinite(loss) and all(g.dtype == torch.float32
+                                            for g in grads)
+        out[remat] = (loss, grads)
+    assert torch.equal(out["none"][0], out["dots"][0])
+    for a, b in zip(out["none"][1], out["dots"][1]):
+        assert torch.equal(a, b)
+
+
+def test_training_ddp_on_two_cards(cuda, tmp_path):
+    """Two NCCL ranks on two cards (spawned; skips on one card):
+    `compressed_psum` equal to the ranks' summed q times the largest scale
+    over 2, bit for bit, and the uncompressed DDP step on two halves of a
+    batch against one rank with the whole batch within f32 rounding."""
+    import _torch_dist_workers as workers
+
+    from repro_torch.training.grad_compress import int8_compress
+
+    _two_cards()
+    got = workers.spawn_ranks("compressed_psum_body", 2,
+                              str(tmp_path / "psum"), backend="nccl", n=4099,
+                              seed=5)
+    qs, scales = [], []
+    for r in got:
+        q, s, _ = int8_compress(torch.from_numpy(r["x"]))
+        qs.append(q.numpy().astype(np.int32))
+        scales.append(np.float32(s))
+    want = (np.sum(qs, axis=0).astype(np.float32) * max(scales)) \
+        / np.float32(2)
+    for r in got:
+        np.testing.assert_array_equal(r["value"], want)
+    rng = np.random.default_rng(1)
+    w0 = rng.normal(size=(4, 1)).astype(np.float32)
+    x = rng.normal(size=(16, 4)).astype(np.float32)
+    y = x @ np.asarray([[1.0], [-2.0], [0.5], [3.0]], np.float32)
+    kw = dict(x=x, y=y, w0=w0, steps=10, compress=False, backend="nccl")
+    two = workers.spawn_ranks("ddp_body", 2, str(tmp_path / "two"), **kw)
+    one = workers.spawn_ranks("ddp_body", 1, str(tmp_path / "one"), **kw)[0]
+    for r in two:
+        np.testing.assert_allclose(r["losses"], one["losses"], rtol=1e-5)
+        np.testing.assert_allclose(r["w"], one["w"], rtol=1e-5, atol=1e-6)
