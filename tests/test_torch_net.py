@@ -17,6 +17,7 @@ Every test that starts a thread or a socket has its own time limit.
 
 import socket
 import struct
+import threading
 import time
 
 import numpy as np
@@ -52,6 +53,7 @@ from repro_torch.serving.net import (
     parse_tenants,
 )
 from repro_torch.serving.net import protocol as proto
+from repro_torch.serving.net import server as server_mod
 from repro_torch.serving.net.protocol import (
     ChunkFrame,
     ErrorFrame,
@@ -242,6 +244,15 @@ def test_parse_tenants_matches_jax_package():
 
 # -- across the packages, over loopback ---------------------------------------
 
+def _wait_results_sent(srv, n):
+    """Counters bump just after the frame hits the wire: poll briefly, as
+    `tests/test_net.py` does."""
+    t0 = time.monotonic()
+    while srv.stats()["net"]["results_sent"] < n:
+        assert time.monotonic() - t0 < 30, srv.stats()["net"]
+        time.sleep(0.01)
+
+
 def _direct_cpu_fit(pts, seed):
     plan = ClusterPlan(SPEC, CPU)
     return plan.fit_prepared(plan.prepare_data(pts), seed=seed)
@@ -256,6 +267,7 @@ def test_port_server_answers_the_jax_client():
             ids = [client.submit(ds, seed=s)
                    for ds, s in zip(datasets, seeds)]
             wire = [client.result(rid, timeout=60) for rid in ids]
+            _wait_results_sent(srv, 3)
             stats = client.stats(timeout=60)
     for ds, s, got in zip(datasets, seeds, wire):
         want = _direct_cpu_fit(ds, s)
@@ -263,6 +275,37 @@ def test_port_server_answers_the_jax_client():
         np.testing.assert_array_equal(got.centers, want.centers.numpy())
         assert got.cost == float(want.cost)
     assert stats["completed"] == 3 and stats["net"]["results_sent"] == 3
+
+
+@pytest.mark.timeout(LIMIT)
+def test_results_sent_counts_after_the_frame_is_written(monkeypatch):
+    """The server bumps ``results_sent`` after the RESULT frame is on the
+    wire, as the JAX server does: a STATS answered between the two reads
+    one short.  Holding the third delivery just after its frame is written
+    makes that window certain; `_wait_results_sent` closes it."""
+    real = server_mod._Connection.send_result
+    release = threading.Event()
+    sent = []
+
+    def held(self, request_id, result, extras):
+        real(self, request_id, result, extras)
+        sent.append(request_id)
+        if len(sent) == 3:
+            release.wait(timeout=30)
+
+    monkeypatch.setattr(server_mod._Connection, "send_result", held)
+    datasets = [_mixture(300 + 60 * i, seed=i) for i in range(3)]
+    with ClusterServer(SPEC, CPU, max_batch=4, max_wait_ms=5.0) as srv:
+        with jnet.ClusterClient(*srv.address) as client:
+            ids = [client.submit(ds) for ds in datasets]
+            for rid in ids:
+                client.result(rid, timeout=60)
+            early = client.stats(timeout=60)
+            release.set()
+            _wait_results_sent(srv, 3)
+            late = client.stats(timeout=60)
+    assert early["completed"] == 3 and early["net"]["results_sent"] < 3
+    assert late["completed"] == 3 and late["net"]["results_sent"] == 3
 
 
 @pytest.mark.timeout(LIMIT)
