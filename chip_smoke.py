@@ -11,7 +11,9 @@ decode over KV codebooks built by fastkmeans++, MLA and MoE; in phases
 the audio inputs; in phase 16 training: the backward kernel of row 8 and
 olmo-1b trained at full width and depth, then the `Trainer`'s kill and
 resume, olmo-1b trained in bf16 under remat "dots", and the compressed
-data-parallel step and the pipeline schedule on a one-rank NCCL group).  Two go through the plan, each at the shape
+data-parallel step and the pipeline schedule on a one-rank NCCL group;
+in phase 17 the port's copies of the four examples and the dry run's
+count of a training step).  Two go through the plan, each at the shape
 of the paper's smallest real dataset (KDD Cup, 311,029 x 74, generated
 here from a seed as `benchmarks/datasets.py` does) with k = 1000: the
 paper's Algorithm 4,
@@ -308,7 +310,23 @@ against its plain PyTorch version on the card.  In order:
      and 4 without compression (finite losses); `pipeline_apply` on one
      stage with one full-width block as its body, 2 microbatches of 2 x
      2,048, equal to the direct calls bit for bit;
- 17. the phases' wall seconds (``{"phase_seconds": {...}}``), one JSON
+ 17. the port's copies of the four examples (`examples_torch/`), in this
+     process, on the card: quickstart `--smoke --backend device` and
+     `--smoke --backend sharded` (the device plans: rows 1 to 3 and 5; the
+     seeder table's NumPy rows, the plan, the engine and the stacked
+     lanes), resilient_serving `--smoke` on the device backend (its six
+     stages; rejection's dead primary served by k-means|| on the device,
+     bit for bit), serve_cluster_kv `--seq 16384
+     --engine` (the codebook rebuilds through `ClusterEngine`, rows 1 and
+     2; recall and output error against exact attention) and train_lm's
+     tiny preset (f32, head width 64: rows 8 and 8′) for a few steps, then
+     again in the same workdir, which resumes; each gated as
+     `tests/test_torch_examples.py` gates it where the card can be
+     compared; then the dry run's count of 16d's step on `meta`
+     (`repro_torch.launch.dryrun.count_operations`, remat "dots", two
+     microbatches: its attention launches 16d's), divided by 16d's median
+     step seconds, beside the card's name and power limit;
+ 18. the phases' wall seconds (``{"phase_seconds": {...}}``), one JSON
      line per the kernels (the eight rows and the backward of row 8), the
      card's line again, and last ``{"ok": true, "device": {...}}``.  A row's `launches` is its main
      path's count, each path's counts set to 0 just before it and read
@@ -319,8 +337,8 @@ against its plain PyTorch version on the card.  In order:
      (8g: its rejection fit for rows 1 to 3, its k-means|| fit for row 5),
      ``generate`` (12), ``cluster_kv`` (14b's build), ``mla`` (14c's
      prefill), ``moe`` (14d's generate), ``rwkv6`` and ``jamba`` (15a's
-     and 15b's forward), ``paligemma`` (15c's prefill) and ``hubert``
-     (15d's forward).  Row 8 also carries its numbers at MLA's shape
+     and 15b's forward), ``paligemma`` (15c's prefill), ``hubert``
+     (15d's forward) and ``examples`` (17, the four copies).  Row 8 also carries its numbers at MLA's shape
      (``at_mla_shape``), qwen2-moe's (``at_moe_shape``), paligemma's
      with its prefix (``at_prefix_shape``) and hubert's
      (``at_hubert_shape``), olmo-1b's training shape in f32
@@ -461,6 +479,15 @@ BF16_BATCH, BF16_SEQ, BF16_MICRO, BF16_STEPS = 4, 4096, 2, 4
 # microbatches of 2 x 2,048
 DDP_LAYERS, DDP_BATCH, DDP_SEQ, DDP_STEPS, DDP_LR = 2, 4, 2048, 4, 1e-2
 PIPE_MICRO, PIPE_BATCH, PIPE_SEQ = 2, 2, 2048
+# 17: the examples' copies; train_lm's tiny preset runs TLM_FIRST steps,
+# then resumes to TLM_STEPS (4 layers: one forward and one backward launch
+# a layer and step, remat "none")
+TLM_FIRST, TLM_STEPS, TLM_LAYERS = 4, 6, 4
+# serve_cluster_kv at --seq 16384 (4 heads, 256 clusters, top 24): the cpu
+# backend's run of the same script on the CPU recovers 1.000 of the
+# attention mass, with relative output errors of median 0.047 and largest
+# 0.559 over its 16 queries
+KV_MIN_COVERAGE, KV_MAX_MEDIAN_ERROR = 0.95, 0.1
 # (label, B, S, H, Hk, D, Dv, dtype, causal, prefix)
 BWD_SHAPES = (
     ("olmo-1b", 8, 256, 16, 16, 128, 128, "float32", True, 0),
@@ -2921,7 +2948,8 @@ def serving_path(torch, t_start: float) -> dict:
     mark("15d")
     paths["hubert"], row["at_hubert_shape"] = hubert_phase(torch, t_start)
     bwd_row, train_paths, row["at_olmo_1b_shape"], \
-        row["at_olmo_1b_bf16_train_shape"] = training_phase(torch, t_start)
+        row["at_olmo_1b_bf16_train_shape"], bf16_step_s = training_phase(
+            torch, t_start)
     paths.update(train_paths)
     row["max_abs_err"] = max(
         [row["max_abs_err"]] + [row[key]["max_abs_err"] for key in (
@@ -2931,7 +2959,7 @@ def serving_path(torch, t_start: float) -> dict:
     log("clocks/power after the serving path: " + smi(
         "clocks.sm,power.draw,power.limit,temperature.gpu"))
     bwd_row["launches"] = paths["train"]["flash_attention_bwd"]
-    return [row, bwd_row], paths
+    return [row, bwd_row], paths, bf16_step_s
 
 
 def reduced_on_card(torch, arch: str, b: int, gate_shape=None) -> None:
@@ -3493,7 +3521,7 @@ def attention_numbers(torch, q, k, v, *, causal: bool, label: str,
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention_cuda as fa_cuda
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops, ref
 
     b, s, h, d = q.shape
     dv = v.shape[3]
@@ -3520,8 +3548,7 @@ def attention_numbers(torch, q, k, v, *, causal: bool, label: str,
     except RuntimeError as exc:     # the yardstick only, never in the port
         log(f"  scaled_dot_product_attention refused {label}: {exc}")
         lib_ms = None
-    pairs = s * s if not causal else \
-        s * (s + 1) // 2 + prefix_len * (prefix_len - 1) // 2
+    pairs = ops.attention_pairs(s, causal, prefix_len)
     ops_count = 2 * pairs * (d + dv) * b * h
     nbytes = q.element_size() * (q.numel() + k.numel() + v.numel()) + \
         4 * b * s * h * dv
@@ -3864,7 +3891,7 @@ def backward_numbers(torch, label, b, s, h, hk, d, dv, dtype, causal,
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention_cuda as fa_cuda
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops, ref
 
     dev = torch.device("cuda")
     dt = getattr(torch, dtype)
@@ -3925,8 +3952,7 @@ def backward_numbers(torch, label, b, s, h, hk, d, dv, dtype, causal,
         log(f"  scaled_dot_product_attention's backward refused {label}: "
             f"{exc}")
         lib_ms = None
-    pairs = s * s if not causal else \
-        s * (s + 1) // 2 + prefix * (prefix - 1) // 2
+    pairs = ops.attention_pairs(s, causal, prefix)
     ops_count = 2 * (3 * d + 2 * dv) * pairs * b * h
     es = q.element_size()
     nbytes = 2 * es * (q.numel() + k.numel() + v.numel()) + \
@@ -4152,10 +4178,12 @@ def training_phase(torch, t_start) -> tuple:
         f"{ckpt.last_copy_seconds:.3f} s, its write "
         f"{ckpt.last_write_seconds:.3f} s (np.savez under build/)")
     log(f"[{time.perf_counter() - t_start:.1f} s] training done")
-    bf16_counts, fwd_bf16, grads = bf16_training_phase(torch, t_start)
+    bf16_counts, fwd_bf16, grads, bf16_step_s = bf16_training_phase(
+        torch, t_start)
     ddp_counts = distributed_phase(torch, t_start, grads)
     return row, {"train": train_counts, "trainer": trainer_counts,
-                 "train_bf16": bf16_counts, "ddp": ddp_counts}, fwd, fwd_bf16
+                 "train_bf16": bf16_counts, "ddp": ddp_counts}, fwd, \
+        fwd_bf16, bf16_step_s
 
 
 def bf16_training_phase(torch, t_start) -> tuple:
@@ -4164,7 +4192,8 @@ def bf16_training_phase(torch, t_start) -> tuple:
     `make_train_step`; the same parameters and batch under "none" and
     "block" against it; row 8 at the microbatch's shape.  Returns (the
     timed steps' launch counts, row 8's numbers at that shape, the "dots"
-    gradients of the first batch: f32, for 16e)."""
+    gradients of the first batch: f32, for 16e, the median step
+    seconds)."""
     import dataclasses
 
     from torch.profiler import ProfilerActivity, profile
@@ -4340,7 +4369,7 @@ def bf16_training_phase(torch, t_start) -> tuple:
         ATTN_TOL)
     del q, k, v
     log(f"[{time.perf_counter() - t_start:.1f} s] bf16 training done")
-    return counts, fwd, grads_first
+    return counts, fwd, grads_first, med
 
 
 def distributed_phase(torch, t_start, grads: list) -> dict:
@@ -4516,6 +4545,138 @@ def distributed_phase(torch, t_start, grads: list) -> dict:
 
 
 
+def example(name: str):
+    """The port's copy of an example, `examples_torch/<name>.py`, loaded by
+    path."""
+    import importlib.util
+
+    path = os.path.join(ROOT, "examples_torch", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"example_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples_phase(torch, t_start, card: str, bf16_step_s: float) -> dict:
+    """17: the four examples' copies on the card, each gated, then the dry
+    run's count of 16d's step.  Returns the four copies' launch counts."""
+    import dataclasses
+    import shutil
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.dryrun import count_operations
+
+    mark("17")
+    log(f"[{time.perf_counter() - t_start:.1f} s] the examples' copies on "
+        "the card")
+    total: collections.Counter = collections.Counter()
+
+    def run(label, name, argv, want):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = example(name).main(argv)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        total.update(counts)
+        missing = [k for k in want if not counts[k]]
+        if missing:
+            raise AssertionError(f"{label}: no launch of {missing}: {counts}")
+        log(f"  {label}: {time.perf_counter() - t0:.2f} s, launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        return out
+
+    def positive(label, costs):
+        bad = [c for c in costs if not (math.isfinite(c) and c > 0)]
+        if bad:
+            raise AssertionError(f"{label}: costs {bad}")
+
+    sweeps = ("tree_sep_update", "tree_sep_update_tiles")
+    for backend in ("device", "sharded"):
+        label = f"quickstart --smoke --backend {backend}"
+        out = run(label, "quickstart", ["--smoke", "--backend", backend],
+                  sweeps + ("lsh_bucket_accept", "pairwise_argmin"))
+        table = out["seeders"]
+        positive(label, [r["cost"] for r in table.values()] +
+                 [r["cost"] for r in out["device"].values()] +
+                 out["device"]["rejection"]["batch_costs"] +
+                 out["engine"]["costs"] + out["engine"]["stacked_costs"] +
+                 [out["plan"]["cost"], out["plan"]["refit_cost"]])
+        if table["kmeans++"]["ratio"] != 1.0 or \
+                out["plan"]["lloyd_iterations"] != 5 or \
+                len(out["device"]["rejection"]["batch_costs"]) != 4:
+            raise AssertionError(f"{label}: {out}")
+
+    # rejection on the device backend: on the card its dead primary falls
+    # straight to k-means|| on the device (the chain's cpu rungs skipped)
+    out = run("resilient_serving --smoke", "resilient_serving", ["--smoke"],
+              sweeps + ("lsh_bucket_accept", "pairwise_argmin"))
+    ledger = out["ledger"]
+    if out["quarantine"] != {"quarantined": 1, "submitted": 0} or \
+            out["degradation"]["served_by"] != "kmeans||/device" or \
+            out["deadlines"]["deadline_expired"] != 1 or \
+            out["retries"]["attempts"] != 2 or \
+            not out["degradation"]["identical"] or \
+            ledger["completed"] + ledger["failed"] + ledger["cancelled"] != \
+            ledger["submitted"]:
+        raise AssertionError(f"resilient_serving: {out}")
+
+    out = run("serve_cluster_kv --seq 16384 --engine", "serve_cluster_kv",
+              ["--seq", "16384", "--engine"], sweeps)
+    if out["coverage"] < KV_MIN_COVERAGE or \
+            out["median_error"] > KV_MAX_MEDIAN_ERROR:
+        raise AssertionError(f"serve_cluster_kv: recall {out['coverage']}, "
+                             f"median error {out['median_error']}")
+    del out
+
+    workdir = os.path.join(ROOT, "build", "chip_smoke_train_lm")
+    shutil.rmtree(workdir, ignore_errors=True)
+    before = dict(total)
+    first = run(f"train_lm tiny, {TLM_FIRST} steps", "train_lm",
+                ["--steps", str(TLM_FIRST), "--workdir", workdir],
+                ("flash_attention", "flash_attention_bwd"))
+    again = run(f"train_lm tiny, resumed to {TLM_STEPS}", "train_lm",
+                ["--steps", str(TLM_STEPS), "--workdir", workdir],
+                ("flash_attention", "flash_attention_bwd"))
+    shutil.rmtree(workdir, ignore_errors=True)
+    losses = first["losses"] + again["losses"]
+    if first["ran"] != TLM_FIRST or again["resumed_from"] != TLM_FIRST or \
+            again["ran"] != TLM_STEPS - TLM_FIRST or \
+            not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train_lm: {first} then {again}")
+    expect_launches("train_lm", {k: total[k] - before.get(k, 0)
+                                 for k in total},
+                    {"flash_attention": TLM_LAYERS * TLM_STEPS,
+                     "flash_attention_bwd": TLM_LAYERS * TLM_STEPS})
+    log(f"  train_lm losses {[round(x, 4) for x in losses]}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the dry run's count of 16d's step (remat "dots", two microbatches)
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), dtype="bfloat16",
+                              param_dtype="bfloat16")
+    t0 = time.perf_counter()
+    counted = count_operations(
+        cfg, ShapeConfig("16d", BF16_SEQ, BF16_BATCH, "train"), BF16_MICRO,
+        remat="dots")
+    att = counted["attention"]
+    launches = {k: att[k]["launches"] for k in att}
+    if launches != {"flash_attention": 2 * cfg.num_layers * BF16_MICRO,
+                    "flash_attention_bwd": cfg.num_layers * BF16_MICRO}:
+        raise AssertionError(f"dry run of 16d's step: launches {launches}")
+    rate = counted["total"] / bf16_step_s
+    log(f"  dry run of 16d's step on meta in "
+        f"{time.perf_counter() - t0:.2f} s: {counted['total']:.6e} "
+        f"operations ({counted['aten']:.6e} in the products FlopCounterMode "
+        f"counts, {att['flash_attention']['operations']:.6e} and "
+        f"{att['flash_attention_bwd']['operations']:.6e} in rows 8 and "
+        f"8′), launches {launches}; over 16d's median step of "
+        f"{bf16_step_s:.4f} s: {rate:.6e} operations a second, "
+        f"{rate / BF16_OPS_PER_S:.4f} of the bf16 peak; card {card}")
+    log(f"[{time.perf_counter() - t_start:.1f} s] examples done")
+    return dict(total)
+
+
 def main() -> int:
     import torch
 
@@ -4552,8 +4713,9 @@ def main() -> int:
     log(f"[{time.perf_counter() - t_start:.1f} s] device memory after the "
         f"seeding paths: {torch.cuda.memory_allocated() / 2**20:.1f} MiB "
         f"allocated, {torch.cuda.memory_reserved() / 2**20:.1f} MiB reserved")
-    lm_rows, paths = serving_path(torch, t_start)
+    lm_rows, paths, bf16_step_s = serving_path(torch, t_start)
     rows.extend(lm_rows)
+    paths["examples"] = examples_phase(torch, t_start, card, bf16_step_s)
     for r in rows:
         r.setdefault("launches_by_path", {}).update(
             {path: counts.get(r["name"], 0) for path, counts in paths.items()})

@@ -10,6 +10,7 @@ import importlib
 
 from repro_torch.configs.base import (
     SHAPES,
+    MeshConfig,
     ModelConfig,
     ShapeConfig,
     TrainConfig,
@@ -39,10 +40,30 @@ def get_config(arch: str) -> ModelConfig:
     return mod.CONFIG
 
 
+def cell_is_supported(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """Whether an (arch x shape) cell runs, and why not if skipped.
+
+    Skips follow the assignment: encoder-only archs have no decode step;
+    long_500k needs sub-quadratic attention (run for SSM/hybrid; skipped for
+    pure full-attention archs unless cluster-KV is enabled).
+    """
+    if shape.kind == "decode" and cfg.is_encoder:
+        return False, "encoder-only arch has no decode step"
+    if shape.name == "long_500k" and shape.kind == "decode":
+        if not cfg.sub_quadratic:
+            return False, (
+                "full-attention arch: 500k-token decode needs sub-quadratic "
+                "attention (enable cluster_kv for the beyond-paper variant)"
+            )
+    return True, ""
+
+
 __all__ = [
     "ARCH_IDS",
     "get_config",
+    "cell_is_supported",
     "SHAPES",
+    "MeshConfig",
     "ModelConfig",
     "ShapeConfig",
     "TrainConfig",

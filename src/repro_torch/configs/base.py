@@ -1,11 +1,11 @@
 """Config dataclasses: model architecture and input shapes.
 
 A copy of the JAX package's `configs/base.py` (`ModelConfig`,
-`ShapeConfig`, `SHAPES`, `TrainConfig`, `reduce_for_smoke`), so that the
-port imports nothing of that package.  Every architecture is a
-`ModelConfig` instance in its own module under `repro_torch.configs`; the
-registry in `__init__.py` resolves ``--arch`` ids.  The mesh config comes
-with the production meshes.
+`ShapeConfig`, `SHAPES`, `MeshConfig`, `TrainConfig`,
+`reduce_for_smoke`), so that the port imports nothing of that package.
+Every architecture is a `ModelConfig` instance in its own module under
+`repro_torch.configs`; the registry in `__init__.py` resolves ``--arch``
+ids.
 """
 
 from __future__ import annotations
@@ -187,6 +187,19 @@ SHAPES: dict[str, ShapeConfig] = {
     "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
     "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
 }
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    shape: tuple = (16, 16)
+    axes: tuple = ("data", "model")
+
+    @property
+    def num_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
 
 
 @dataclasses.dataclass(frozen=True)

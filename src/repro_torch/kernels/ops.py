@@ -37,9 +37,21 @@ row's log-sum-exp, and the backward is the hand-written backward kernel
 (``flash_attention_bwd``, one count a backward call; it raises if it
 cannot build or launch, and never gives way to the plain version).  On
 the CPU autograd differentiates the plain version, `ref.attention_bshd_ref`.
+
+`counting_on_meta()` is the dry run's context, and only the dry run
+enters it.  Inside it `attention_bshd` and `flash_attention` take `meta`
+tensors (and nothing else) and return `meta` outputs of the kernel's
+shape, through an autograd Function whose backward gives q, k and v their
+`meta` gradients; each call adds the kernel's operations and one launch to
+the context's count, not to `LAUNCHES`.  The operations are the
+kernel's own, as PERF.md's bounds count them: 2 (D + Dv) a visible
+(query, key) pair a head forward, 2 (3 D + 2 Dv) backward (the five
+products of row 8′).  Outside the context every wrapper refuses `meta`.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -65,6 +77,8 @@ __all__ = [
     "penalty_row",
     "launch_counts",
     "reset_launch_counts",
+    "counting_on_meta",
+    "attention_pairs",
     "LAUNCHES",
     "LSH_MISS",
 ]
@@ -87,6 +101,79 @@ def reset_launch_counts() -> None:
     """Set every kernel's launch count to 0."""
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+# the open `counting_on_meta` count, or None
+_META_COUNT = None
+
+
+@contextlib.contextmanager
+def counting_on_meta():
+    """The dry run's counting context: yields ``{name: {"launches": n,
+    "operations": x}}`` for ``flash_attention`` and
+    ``flash_attention_bwd``, filled by the attention wrappers' `meta`
+    calls made inside it.  It does not nest."""
+    global _META_COUNT
+    if _META_COUNT is not None:
+        raise RuntimeError("counting_on_meta does not nest")
+    _META_COUNT = {name: {"launches": 0, "operations": 0}
+                   for name in ("flash_attention", "flash_attention_bwd")}
+    try:
+        yield _META_COUNT
+    finally:
+        _META_COUNT = None
+
+
+def attention_pairs(s: int, causal: bool, prefix_len: int = 0) -> int:
+    """The (query, key) pairs a head that the flash kernel computes over a
+    sequence of `s`: all of them, or the causal triangle plus the prefix's
+    upper one."""
+    if not causal:
+        return s * s
+    return s * (s + 1) // 2 + prefix_len * (prefix_len - 1) // 2
+
+
+def _count_meta(name: str, q: torch.Tensor, dv: int, causal: bool,
+                prefix_len: int) -> None:
+    b, s, h, d = q.shape
+    per_pair = 2 * (d + dv) if name == "flash_attention" else \
+        2 * (3 * d + 2 * dv)
+    entry = _META_COUNT[name]
+    entry["launches"] += 1
+    entry["operations"] += per_pair * attention_pairs(s, causal,
+                                                      prefix_len) * b * h
+
+
+def _meta_attention(q, k, v, scale, causal, prefix_len):
+    for t in (q, k, v):
+        if t.device.type != "meta":
+            raise ValueError(f"counting_on_meta takes meta tensors only, "
+                             f"not {t.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _MetaFlashAttention.apply(q, k, v, scale, causal, prefix_len)
+    _count_meta("flash_attention", q, v.shape[-1], causal, prefix_len)
+    return q.new_empty(q.shape[:-1] + v.shape[-1:], dtype=torch.float32)
+
+
+class _MetaFlashAttention(torch.autograd.Function):
+    """`_FlashAttention`'s shapes and counts on `meta`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, prefix_len):
+        _count_meta("flash_attention", q, v.shape[-1], causal, prefix_len)
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (causal, prefix_len)
+        return q.new_empty(q.shape[:-1] + v.shape[-1:], dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        causal, prefix_len = ctx.args
+        _count_meta("flash_attention_bwd", q, v.shape[-1], causal,
+                    prefix_len)
+        return (torch.empty_like(q), torch.empty_like(k),
+                torch.empty_like(v), None, None, None)
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -327,6 +414,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Exact softmax attention on q, k (BH, S, D) and v (BH, S, Dv), f32
     out (BH, S, Dv): the TPU kernel's signature.  Any S (the kernel guards
     its ragged edge), Dv <= D <= 256."""
+    if _META_COUNT is not None:
+        return _meta_attention(q[:, :, None], k[:, :, None], v[:, :, None],
+                               scale, causal, 0)[:, :, 0]
     if not _on_card(q):
         return ref.flash_attention_ref(q, k, v, scale=scale, causal=causal)
     from repro_torch.kernels import flash_attention_cuda as binding
@@ -350,6 +440,8 @@ def attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     copied.  Where autograd records a gradient for any of them, the launch
     goes through `_FlashAttention`, whose backward is the backward kernel.
     """
+    if _META_COUNT is not None:
+        return _meta_attention(q, k, v, scale, causal, prefix_len)
     if not _on_card(q):
         return ref.attention_bshd_ref(q, k, v, scale=scale, causal=causal,
                                       prefix_len=prefix_len)

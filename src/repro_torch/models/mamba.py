@@ -1,13 +1,14 @@
 """Mamba-1 block (Jamba's SSM layer): the selective state-space scan.
 
-The counterpart of the JAX package's `models/mamba.py`, for inference.
+The counterpart of the JAX package's `models/mamba.py`.
 The scan is plain PyTorch on the device (no TPU kernel exists for it: the
 JAX package runs it as a `lax.scan`).  `mamba_forward` keeps the JAX
 package's chunks of `CHUNK` steps and its rule that the length is a
 multiple of ``min(CHUNK, L)``: within a chunk the per-step decays
 exp(dt a) and inputs dt x B are formed at once, (B, chunk, d_inner,
 d_state) f32, and the recurrence h_t = decay_t h_{t-1} + input_t is one
-fused multiply-add a step; the outputs y_t = h_t . C_t then come from all
+fused multiply-add a step (written into one buffer, or stacked where
+autograd records); the outputs y_t = h_t . C_t then come from all
 the chunk's states in one product.  The step math is f32 in both
 packages; the storage type of the per-step inputs follows
 `cfg.mamba_lowp_scan` (bf16 under it) as in the JAX package.
@@ -137,9 +138,21 @@ def mamba_forward(params: dict, x_in: torch.Tensor,
         decay = torch.exp(dtc[..., None] * a)                  # (c, B, d, N)
         inp = (dtc * xs[:, lo: lo + chunk].transpose(0, 1))[..., None] * \
             bs[:, lo: lo + chunk].transpose(0, 1)[:, :, None, :]
-        hs = torch.empty_like(decay)
-        for t in range(chunk):
-            h = torch.addcmul(inp[t], decay[t], h, out=hs[t])
+        if decay.device.type == "meta":
+            # shapes only (the dry run): the recurrence is elementwise, no
+            # product that an operation count reads, so one op of its
+            # output's shape stands in for the loop
+            hs = torch.addcmul(inp, decay, inp)
+        elif torch.is_grad_enabled() and decay.requires_grad:
+            steps = []
+            for t in range(chunk):
+                h = torch.addcmul(inp[t], decay[t], h)
+                steps.append(h)
+            hs = torch.stack(steps)
+        else:
+            hs = torch.empty_like(decay)
+            for t in range(chunk):
+                h = torch.addcmul(inp[t], decay[t], h, out=hs[t])
         ys.append(torch.einsum("cbdn,bcn->bcd", hs, cs[:, lo: lo + chunk]))
     y = torch.cat(ys, dim=1)
     return _finish(params, y, x, z, x_in.dtype)

@@ -59,6 +59,8 @@ __all__ = [
     "LOSS_CHUNK",
     "make_batch_specs",
     "make_cache_specs",
+    "make_batch_axes",
+    "make_cache_axes",
     "empty_cache",
     "dtype_of",
     "layer_slice",
@@ -144,6 +146,56 @@ def make_cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
         cache[f"dense{l}"] = transformer.block_cache_spec(
             cfg, cfg.block_type(l), batch, max_seq, dt)
     return cache
+
+
+def make_batch_axes(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """Logical axes tree matching `make_batch_specs`."""
+    if cfg.family == "audio":
+        return {"embeddings": ("batch", "seq", None),
+                "labels": ("batch", "seq")}
+    if cfg.family == "vlm":
+        return {"patches": ("batch", None, None),
+                "tokens": ("batch", "seq")}
+    return {"tokens": ("batch", "seq")}
+
+
+def make_cache_axes(cfg: ModelConfig) -> dict:
+    """Logical axes tree matching `make_cache_specs`."""
+    layout = transformer.layer_layout(cfg)
+
+    def block_axes(bt: str) -> dict:
+        if bt == "attn":
+            if cfg.use_mla:
+                return {"c_kv": ("batch", "seq_kv", "kv_lora"),
+                        "k_rope": ("batch", "seq_kv", None)}
+            if cfg.cluster_kv:
+                return {
+                    "centroids": ("batch", "kv_heads", "kv_clusters", None),
+                    "k_slots": ("batch", "kv_heads", "kv_clusters", None,
+                                None),
+                    "v_slots": ("batch", "kv_heads", "kv_clusters", None,
+                                None),
+                    "slot_valid": ("batch", "kv_heads", "kv_clusters", None),
+                    "k_recent": ("batch", None, "kv_heads", None),
+                    "v_recent": ("batch", None, "kv_heads", None),
+                    "recent_len": (),
+                }
+            return {"k": ("batch", "seq_kv", "kv_heads", None),
+                    "v": ("batch", "seq_kv", "kv_heads", None)}
+        if bt == "mamba":
+            return {"ssm": ("batch", "mlp", "state"),
+                    "conv": ("batch", None, "mlp")}
+        return {"wkv": ("batch", "heads", None, None),
+                "x_prev_time": ("batch", "embed"),
+                "x_prev_chan": ("batch", "embed")}
+
+    axes: dict = {"groups": {}, "index": ()}
+    for p, (bt, _) in enumerate(layout.positions):
+        axes["groups"][f"pos{p:02d}"] = {
+            key: ("layers",) + a for key, a in block_axes(bt).items()}
+    for l in range(cfg.first_k_dense):
+        axes[f"dense{l}"] = block_axes(cfg.block_type(l))
+    return axes
 
 
 def empty_cache(cfg: ModelConfig, batch: int, max_seq: int, device) -> dict:

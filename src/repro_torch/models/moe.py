@@ -115,8 +115,10 @@ def route(params: dict, xf: torch.Tensor, cfg: ModelConfig) -> tuple:
     top_vals, top_ids = torch.topk(probs, k, dim=-1)
     weights = top_vals / top_vals.sum(-1, keepdim=True).clamp_min(1e-9)
     # Switch-style load-balance loss; the counts are exact integers.
-    density = torch.bincount(top_ids.reshape(-1), minlength=ep).to(
-        torch.float32) / (t * k)
+    ids = top_ids.reshape(-1)
+    density = torch.zeros(ep, dtype=torch.int64, device=xf.device) \
+        .scatter_add_(0, ids, torch.ones_like(ids)).to(torch.float32) \
+        / (t * k)
     aux = e * torch.sum(density * probs.mean(dim=0)) * cfg.router_aux_coeff
     return probs, top_ids, weights, aux
 
@@ -148,9 +150,11 @@ def _dispatch(params: dict, xf: torch.Tensor, cfg: ModelConfig,
     rank = torch.arange(t * k, device=dev) - group_start[se]
     keep = rank < cap
     slot = se * cap + rank
-    buf = torch.zeros((ep * cap, d), dtype=xf.dtype, device=dev)
-    buf.index_copy_(0, slot[keep], xf[st[keep]])
-    buf = buf.reshape(ep, cap, d)
+    # dropped assignments land in one spare row past the last slot, so no
+    # shape depends on the routing
+    buf = torch.zeros((ep * cap + 1, d), dtype=xf.dtype, device=dev)
+    buf.index_copy_(0, torch.where(keep, slot, ep * cap), xf[st])
+    buf = buf[:ep * cap].reshape(ep, cap, d)
 
     dt = torch.promote_types(xf.dtype, params["wi_gate"].dtype)
     gate = torch.matmul(buf.to(dt), params["wi_gate"].to(dt))

@@ -3,10 +3,11 @@
 A model is described by a *spec tree*: nested dicts whose leaves are
 `ParamSpec(shape, logical_axes, init, scale)`, as in the JAX package's
 `models/params.py`.  From one spec tree come real parameters
-(`init_params`, drawn on the device from a `torch.Generator`) and their
-size (`spec_bytes`); `params_from_numpy` carries a JAX parameter tree
-across, key for key.  The logical axes are kept for the shapes' sake: the
-port runs on one device, so nothing is sharded.
+(`init_params`, drawn on the device from a `torch.Generator`), abstract
+ones (`abstract_params`, `meta` tensors that hold no memory, for the dry
+run), their layouts on a mesh (`param_shardings`, and `zero_shardings`
+for ZeRO-sharded state) and their size (`spec_bytes`);
+`params_from_numpy` carries a JAX parameter tree across, key for key.
 """
 
 from __future__ import annotations
@@ -22,6 +23,9 @@ __all__ = [
     "ParamSpec",
     "TensorSpec",
     "init_params",
+    "abstract_params",
+    "param_shardings",
+    "zero_shardings",
     "params_from_numpy",
     "spec_bytes",
     "spec_leaves",
@@ -103,6 +107,63 @@ def init_params(specs, generator: torch.Generator, dtype: torch.dtype,
         return draw.mul_(spec.std).to(dtype)
 
     return tree_map(make, specs)
+
+
+def abstract_params(specs, dtype: torch.dtype = torch.bfloat16) -> dict:
+    """`meta` tensors of the spec tree's shapes in `dtype`: shapes and
+    dtypes without memory (the JAX package's `jax.ShapeDtypeStruct`s)."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=dtype,
+                                          device="meta"), specs)
+
+
+def param_shardings(specs, mesh=None, rules=None) -> dict:
+    """The spec tree's layouts on `mesh` (or the current mesh), one spec
+    tuple a leaf (`distributed.sharding.resolve_spec`; ``()`` without a
+    mesh).  `distributed.sharding.sharding_for` turns a leaf's layout into
+    DTensor placements on a `DeviceMesh`."""
+    from repro_torch.distributed.sharding import resolve_spec
+
+    return tree_map(lambda s: resolve_spec(s.axes, s.shape, mesh, rules),
+                    specs)
+
+
+def zero_shardings(specs, mesh, rules=None,
+                   dp_axes=("pod", "data")) -> dict:
+    """ZeRO layouts for optimizer state (and FSDP weights): a leaf's own
+    spec plus the data-parallel mesh axes on its largest still-replicated
+    dimension that they divide, dropping the minor DP axes until they do.
+    The JAX package's rule; spec tuples padded to the leaf's rank."""
+    from repro_torch.distributed.sharding import mesh_axes, resolve_spec
+
+    sizes = mesh_axes(mesh)
+    avail_all = tuple(a for a in dp_axes if a in sizes)
+
+    def f(spec: ParamSpec) -> tuple:
+        base = resolve_spec(spec.axes, spec.shape, mesh, rules)
+        parts = list(base) + [None] * (len(spec.shape) - len(base))
+        used = set()
+        for p in parts:
+            if p is not None:
+                used.update(p if isinstance(p, tuple) else (p,))
+        avail = tuple(a for a in avail_all if a not in used)
+        if avail:
+            order = sorted(range(len(spec.shape)),
+                           key=lambda i: -spec.shape[i])
+            for i in order:
+                if parts[i] is not None:
+                    continue
+                cand = avail
+                while cand:
+                    n = math.prod(sizes[a] for a in cand)
+                    if spec.shape[i] % n == 0 and n > 1:
+                        parts[i] = cand if len(cand) > 1 else cand[0]
+                        break
+                    cand = cand[:-1]
+                if parts[i] is not None:
+                    break
+        return tuple(parts)
+
+    return tree_map(f, specs)
 
 
 def _tensor(arr) -> torch.Tensor:

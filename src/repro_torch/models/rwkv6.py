@@ -183,11 +183,22 @@ def rwkv_time_forward(params: dict, x: torch.Tensor,
     kv = torch.einsum("bcjhd,bcjhe->bchde", k2, vc)
     decay = torch.exp(total)[..., None]
 
-    state = torch.zeros((b, h, hd, hd), dtype=f32, device=x.device)
-    inter = torch.empty_like(y)
-    for c in range(nc):
-        inter[:, c] = torch.einsum("bihd,bhde->bihe", r_dec[:, c], state)
-        state = decay[:, c] * state + kv[:, c]
+    if x.device.type == "meta":
+        # shapes only (the dry run): the loop's products, chunk 0's against
+        # the zero state and the rest against states of the stacked shape
+        # in two products; the state update is elementwise
+        zero = torch.zeros((b, 1, h, hd, hd), dtype=f32, device=x.device)
+        inter = torch.cat([
+            torch.einsum("bcihd,bchde->bcihe", r_dec[:, :1], zero),
+            torch.einsum("bcihd,bchde->bcihe", r_dec[:, 1:],
+                         (kv * decay)[:, 1:])], dim=1)
+    else:
+        state = torch.zeros((b, h, hd, hd), dtype=f32, device=x.device)
+        inter = torch.empty_like(y)
+        for c in range(nc):
+            inter[:, c] = torch.einsum("bihd,bhde->bihe", r_dec[:, c],
+                                       state)
+            state = decay[:, c] * state + kv[:, c]
     y = (y + inter).reshape(b, s, d)
     return _time_output(params, y, g, cfg, x.dtype)
 

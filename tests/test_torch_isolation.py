@@ -1,8 +1,9 @@
 """The port stands alone and never hides the device.
 
-  * No module of `repro_torch`, and not `chip_smoke.py`, imports JAX or the
-    JAX package: a scan of the sources and, in a fresh interpreter, the
-    modules loaded after importing every `repro_torch` module.
+  * No module of `repro_torch`, not `chip_smoke.py` and no script of
+    `examples_torch/` imports JAX or the JAX package: a scan of the
+    sources and, in a fresh interpreter, the modules loaded after
+    importing every `repro_torch` module.
   * Entry points (the plan, the serving engine and its launcher, the
     clustering engine and its RPC launcher) run on CUDA unless the caller
     asks for the CPU, and raise rather than fall back when CUDA is absent.
@@ -46,7 +47,10 @@ FORBIDDEN_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|repro)\b",
 
 
 def test_sources_import_no_jax_and_no_reference_package():
-    sources = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    examples = sorted((ROOT / "examples_torch").glob("*.py"))
+    assert len(examples) == 4
+    sources = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"] + \
+        examples
     assert len(sources) > 10
     offenders = [str(p) for p in sources
                  if FORBIDDEN_IMPORT.search(p.read_text())]
