@@ -1,7 +1,7 @@
 """Quickstart: the paper's fast k-means++ seeding on a synthetic dataset.
 
     PYTHONPATH=src python examples_torch/quickstart.py [--n 100000] \
-        [--k 500] [--device cuda|cpu]
+        [--k 500] [--backend device|sharded|cpu] [--device cuda|cpu]
 
 The port's copy of `examples/quickstart.py`, with its options and output
 lines.  Compares FASTK-MEANS++ and REJECTIONSAMPLING (this paper) against
@@ -11,10 +11,11 @@ demonstrates the plan/execute API: one `ClusterPlan` whose prepare stage
 (multi-tree embedding, LSH keys, quantisation) is built once and reused by
 `fit` / `refit` / `fit_batch`.
 
-`--backend device` (and `--smoke`) adds the device-backend plans, whose
+`--backend device` (the default) adds the device-backend plans, whose
 sweeps, LSH accept and k-means|| distances are the hand-written kernels on
 the card; `--backend sharded` runs them over `make_seeding_mesh` (one
-shard a card, one on the CPU).  `--engine` (implied by
+shard a card, one on the CPU); `--backend cpu` leaves them out unless
+`--smoke` is given, as the JAX script's default run does.  `--engine` (implied by
 `--smoke`) adds the async pipeline: a `ClusterEngine` overlapping the host
 prepare of dataset i+1 with the device solve of dataset i, plus the stacked
 `fit_batch(datasets=...)` that solves several *different* datasets as one
@@ -46,10 +47,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--smoke", action="store_true",
                     help="CI-sized run: tiny dataset, every API surface")
     ap.add_argument("--backend", choices=("cpu", "device", "sharded"),
-                    default="cpu",
-                    help="'device' also runs the device seeders (the "
-                         "hand-written kernels on the card); 'sharded' "
-                         "their sharded twins over a seeding mesh")
+                    default="device",
+                    help="'device' (the default) also runs the device "
+                         "seeders (the hand-written kernels on the card); "
+                         "'sharded' their sharded twins over a seeding "
+                         "mesh; 'cpu' only the host seeders")
     ap.add_argument("--engine", action="store_true",
                     help="also run the async ClusterEngine pipeline demo "
                          "(overlap host prepare with device solve) and the "

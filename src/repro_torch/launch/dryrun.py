@@ -40,6 +40,7 @@ program shows (``cannot_record``).  Records go to
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -55,8 +56,8 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
 from repro_torch.distributed.sharding import mesh_axes, resolve_spec
 from repro_torch.kernels import ops
 from repro_torch.launch.mesh import abstract_production_mesh
+from repro_torch.models import mamba, rwkv6, transformer
 from repro_torch.models import model as M
-from repro_torch.models import transformer
 from repro_torch.models.params import (TensorSpec, abstract_params,
                                        param_shardings, spec_leaves,
                                        tree_map, zero_shardings)
@@ -127,6 +128,39 @@ def _meta_inputs(spec_tree) -> dict:
                                           device="meta"), spec_tree)
 
 
+def _mamba_states_on_meta(inp, decay, h):
+    # the recurrence is elementwise, no product that an operation count
+    # reads, so one op of the states' shape stands in for the step loop
+    return torch.addcmul(inp, decay, inp)
+
+
+def _rwkv_inter_on_meta(r_dec, decay, kv):
+    # the loop's products in two: chunk 0's against the zero state, the
+    # rest against states of the stacked shape; the update is elementwise
+    b, _, _, h, hd = r_dec.shape
+    zero = r_dec.new_zeros((b, 1, h, hd, hd))
+    return torch.cat([
+        torch.einsum("bcihd,bchde->bcihe", r_dec[:, :1], zero),
+        torch.einsum("bcihd,bchde->bcihe", r_dec[:, 1:],
+                     (kv * decay)[:, 1:])], dim=1)
+
+
+@contextlib.contextmanager
+def _shape_only_scans():
+    """Mamba's step loop and RWKV-6's chunk loop replaced by stand-ins of
+    the same output shape and the same products: a Python loop a step or a
+    chunk would make a long cell's count take minutes.  The stand-ins'
+    values are not the scans'; `tests/test_torch_dryrun.py` holds their
+    counts to the real loops' on CPU tensors."""
+    saved = mamba._chunk_states, rwkv6._inter_chunk
+    mamba._chunk_states = _mamba_states_on_meta
+    rwkv6._inter_chunk = _rwkv_inter_on_meta
+    try:
+        yield
+    finally:
+        mamba._chunk_states, rwkv6._inter_chunk = saved
+
+
 class _SavedBytes:
     """`saved_tensors_hooks` that add up the storages autograd keeps for
     the backward, each once, leaving out the parameters'."""
@@ -195,7 +229,7 @@ def count_operations(cfg: ModelConfig, shape: ShapeConfig,
     fn, needs_grad = step_function(cfg, shape, rows, remat=remat)
     saved = _SavedBytes(leaves) if needs_grad else None
     t0 = time.perf_counter()
-    with ops.counting_on_meta() as kernels, \
+    with ops.counting_on_meta() as kernels, _shape_only_scans(), \
             FlopCounterMode(display=False) as counter:
         if saved is None:
             fn(params)

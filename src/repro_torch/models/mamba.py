@@ -107,6 +107,26 @@ def _finish(params: dict, y: torch.Tensor, x: torch.Tensor, z: torch.Tensor,
     return matmul(y.to(dtype) * F.silu(z), params["out_proj"])
 
 
+def _chunk_states(inp: torch.Tensor, decay: torch.Tensor,
+                  h: torch.Tensor) -> torch.Tensor:
+    """The states h_t = decay_t h_{t-1} + inp_t of one chunk, (c, B, d, N),
+    from the state `h` before it: one fused multiply-add a step, written
+    into one buffer, or stacked where autograd records (`addcmul(out=)`
+    cannot be differentiated).  `launch/dryrun.py` swaps in a shape-only
+    stand-in for this loop while it counts on `meta`."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (inp, decay, h)):
+        steps = []
+        for t in range(decay.shape[0]):
+            h = torch.addcmul(inp[t], decay[t], h)
+            steps.append(h)
+        return torch.stack(steps)
+    hs = torch.empty_like(decay)
+    for t in range(decay.shape[0]):
+        h = torch.addcmul(inp[t], decay[t], h, out=hs[t])
+    return hs
+
+
 def mamba_forward(params: dict, x_in: torch.Tensor,
                   cfg: ModelConfig) -> torch.Tensor:
     """x_in (B, L, D) -> (B, L, D): the chunked selective scan from a zero
@@ -138,21 +158,8 @@ def mamba_forward(params: dict, x_in: torch.Tensor,
         decay = torch.exp(dtc[..., None] * a)                  # (c, B, d, N)
         inp = (dtc * xs[:, lo: lo + chunk].transpose(0, 1))[..., None] * \
             bs[:, lo: lo + chunk].transpose(0, 1)[:, :, None, :]
-        if decay.device.type == "meta":
-            # shapes only (the dry run): the recurrence is elementwise, no
-            # product that an operation count reads, so one op of its
-            # output's shape stands in for the loop
-            hs = torch.addcmul(inp, decay, inp)
-        elif torch.is_grad_enabled() and decay.requires_grad:
-            steps = []
-            for t in range(chunk):
-                h = torch.addcmul(inp[t], decay[t], h)
-                steps.append(h)
-            hs = torch.stack(steps)
-        else:
-            hs = torch.empty_like(decay)
-            for t in range(chunk):
-                h = torch.addcmul(inp[t], decay[t], h, out=hs[t])
+        hs = _chunk_states(inp, decay, h)
+        h = hs[-1]
         ys.append(torch.einsum("cbdn,bcn->bcd", hs, cs[:, lo: lo + chunk]))
     y = torch.cat(ys, dim=1)
     return _finish(params, y, x, z, x_in.dtype)

@@ -153,6 +153,21 @@ def _time_output(params: dict, y: torch.Tensor, g: torch.Tensor,
     return matmul(y * F.silu(g), params["wo"])
 
 
+def _inter_chunk(r_dec: torch.Tensor, decay: torch.Tensor,
+                 kv: torch.Tensor) -> torch.Tensor:
+    """Each chunk's decayed receptances r_dec (B, nc, L, H, hd) against the
+    state carried into it, S <- decay S + kv from a zero state: one loop
+    step a chunk.  `launch/dryrun.py` swaps in a shape-only stand-in for
+    this loop while it counts on `meta`."""
+    b, nc, _, h, hd = r_dec.shape
+    state = r_dec.new_zeros((b, h, hd, hd))
+    inter = torch.empty_like(r_dec)
+    for c in range(nc):
+        inter[:, c] = torch.einsum("bihd,bhde->bihe", r_dec[:, c], state)
+        state = decay[:, c] * state + kv[:, c]
+    return inter
+
+
 def rwkv_time_forward(params: dict, x: torch.Tensor,
                       cfg: ModelConfig) -> torch.Tensor:
     """(B, S, D) -> (B, S, D); the chunked wkv linear attention from a zero
@@ -183,23 +198,7 @@ def rwkv_time_forward(params: dict, x: torch.Tensor,
     kv = torch.einsum("bcjhd,bcjhe->bchde", k2, vc)
     decay = torch.exp(total)[..., None]
 
-    if x.device.type == "meta":
-        # shapes only (the dry run): the loop's products, chunk 0's against
-        # the zero state and the rest against states of the stacked shape
-        # in two products; the state update is elementwise
-        zero = torch.zeros((b, 1, h, hd, hd), dtype=f32, device=x.device)
-        inter = torch.cat([
-            torch.einsum("bcihd,bchde->bcihe", r_dec[:, :1], zero),
-            torch.einsum("bcihd,bchde->bcihe", r_dec[:, 1:],
-                         (kv * decay)[:, 1:])], dim=1)
-    else:
-        state = torch.zeros((b, h, hd, hd), dtype=f32, device=x.device)
-        inter = torch.empty_like(y)
-        for c in range(nc):
-            inter[:, c] = torch.einsum("bihd,bhde->bihe", r_dec[:, c],
-                                       state)
-            state = decay[:, c] * state + kv[:, c]
-    y = (y + inter).reshape(b, s, d)
+    y = (y + _inter_chunk(r_dec, decay, kv)).reshape(b, s, d)
     return _time_output(params, y, g, cfg, x.dtype)
 
 

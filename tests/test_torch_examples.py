@@ -22,7 +22,8 @@ Held here:
     loss of the tiny preset is the JAX `Trainer`'s within rtol 5e-3 (both
     draw random weights from the same law, from different generators), and
     a rerun in the same workdir resumes with nothing left to do;
-  * each copy's default device is the card, which raises without CUDA.
+  * each copy's default device is the card, which raises without CUDA,
+    and quickstart's default backend is the device one.
 """
 
 import contextlib
@@ -67,13 +68,30 @@ def _run(main, argv=None, sys_argv=None, monkeypatch=None):
 
 
 @pytest.mark.parametrize("name", NAMES)
-def test_examples_default_to_the_card(name):
-    """Without CUDA the default device raises rather than falls back."""
-    assert not torch.cuda.is_available()
+def test_examples_default_to_the_card(name, monkeypatch):
+    """Without CUDA the default device raises rather than falls back, at a
+    small size and with no flags at all."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     argv = {"train_lm": ["--steps", "1", "--workdir", "unused"],
             "serve_cluster_kv": ["--seq", "256"]}.get(name, ["--smoke"])
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        _port(name).main(argv)
+    for args in (argv, []):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            _port(name).main(args)
+
+
+def test_quickstart_defaults_to_the_device_backend():
+    """Without `--backend` the device-backend plans run (the kernels, on
+    the card by default); `--backend cpu` is the JAX script's default run."""
+    qs = _port("quickstart")
+    args = ["--n", "1500", "--d", "5", "--k", "10", "--device", "cpu"]
+    got, lines = _run(qs.main, args)
+    assert "device backend plans (1 device(s), schedule=adaptive):" in lines
+    assert set(got["device"]) == {"fastkmeans++", "rejection", "kmeans||"}
+    for row in got["device"].values():
+        assert np.isfinite(row["cost"]) and row["cost"] > 0
+    assert "engine" not in got
+    got, _ = _run(qs.main, args + ["--backend", "cpu"])
+    assert "device" not in got and "engine" not in got
 
 
 def test_quickstart_rows_match_the_jax_package():

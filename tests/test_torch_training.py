@@ -2,7 +2,11 @@
 
 Configs are the JAX training tests' `TINY` olmo (2 layers, d_model 64, 2
 heads of 32, d_ff 128, vocab 257) and `reduce_for_smoke("yi-9b")` (4
-layers, d_model 128, 4 heads of 32 over 2 KV heads: GQA).  Weights are
+layers, d_model 128, 4 heads of 32 over 2 KV heads: GQA); for the loss
+and gradients also `reduce_for_smoke` of qwen2-moe-a2.7b (MoE routing and
+dispatch), rwkv6-3b (the chunked wkv scan) and jamba-1.5-large-398b cut
+to one period of its layout, 8 layers (Mamba's scan, attention and MoE).
+Weights are
 the JAX package's own draws carried across with `params_from_numpy`;
 tokens come from `TokenStream`, which is NumPy in both packages.  Held
 here:
@@ -33,8 +37,10 @@ leaf's largest magnitude: how far the JAX package's own gradients move
 when the weights move by 1e-7 relative noise.  The random weights make
 the models chaotic (the JAX package's init takes fan_in as the head count
 of the 3-D attention weights), so f32 rounding in other summation orders
-is amplified: the floor is about 1.5e-4 for TINY olmo and 3.4e-3 for
-reduced yi-9b, and the port's gaps are 1.1e-4 and 1.5e-3.  AdamW's
+is amplified: under remat "none" the floor is about 1.5e-4 for TINY
+olmo, 3.4e-3 for reduced yi-9b, 3.5e-3 for qwen2-moe, 6.4e-5 for rwkv6
+and 2.5e-4 for the jamba period, and the port's gaps are 1.1e-4, 1.6e-3,
+2.3e-3, 8.9e-5 and 1.6e-4.  AdamW's
 updates to 1e-6 relative on the same gradients (the same operations in
 the same order; XLA's `pow` and `cos` may differ from PyTorch's by an
 ulp).
@@ -84,6 +90,7 @@ from repro_torch.training.trainer import Trainer
 
 TINY_CUTS = dict(num_layers=2, d_model=64, num_heads=2, num_kv_heads=2,
                  head_dim=32, d_ff=128, vocab_size=257)
+JAMBA_LAYERS = 8
 LOSS_RTOL = 2e-6
 GRAD_RTOL = 1e-4
 ADAM_RTOL = 1e-6
@@ -105,7 +112,13 @@ def _configs(arch: str):
                                     **TINY_CUTS),
                 dataclasses.replace(reduce_for_smoke(get_config("olmo-1b")),
                                     **TINY_CUTS))
-    return jax_reduce(jax_get_config(arch)), reduce_for_smoke(get_config(arch))
+    cfgs = jax_reduce(jax_get_config(arch)), reduce_for_smoke(get_config(arch))
+    if arch == "jamba-1.5-large-398b":
+        # one period of its layout: seven Mamba layers and one attention
+        # layer, MoE on every other one
+        cfgs = tuple(dataclasses.replace(c, num_layers=JAMBA_LAYERS)
+                     for c in cfgs)
+    return cfgs
 
 
 def _setup(arch: str):
@@ -152,8 +165,12 @@ def _assert_grads_close(got: dict, want: dict, share: float):
                                    err_msg=key)
 
 
-@pytest.mark.parametrize("remat", ["none", "block", "dots"])
-@pytest.mark.parametrize("arch", ["olmo-tiny", "yi-9b"])
+@pytest.mark.parametrize("arch, remat", [
+    (arch, remat) for arch in ("olmo-tiny", "yi-9b")
+    for remat in ("none", "block", "dots")] + [
+    (arch, remat) for arch in ("qwen2-moe-a2.7b", "rwkv6-3b",
+                               "jamba-1.5-large-398b")
+    for remat in ("none", "block", "dots")])
 def test_loss_and_grads_match_jax(arch, remat):
     jcfg, cfg, jparams, params = _setup(arch)
     toks = TokenStream(cfg.vocab_size, 32, 2, seed=3).next_batch()
